@@ -15,7 +15,20 @@ any failure ends the run with a traceback and a non-zero exit:
    ``s2d_fused`` synthetic training benchmark at 224x224, full width,
    bf16, with the kernel and collective counts read around it;
 5. reference: a small ResNet's train step on the GPU against the same step
-   on the CPU (the CPU port is held against the JAX package by the tests).
+   on the CPU (the CPU port is held against the JAX package by the tests);
+6. flash kernel check: the forward, dQ and dK/dV flash-attention kernels
+   against their plain PyTorch versions in bf16, row by row, at the LM's
+   shape and at small ones (non-causal, a custom scale, segment ids with a
+   fully masked row, ragged T), the autograd Function's output and
+   gradients against the plain versions, and each kernel's time
+   beside its bound, its plain version's and
+   ``scaled_dot_product_attention``'s;
+7. LM main path: the transformer-LM benchmark of record (``bench.py``'s
+   d3072/L10/H24, T 2048, batch 4, flash attention, bf16 momentum) for 2
+   warmup and 10 timed steps, with the flash launch counts read around it;
+8. LM reference: a small f32 LM step on the GPU against the CPU, and a
+   small packed bf16 LM's logits and gradients through the flash route
+   against the local one.
 
 It prints one JSON line of kernel numbers and, last, one JSON line naming
 the device.  With no GPU it exits non-zero and prints no result.
@@ -36,10 +49,37 @@ BATCH = 256
 IMAGE = 224
 WARMUP_STEPS = 3
 TIMED_STEPS = 10
-# Card roofline (NVIDIA H100 SXM data sheet): HBM bytes/s and float32
-# non-tensor-core operations/s.
+# LM main path: the benchmark of record (bench.py:133-144), full width and
+# depth, per-rank batch 4.
+LM = dict(d_model=3072, n_layers=10, n_heads=24, d_ff=12288,
+          vocab_size=32768, seq_len=2048, batch_size=4)
+LM_WARMUP_STEPS = 2
+LM_TIMED_STEPS = 10
+# Card roofline (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
+# non-tensor-core operations/s and dense bf16 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# Flash tolerances (bf16 operands, f32 accumulation).  o, dq, dk and dv
+# are held row by row, a row being the D values of one (batch*head,
+# position):  ||a_r - b_r|| <= FLASH_ROW_RTOL * ||b_r|| + FLASH_ROW_ATOL *
+# median_r ||b_r||.  Under causal masking the rows of late queries and
+# keys are 30-50x smaller than the first ones, so one limit scaled by the
+# whole tensor's largest value would pass a kernel that is wrong on every
+# late tile; this one scales with each row.  The median term is the floor
+# for rows that cancel to about 0 in exact arithmetic (dq of a segment's
+# first query).  Also o max abs <= FLASH_O_TOL, and m and l relative to
+# max(1, |ref|) <= FLASH_ML_TOL.
+FLASH_ROW_RTOL = 2 ** -6
+FLASH_ROW_ATOL = 2 ** -8
+FLASH_O_TOL = 2e-2
+FLASH_ML_TOL = 1e-4
+# The flash route in a small bf16 LM against the local route: logits row
+# by row (one row per token), ||a_r - b_r|| / ||b_r||, and loss_fn's
+# gradients leaf by leaf, ||a - b|| / ||b||.  The local route rounds its
+# scores and probabilities to bf16, so it is the noisier of the two.
+LM_LOGIT_TOL = 2 ** -5
+LM_GRAD_TOL = 2 ** -4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -259,6 +299,418 @@ def phase_reference() -> None:
     dist.destroy_process_group(gloo)
 
 
+# ---------------------------------------------------------------------------
+# Flash attention and the transformer LM
+# ---------------------------------------------------------------------------
+
+def _bf16(shape, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _rel_to_one(a, b) -> float:
+    """max |a - b| / max(1, |b|), elementwise (m is often near 0)."""
+    a, b = a.float(), b.float()
+    both_inf = (a == b)
+    err = ((a - b).abs() / b.abs().clamp_min(1.0)).masked_fill(both_inf, 0.0)
+    return err.max().item()
+
+
+def _row_ratio(a, b) -> float:
+    """The worst row's ||a_r - b_r|| over its limit FLASH_ROW_RTOL *
+    ||b_r|| + FLASH_ROW_ATOL * median_r ||b_r||, rows along the last
+    dimension; the check passes at <= 1."""
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    err, ref = (a - b).norm(dim=-1), b.norm(dim=-1)
+    limit = FLASH_ROW_RTOL * ref + FLASH_ROW_ATOL * ref.median()
+    return torch.where(err == 0, 0.0, err / limit).max().item()
+
+
+def _segments(b, t, lengths, device="cuda"):
+    ids = torch.repeat_interleave(torch.arange(len(lengths)),
+                                  torch.tensor(lengths))
+    check(ids.numel() == t, f"segment lengths {lengths} do not sum to {t}")
+    return ids[None].repeat(b, 1).to(device=device, dtype=torch.int32)
+
+
+def _flash_case(fa, b, t, h, d, causal, scale, qseg, kseg, seed, label):
+    """One shape: the three kernels against their plain versions on the
+    same inputs; returns the errors by name and the inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (_bf16((b * h, t, d), gen) for _ in range(4))
+    sc = d ** -0.5 if scale is None else scale
+    before = (fa.fwd_launches.count, fa.dq_launches.count,
+              fa.dkv_launches.count)
+    o, m, l = fa._fwd_parts(q, k, v, qseg, kseg, causal, sc)
+    ro, rm, rl = fa._fwd_parts_plain(q, k, v, qseg, kseg, causal, sc)
+    dq = fa._launch_dq(q, k, v, ro, do, rm, rl, qseg, kseg, causal, sc)
+    dk, dv = fa._launch_dkv(q, k, v, ro, do, rm, rl, qseg, kseg, causal,
+                            sc)
+    rdq = fa._bwd_dq_plain(q, k, v, ro, do, rm, rl, qseg, kseg, causal, sc)
+    rdk, rdv = fa._bwd_dkv_plain(q, k, v, ro, do, rm, rl, qseg, kseg,
+                                 causal, sc)
+    torch.cuda.synchronize()
+    after = (fa.fwd_launches.count, fa.dq_launches.count,
+             fa.dkv_launches.count)
+    check(after == tuple(x + 1 for x in before),
+          f"flash {label}: launches {before} -> {after}")
+    for name, x in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        check(bool(torch.isfinite(x).all()), f"flash {label}: {name} has "
+              f"non-finite values")
+    errs = {
+        "o": _max_abs(o, ro),
+        "ml": max(_rel_to_one(m, rm), _rel_to_one(l, rl)),
+        "dq_abs": _max_abs(dq, rdq),
+        "dkv_abs": max(_max_abs(dk, rdk), _max_abs(dv, rdv)),
+    }
+    rows = {"o": _row_ratio(o, ro), "dq": _row_ratio(dq, rdq),
+            "dk": _row_ratio(dk, rdk), "dv": _row_ratio(dv, rdv)}
+    check(errs["o"] <= FLASH_O_TOL, f"flash {label}: o err {errs['o']}")
+    check(errs["ml"] <= FLASH_ML_TOL, f"flash {label}: m/l err "
+          f"{errs['ml']}")
+    for name, ratio in rows.items():
+        check(ratio <= 1.0, f"flash {label}: {name} row error at {ratio:.3g}"
+              f" x its limit")
+    print(f"flash {label} [B*H={b * h}, T={t}, D={d}] causal={causal} "
+          f"scale={sc:.4g}: o max abs {errs['o']:.3g}, m/l rel "
+          f"{errs['ml']:.3g}; worst row / limit: " + ", ".join(
+              f"{n} {r:.3g}" for n, r in rows.items()), flush=True)
+    return errs, (q, k, v, do)
+
+
+def _flash_grad_case(fa, b, t, h, d, seg, seed, label):
+    """The autograd Function ([B, T, H, D] read in place): its o against
+    the plain forward, and its gradients against the plain backward fed
+    the o the Function saved.  The backward takes di = rowsum(dO*O) from
+    that bf16 o, as the TPU kernels do, so a reference with another o (the
+    plain forward's, which differs by rounding flips, or autograd's f32
+    one) moves di on rows whose attention sits on one key by several
+    times the row limit."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (_bf16((b, t, h, d), gen) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, block_q=64, block_k=64,
+                             segment_ids=seg)
+    got = torch.autograd.grad(out, leaves, g)
+    qf, kf, vf, gf = (fa._fold(x) for x in (q, k, v, g))
+    ro, rm, rl = fa._fwd_parts_plain(qf, kf, vf, seg, seg, True, d ** -0.5)
+    want = fa._bwd_parts_plain(qf, kf, vf, fa._fold(out.detach()), gf, rm,
+                               rl, seg, seg, True, d ** -0.5)
+    err_o = _max_abs(fa._fold(out), ro)
+    check(err_o <= FLASH_O_TOL, f"flash grads {label}: o err {err_o}")
+    rows = {name: _row_ratio(fa._fold(a), w)
+            for name, a, w in zip(("o", "dq", "dk", "dv"), (out,) + got,
+                                  (ro,) + want)}
+    for name, ratio in rows.items():
+        check(ratio <= 1.0, f"flash grads {label}: {name} row error at "
+              f"{ratio:.3g} x its limit")
+    print(f"flash grads {label} [{b}, {t}, {h}, {d}]: Function vs the plain "
+          f"versions; worst row / limit: " + ", ".join(
+              f"{n} {r:.3g}" for n, r in rows.items()), flush=True)
+
+
+def _attention_flops(b, t, h, d, causal, per_pair):
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    return per_pair * d * pairs
+
+
+def _bound(flops, nbytes):
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def phase_flash_check() -> list:
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, t, h, d = LM["batch_size"], LM["seq_len"], LM["n_heads"], \
+        LM["d_model"] // LM["n_heads"]
+    main, (q, k, v, do) = _flash_case(fa, b, t, h, d, True, None, None,
+                                      None, 11, "main shape")
+    del q, k, v, do
+    _flash_case(fa, 2, 64, 4, 64, False, None, None, None, 12,
+                "non-causal T=64")
+    _flash_case(fa, 2, 192, 3, 128, True, 0.3, None, None, 13,
+                "custom scale T=192")
+    seg = _segments(1, 2048, [700, 1000, 348])
+    _flash_case(fa, 1, 2048, 2, 64, True, None, seg, seg, 14,
+                "segments T=2048")
+    # q-side segment 3 never appears on the k side: those rows are fully
+    # masked (o = 0, zero gradients), as ring attention's rotated ids give.
+    qseg = _segments(2, 192, [64, 64, 40, 24])
+    kseg = _segments(2, 192, [64, 64, 64])
+    _, (q, k, v, do) = _flash_case(fa, 2, 192, 2, 32, False, None, qseg,
+                                   kseg, 15, "fully masked rows")
+    o, m, l = fa._fwd_parts(q, k, v, qseg, kseg, False, 32 ** -0.5)
+    dq = fa._launch_dq(q, k, v, o, do, m, l, qseg, kseg, False, 32 ** -0.5)
+    dk, dv = fa._launch_dkv(q, k, v, o, do, m, l, qseg, kseg, False,
+                            32 ** -0.5)
+    masked = slice(168, 192)
+    check(bool((o[:, masked] == 0).all()) and bool((l[:, 0, masked] ==
+                                                     0).all()) and
+          bool((dq[:, masked] == 0).all()),
+          "fully masked rows must give o = 0, l = 0 and dq = 0")
+    check(bool(torch.isfinite(dk).all()) and bool(torch.isfinite(dv).all()),
+          "fully masked rows leave dk/dv finite")
+    print("flash fully masked rows: o = 0, l = 0, dq = 0, dk/dv finite",
+          flush=True)
+    _flash_case(fa, 1, 40, 2, 16, True, None, None, None, 16,
+                "ragged T=40")
+    _flash_grad_case(fa, 2, 256, 2, 128, None, 17, "T=256")
+    _flash_grad_case(fa, 1, 192, 2, 64, _segments(1, 192, [100, 92]), 18,
+                     "segments T=192")
+    _flash_grad_case(fa, b, t, h, d, None, 19, "main shape")
+
+    # Times at the main-path shape and layout ([B, T, H, D] in place).
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, do = (_bf16((b, t, h, d), gen) for _ in range(4))
+    sc = d ** -0.5
+    o, m, l = fa._launch_fwd(q, k, v, None, None, True, sc)
+    qf, kf, vf, of, dof = (fa._fold(x).contiguous() for x in (q, k, v, o,
+                                                             do))
+    ms = {
+        "fwd": time_ms(lambda: fa._launch_fwd(q, k, v, None, None, True,
+                                              sc)),
+        "dq": time_ms(lambda: fa._launch_dq(q, k, v, o, do, m, l, None,
+                                            None, True, sc)),
+        "dkv": time_ms(lambda: fa._launch_dkv(q, k, v, o, do, m, l, None,
+                                              None, True, sc)),
+    }
+    plain_ms = {
+        "fwd": time_ms(lambda: fa._fwd_parts_plain(qf, kf, vf, None, None,
+                                                   True, sc), runs=10),
+        "dq": time_ms(lambda: fa._bwd_dq_plain(qf, kf, vf, of, dof, m, l,
+                                               None, None, True, sc),
+                      runs=10),
+        "dkv": time_ms(lambda: fa._bwd_dkv_plain(qf, kf, vf, of, dof, m, l,
+                                                 None, None, True, sc),
+                       runs=10),
+    }
+    del qf, kf, vf, of, dof
+    # The library call that computes the same function: SDPA, [B, H, T,
+    # D].  Timed here as a yardstick; the port never calls it.
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v,
+                                                               do))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    leaves = [x.clone().requires_grad_() for x in (qh, kh, vh)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, leaves, doh,
+                                                   retain_graph=True))
+    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
+        doh))
+    del out, leaves
+    n = b * t * h * d * 2                    # bytes of one bf16 operand
+    ml = 2 * b * h * t * 4                   # m and l, f32
+    work = {
+        "fwd": (_attention_flops(b, t, h, d, True, 4), 4 * n + ml),
+        "dq": (_attention_flops(b, t, h, d, True, 6), 6 * n + ml),
+        "dkv": (_attention_flops(b, t, h, d, True, 8), 7 * n + ml),
+    }
+    rows = []
+    for key, name, line, err in (
+            ("fwd", "flash_attention_fwd", 108, main["o"]),
+            ("dq", "flash_attention_bwd_dq", 173, main["dq_abs"]),
+            ("dkv", "flash_attention_bwd_dkv", 226, main["dkv_abs"])):
+        bound_ms, bound_by = _bound(*work[key])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"horovod_tpu/ops/flash_attention.py:{line}",
+            "launches": None, "max_abs_err": err, "ms": ms[key],
+            "plain_ms": plain_ms[key], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # dq and dkv share SDPA's one backward time.
+            "library_ms": sdpa_fwd if key == "fwd" else sdpa_bwd,
+            "flops": work[key][0], "bytes": work[key][1],
+        })
+        print(f"{name} at [{b}, {t}, {h}, {d}] bf16 causal: kernel "
+              f"{ms[key]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{work[key][0]:.4g} FLOP, {work[key][1]} bytes; "
+              f"{bound_ms / ms[key] * 100:.1f} % of bound), plain "
+              f"{plain_ms[key]:.4f} ms", flush=True)
+    print(f"scaled_dot_product_attention at [{b}, {h}, {t}, {d}] bf16 "
+          f"causal: forward {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms, "
+          f"forward+backward {sdpa_fwd_bwd:.4f} ms", flush=True)
+    return rows
+
+
+def phase_lm_main_path(smi: str) -> dict:
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.benchmark import run_lm_benchmark
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+
+    hvd.init()
+    check(dist.get_backend() == "nccl",
+          f"process group backend is {dist.get_backend()}, not nccl")
+    torch.cuda.empty_cache()
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    for c in counters:
+        c.reset()
+    fusion.allreduce_calls.reset()
+    res = run_lm_benchmark(
+        **LM, attention="flash", remat="none", momentum_dtype="bfloat16",
+        num_warmup_batches=LM_WARMUP_STEPS, num_batches_per_iter=1,
+        num_iters=LM_TIMED_STEPS)
+    counts = {c.name: c.count for c in counters}
+    calls = fusion.allreduce_calls.count
+    steps = LM_WARMUP_STEPS + LM_TIMED_STEPS
+    for i, loss in enumerate(res["step_losses"]):
+        check(loss == loss and abs(loss) != float("inf"),
+              f"LM step {i} loss is not finite: {loss}")
+    check(len(res["step_losses"]) == LM_TIMED_STEPS, "missing LM losses")
+    want = LM["n_layers"] * steps
+    for name, count in counts.items():
+        check(count == want, f"{name} launched {count} times; expected "
+              f"{LM['n_layers']} layers x {steps} steps = {want}")
+    check(calls >= steps and calls % steps == 0,
+          f"fusion all_reduce calls {calls} over {steps} LM steps")
+    print(f"LM losses finite: {res['step_losses'][0]:.6f} -> "
+          f"{res['step_losses'][-1]:.6f}; flash launches {counts} = "
+          f"{LM['n_layers']} per step x {steps} steps; fusion all_reduce "
+          f"calls {calls} ({calls // steps} bucket(s) per step)", flush=True)
+    summary = {k: res[k] for k in (
+        "d_model", "n_layers", "n_heads", "d_ff", "vocab_size", "seq_len",
+        "batch_size", "attention", "momentum_dtype", "device",
+        "tok_sec_per_chip", "tok_sec_conf", "ms_per_step",
+        "flops_per_step_analytic", "tflops_per_chip", "peak_tflops", "mfu",
+        "max_memory_allocated")}
+    summary["nvidia_smi"] = smi
+    print("LM main path: " + json.dumps(summary), flush=True)
+    return counts
+
+
+def _small_lm_params(cfg, seed):
+    """A seeded LM parameter tree (numpy), as the port's state_dict."""
+    import numpy as np
+
+    from horovod_tpu_torch.models.convert import lm_params_to_torch
+
+    rng = np.random.default_rng(seed)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def dense(shape, scale=None):
+        return rng.standard_normal(shape) * (scale or shape[0] ** -0.5)
+
+    def norm():
+        return 1.0 + 0.2 * rng.standard_normal(d)
+
+    return lm_params_to_torch({
+        "embed": dense((cfg.vocab_size, d), 0.02),
+        "pos": dense((cfg.max_seq, d), 0.02),
+        "ln_f_scale": norm(),
+        "layers": [{"ln1_scale": norm(), "ln2_scale": norm(),
+                    "wq": dense((d, d)), "wk": dense((d, d)),
+                    "wv": dense((d, d)), "wo": dense((d, d)),
+                    "w1": dense((d, f)), "w2": dense((f, d))}
+                   for _ in range(cfg.n_layers)],
+    })
+
+
+def phase_lm_reference() -> None:
+    """A small f32 LM step on the GPU against the CPU, and a small bf16
+    LM's logits and gradients through the flash route against the local
+    one, on the GPU."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.models.convert import lm_ordered_parameters
+    from horovod_tpu_torch.optim import SGD
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.topology import build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_heads=2,
+                                n_layers=2, d_ff=64, max_seq=32,
+                                dtype=torch.float32)
+    sd = _small_lm_params(cfg, 0)
+    toks = np.random.default_rng(1).integers(0, 64, (2, 33))
+    tokens, labels = (torch.from_numpy(x.copy()) for x in (toks[:, :-1],
+                                                          toks[:, 1:]))
+    gloo = dist.new_group(backend="gloo")
+    out = {}
+    for dev, group in (("cuda", None), ("cpu", gloo)):
+        model = tfm.TransformerLM(cfg, device=dev)
+        model.load_state_dict(sd)
+        opt = SGD([p for _, p in lm_ordered_parameters(model)], 0.1, 0.9,
+                  torch.bfloat16)
+        step = tfm.make_train_step(model, opt, build_mesh(group, dev),
+                                   attention="local")
+        loss = step(tokens.to(dev), labels.to(dev))
+        loss2 = step(tokens.to(dev), labels.to(dev))
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        state.update({f"trace{i}": t.float().cpu()
+                      for i, t in enumerate(opt.trace)})
+        out[dev] = (float(loss), float(loss2), state)
+    (lg, lg2, sg), (lc, lc2, sc) = out["cuda"], out["cpu"]
+    for a, c in ((lg, lc), (lg2, lc2)):
+        check(abs(a - c) <= 1e-5 * max(1.0, abs(c)),
+              f"small LM loss gpu {a} vs cpu {c}")
+    worst = max((sg[k] - sc[k]).abs().max().item() for k in sc)
+    check(worst <= 1e-4, f"small LM state after two steps differs by "
+          f"{worst} between gpu and cpu")
+    print(f"LM reference: small f32 LM, two steps, gpu losses {lg:.6f} "
+          f"{lg2:.6f} vs cpu {lc:.6f} {lc2:.6f}; params and bf16 momentum "
+          f"max abs diff {worst:.3g} (tolerance 1e-4, TF32 off)", flush=True)
+    dist.destroy_process_group(gloo)
+
+    # The flash route inside the model ([B, T, H, D] read in place, the
+    # segment ids passed through) against the local route, both bf16 on
+    # the GPU, packed, the same weights.  The loss alone has no power here
+    # (about ln 512 at random init whatever attention returns), so the
+    # logits and the gradients are compared; the loss is printed only.
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=256, n_heads=2,
+                                n_layers=2, d_ff=512, max_seq=256,
+                                dtype=torch.bfloat16)
+    model = tfm.TransformerLM(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    leaves = [p for _, p in lm_ordered_parameters(model)]
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (2, 257))).cuda()
+    seg = _segments(2, 256, [100, 60, 96])
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    before = [c.count for c in counters]
+    out = {}
+    for route in ("flash", "local"):
+        logits = tfm.forward(model.tree(), toks[:, :-1], cfg,
+                             attention=route, segment_ids=seg)
+        loss = tfm.xent(logits, toks[:, 1:])
+        out[route] = (logits.detach(), float(loss.detach()),
+                      torch.autograd.grad(loss, leaves))
+    check([c.count - n for c, n in zip(counters, before)] ==
+          [cfg.n_layers] * 3, "the flash route did not launch the forward, "
+          "dq and dkv kernels once per layer")
+    (lf, loss_f, gf), (ll, loss_l, gl) = out["flash"], out["local"]
+    logit_err = ((lf - ll).norm(dim=-1) / ll.norm(dim=-1)).max().item()
+    grad_err = {name: ((a - b).norm() / b.norm()).item()
+                for (name, _), a, b in zip(lm_ordered_parameters(model), gf,
+                                           gl)}
+    worst = max(grad_err, key=grad_err.get)
+    check(logit_err <= LM_LOGIT_TOL, f"small bf16 LM logits flash vs local:"
+          f" worst row {logit_err:.3g} > {LM_LOGIT_TOL}")
+    check(grad_err[worst] <= LM_GRAD_TOL, f"small bf16 LM grads flash vs "
+          f"local: {worst} {grad_err[worst]:.3g} > {LM_GRAD_TOL}")
+    print(f"LM reference: small packed bf16 LM on the GPU, flash vs local "
+          f"route: logits worst row {logit_err:.3g} (max abs "
+          f"{_max_abs(lf, ll):.3g}; tolerance {LM_LOGIT_TOL}), grads worst "
+          f"leaf {worst} {grad_err[worst]:.3g} (median "
+          f"{statistics.median(grad_err.values()):.3g}; tolerance "
+          f"{LM_GRAD_TOL}); loss {loss_f:.6f} vs {loss_l:.6f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -267,13 +719,17 @@ def main() -> int:
 
     smi = phase_card()
     phase_build()
-    row = phase_kernel_check()
-    launches, _ = phase_main_path(smi)
+    stem_row = phase_kernel_check()
+    stem_row["launches"], _ = phase_main_path(smi)
     phase_reference()
-    row["launches"] = launches
+    flash_rows = phase_flash_check()
+    counts = phase_lm_main_path(smi)
+    phase_lm_reference()
+    for row, count in zip(flash_rows, counts.values()):
+        row["launches"] = count
     hvd.shutdown()
     print(smi, flush=True)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": [stem_row] + flash_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,10 @@
 
 The ``hvd.*`` surface this slice provides: process and topology state over
 ``torch.distributed`` (NCCL on the GPU, gloo on the CPU), the data-parallel
-mesh, fused gradient averaging, the step guard, ResNet v1.5 and the
-synthetic training benchmark.  The package imports ``torch`` and never
-JAX or any module of ``horovod_tpu``.
+mesh, fused gradient averaging, the step guard, ResNet v1.5, the
+transformer LM with its flash-attention kernels, and the synthetic
+training benchmarks.  The package imports ``torch`` and never JAX or any
+module of ``horovod_tpu``.
 """
 
 from horovod_tpu_torch.topology import (  # noqa: F401

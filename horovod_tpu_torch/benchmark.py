@@ -11,6 +11,11 @@ cross-entropy, backward, the fused gradient mean over the data group, SGD
 with momentum 0.9, and the step guard.  On a GPU the rounds are timed with
 CUDA events; on the CPU, which runs only when the caller asks for it, with
 the host clock.
+
+The transformer LM's harness is the counterpart of ``lm_train_flops``
+(``:428``) and ``run_lm_benchmark`` (``:443``), with the same protocol in
+tokens per second.  ``python -m horovod_tpu_torch.benchmark [--model lm]``
+prints a device-time breakdown of either step.
 """
 
 from __future__ import annotations
@@ -26,9 +31,15 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch import basics, resilience
 from horovod_tpu_torch.models import get_model
-from horovod_tpu_torch.models.convert import flax_ordered_parameters
+from horovod_tpu_torch.models.convert import (flax_ordered_parameters,
+                                              lm_ordered_parameters)
 from horovod_tpu_torch.models.resnet import space_to_depth
+from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                  TransformerLM)
+from horovod_tpu_torch.models.transformer import (
+    make_train_step as make_lm_train_step)
 from horovod_tpu_torch.ops.fusion import fused_pytree_mean
+from horovod_tpu_torch.optim import SGD
 from horovod_tpu_torch.topology import Mesh, data_axis, mesh_size
 
 # Peak dense bf16 TFLOP/s per card by device-name substring (NVIDIA's data
@@ -302,14 +313,176 @@ def run_synthetic_benchmark(model_name: str = "resnet50",
     return result
 
 
+def lm_train_flops(cfg, global_bs: int) -> float:
+    """Analytic GLOBAL FLOPs of one LM training step (reference ``:428``):
+    ``6 * N * tokens`` for every matmul parameter (embedding lookup
+    excluded, tied logits head included) plus causal attention
+    ``6 * B * T^2 * d * L``."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    l, t = cfg.n_layers, cfg.max_seq
+    n_matmul = l * (4 * d * d + 2 * d * f) + d * v
+    tokens = global_bs * t
+    return 6.0 * n_matmul * tokens + 6.0 * global_bs * t * t * d * l
+
+
+class LMBenchState(NamedTuple):
+    mesh: Mesh
+    axis: Optional[dist.ProcessGroup]
+    cfg: TransformerConfig
+    model: TransformerLM
+    optimizer: SGD
+    tokens: torch.Tensor       # this rank's shard, int64 [B, T]
+    labels: torch.Tensor
+
+
+def make_lm_bench_state(d_model: int = 2048, n_layers: int = 8,
+                        n_heads: int = 16, d_ff: Optional[int] = None,
+                        vocab_size: int = 32768, seq_len: int = 2048,
+                        batch_size: int = 8, learning_rate: float = 1e-4,
+                        momentum_dtype: str = "bfloat16",
+                        mesh: Optional[Mesh] = None, device=None,
+                        seed: int = 0) -> LMBenchState:
+    """The LM benchmark's state recipe (reference ``run_lm_benchmark``):
+    bf16 compute on the GPU and f32 on the CPU, f32 parameters from
+    ``torch.Generator(device).manual_seed(seed)``, SGD with momentum 0.9
+    and a ``momentum_dtype`` accumulator, and this rank's rows of the
+    fixed synthetic batch (numpy ``default_rng(0)`` tokens ``[B, T+1]``,
+    shifted by one for the labels).  ``batch_size`` is per rank."""
+    if momentum_dtype not in _DTYPES:
+        raise ValueError(f"momentum_dtype={momentum_dtype!r}: expected one "
+                         f"of {sorted(_DTYPES)}")
+    if not basics.is_initialized():
+        basics.init(device=device)
+    mesh = mesh if mesh is not None else basics.mesh()
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device={device!r} but the mesh runs on "
+                         f"{mesh.device}")
+    group = data_axis(mesh)
+    n, rank = mesh_size(mesh), dist.get_rank(group)
+    dev = mesh.device
+    cfg = TransformerConfig(
+        vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
+        n_layers=n_layers, d_ff=d_ff or 4 * d_model, max_seq=seq_len,
+        dtype=torch.float32 if dev.type == "cpu" else torch.bfloat16)
+    model = TransformerLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    acc = _DTYPES[momentum_dtype]
+    optimizer = SGD([p for _, p in lm_ordered_parameters(model)],
+                    learning_rate, momentum=0.9,
+                    accumulator_dtype=None if acc == torch.float32 else acc)
+    toks = np.random.default_rng(0).integers(
+        0, vocab_size, (batch_size * n, seq_len + 1), dtype=np.int32)
+    rows = toks[rank * batch_size:(rank + 1) * batch_size].astype(np.int64)
+    tokens = torch.from_numpy(rows[:, :-1].copy()).to(dev)
+    labels = torch.from_numpy(rows[:, 1:].copy()).to(dev)
+    return LMBenchState(mesh, group, cfg, model, optimizer, tokens, labels)
+
+
+def run_lm_benchmark(d_model: int = 2048, n_layers: int = 8,
+                     n_heads: int = 16, d_ff: Optional[int] = None,
+                     vocab_size: int = 32768, seq_len: int = 2048,
+                     batch_size: int = 8, attention: str = "flash",
+                     remat: str = "none", num_warmup_batches: int = 2,
+                     num_batches_per_iter: int = 8, num_iters: int = 5,
+                     learning_rate: float = 1e-4,
+                     mesh: Optional[Mesh] = None,
+                     shard_optimizer: bool = False,
+                     compression: Optional[str] = None,
+                     momentum_dtype: str = "bfloat16", device=None,
+                     verbose: bool = True) -> dict:
+    """Transformer-LM synthetic training benchmark (reference ``:443``):
+    warmup steps, then ``num_iters`` rounds of ``num_batches_per_iter``
+    steps, tok/s as mean +- 1.96 sigma over rounds (CUDA events on the
+    GPU), ms/step, MFU from the analytic :func:`lm_train_flops` against
+    the card's peak, and peak device memory.  ``batch_size`` is per rank.
+    ZeRO-1 (``shard_optimizer``) and wire compression are not ported
+    (ROADMAP Queue 1 item 8)."""
+    st = make_lm_bench_state(d_model, n_layers, n_heads, d_ff, vocab_size,
+                             seq_len, batch_size, learning_rate,
+                             momentum_dtype, mesh, device)
+    dev, cfg = st.mesh.device, st.cfg
+    n_chips = mesh_size(st.mesh)
+    global_bs = batch_size * n_chips
+    step = make_lm_train_step(
+        st.model, st.optimizer, st.mesh, st.axis, attention=attention,
+        remat=remat, shard_optimizer=shard_optimizer,
+        compression=compression)
+    flops_per_step = lm_train_flops(cfg, global_bs)
+    if verbose:
+        print(f"LM: d_model={d_model} n_layers={n_layers} d_ff={cfg.d_ff} "
+              f"vocab={vocab_size} T={seq_len} batch={global_bs} "
+              f"attention={attention} remat={remat} "
+              f"momentum={momentum_dtype} ranks={n_chips} on {dev}",
+              flush=True)
+        print(f"Analytic {flops_per_step / 1e12:.2f} TFLOP/step "
+              f"({flops_per_step / (global_bs * seq_len) / 1e6:.1f} "
+              f"MFLOP/token)", flush=True)
+
+    for _ in range(num_warmup_batches):
+        step(st.tokens, st.labels)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    rounds = _Rounds(dev)
+    losses = []
+    rounds.mark()
+    for _ in range(num_iters):
+        for _ in range(num_batches_per_iter):
+            losses.append(step(st.tokens, st.labels))
+        rounds.mark()
+    secs = rounds.seconds()
+    step_losses = [float(x) for x in losses]
+    tokens_per_round = global_bs * seq_len * num_batches_per_iter
+    tok_secs = [tokens_per_round / dt for dt in secs]
+    tok_sec_mean = float(np.mean(tok_secs))
+    ms_per_step = float(np.mean(secs)) / num_batches_per_iter * 1e3
+    tflops_per_chip = (flops_per_step * tok_sec_mean / (global_bs * seq_len)
+                       / n_chips / 1e12)
+    peak = device_peak_tflops(dev)
+    on_gpu = dev.type == "cuda"
+    result = {
+        "d_model": d_model, "n_layers": n_layers, "d_ff": cfg.d_ff,
+        "n_heads": n_heads, "vocab_size": vocab_size, "seq_len": seq_len,
+        "batch_size": global_bs, "attention": attention, "remat": remat,
+        "momentum_dtype": momentum_dtype, "n_chips": n_chips,
+        "platform": "gpu" if on_gpu else "cpu",
+        "device": torch.cuda.get_device_name(dev) if on_gpu else "cpu",
+        "tok_sec_per_chip": tok_sec_mean / n_chips,
+        "tok_sec_conf": float(1.96 * np.std(tok_secs)) / n_chips,
+        "ms_per_step": ms_per_step,
+        "flops_per_step_analytic": flops_per_step,
+        "tflops_per_chip": tflops_per_chip if on_gpu else None,
+        "peak_tflops": peak,
+        "mfu": tflops_per_chip / peak if peak else None,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                 if on_gpu else None),
+        "step_losses": step_losses,
+        "loss": step_losses[-1] if step_losses else None,
+    }
+    if verbose:
+        for i, v in enumerate(tok_secs):
+            print(f"Iter #{i}: {v:,.0f} tok/sec", flush=True)
+        mfu = result["mfu"]
+        mfu_s = f", MFU {mfu * 100:.2f}%" if mfu is not None else ""
+        print(f"{result['tok_sec_per_chip']:,.0f} tok/sec/chip "
+              f"+-{result['tok_sec_conf']:,.0f} ({ms_per_step:.2f} "
+              f"ms/step){mfu_s}", flush=True)
+    return result
+
+
 def _kernel_category(name: str) -> str:
     n = name.lower()
     if "fused_stem" in n:
         return "fused_stem"
+    if any(k in n for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                            "flash_bwd_dkv_kernel")) and "pytorch" not in n:
+        return "flash_attention"
     if "nccl" in n:
         return "collective"
     if any(k in n for k in ("conv", "cudnn", "xmma", "gemm", "wgmma",
-                            "cutlass", "implicit")):
+                            "cutlass", "implicit", "nvjet")):
         return "conv_matmul"
     if "reduce" in n:
         return "reduction"
@@ -318,32 +491,26 @@ def _kernel_category(name: str) -> str:
     return "other"
 
 
-def run_profile(model_name: str = "resnet50", batch_size: int = 64,
-                image_size: int = 224, steps: int = 5,
-                input_dtype: str = "bfloat16", stem: str = "s2d_fused",
-                device=None, top: int = 15) -> dict:
-    """Trace ``steps`` training steps with ``torch.profiler`` and return
-    where the device time goes: kernel time by category and by name, and
-    the device's busy share of the wall time (the union of kernel
-    intervals over the host-clock window, which ends in a synchronize).
-    Same state recipe as the throughput run, so the trace explains the
-    program the benchmark measures.  Needs a CUDA device."""
+def _trace_steps(step_once, dev: torch.device, steps: int,
+                 top: int) -> dict:
+    """Run ``step_once`` 3 times untraced, then ``steps`` times under
+    ``torch.profiler``; returns where the device time went: kernel time
+    by category and by name, and the device's busy share of the wall time
+    (the union of kernel intervals over the host-clock window, which ends
+    in a synchronize)."""
     from torch.profiler import ProfilerActivity, profile
 
-    st = make_bench_state(model_name, batch_size, image_size=image_size,
-                          input_dtype=input_dtype, stem=stem, device=device)
-    if st.mesh.device.type != "cuda":
-        raise ValueError("run_profile measures device time; it needs a "
+    if dev.type != "cuda":
+        raise ValueError("the profile measures device time; it needs a "
                          "CUDA device")
-    step = make_train_step(st.model, st.optimizer, st.mesh, st.axis)
     for _ in range(3):
-        step(st.images, st.labels)
+        step_once()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(st.images, st.labels)
+            step_once()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -364,9 +531,8 @@ def run_profile(model_name: str = "resnet50", batch_size: int = 64,
         cat = _kernel_category(name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
     return {
-        "model": model_name, "stem": stem, "batch_size": batch_size,
         "steps": steps,
-        "device": torch.cuda.get_device_name(st.mesh.device),
+        "device": torch.cuda.get_device_name(dev),
         "wall_ms_per_step": wall_us / steps / 1e3,
         "kernel_ms_per_step": kernel_us / steps / 1e3,
         "device_busy_share": busy / wall_us if wall_us else None,
@@ -380,20 +546,64 @@ def run_profile(model_name: str = "resnet50", batch_size: int = 64,
     }
 
 
+def run_profile(model_name: str = "resnet50", batch_size: int = 64,
+                image_size: int = 224, steps: int = 5,
+                input_dtype: str = "bfloat16", stem: str = "s2d_fused",
+                device=None, top: int = 15) -> dict:
+    """Trace ``steps`` ResNet training steps (see :func:`_trace_steps`).
+    Same state recipe as the throughput run, so the trace explains the
+    program the benchmark measures.  Needs a CUDA device."""
+    st = make_bench_state(model_name, batch_size, image_size=image_size,
+                          input_dtype=input_dtype, stem=stem, device=device)
+    step = make_train_step(st.model, st.optimizer, st.mesh, st.axis)
+    out = {"model": model_name, "stem": stem, "batch_size": batch_size}
+    out.update(_trace_steps(lambda: step(st.images, st.labels),
+                            st.mesh.device, steps, top))
+    return out
+
+
+# The LM benchmark of record (``bench.py:133-144``): the profile's model.
+LM_OF_RECORD = dict(d_model=3072, n_layers=10, n_heads=24, d_ff=12288,
+                    vocab_size=32768, seq_len=2048)
+
+
+def run_lm_profile(batch_size: int = 4, steps: int = 5, device=None,
+                   top: int = 15) -> dict:
+    """Trace ``steps`` flash-attention training steps of the LM benchmark
+    of record (:data:`LM_OF_RECORD`, :func:`run_lm_benchmark`'s recipe);
+    the flash kernels are their own category.  Needs a CUDA device."""
+    st = make_lm_bench_state(**LM_OF_RECORD, batch_size=batch_size,
+                             device=device)
+    step = make_lm_train_step(st.model, st.optimizer, st.mesh, st.axis,
+                              attention="flash")
+    out = {"model": "lm", **LM_OF_RECORD, "batch_size": batch_size,
+           "attention": "flash"}
+    out.update(_trace_steps(lambda: step(st.tokens, st.labels),
+                            st.mesh.device, steps, top))
+    return out
+
+
 if __name__ == "__main__":
     import argparse
     import json
 
     ap = argparse.ArgumentParser(
         description="Trace a few training steps on the GPU and print where "
-                    "the device time goes (run_profile) as JSON.")
-    ap.add_argument("--model", default="resnet50")
-    ap.add_argument("--batch-size", type=int, default=64)
+                    "the device time goes as JSON (run_profile, or "
+                    "run_lm_profile with --model lm).")
+    ap.add_argument("--model", default="resnet50",
+                    help="a ResNet name, or 'lm' for the transformer LM")
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="per rank (default 64 for a ResNet, 4 for the LM)")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--stem", default="s2d_fused")
     ap.add_argument("--input-dtype", default="bfloat16")
     args = ap.parse_args()
-    print(json.dumps(run_profile(
-        args.model, args.batch_size, image_size=args.image_size,
-        stem=args.stem, input_dtype=args.input_dtype), indent=1), flush=True)
+    if args.model == "lm":
+        res = run_lm_profile(batch_size=args.batch_size or 4)
+    else:
+        res = run_profile(args.model, args.batch_size or 64,
+                          image_size=args.image_size, stem=args.stem,
+                          input_dtype=args.input_dtype)
+    print(json.dumps(res, indent=1), flush=True)
     basics.shutdown()

@@ -44,6 +44,8 @@ _var("HOROVOD_FUSION_THRESHOLD", "int", 64 * 1024 * 1024,
      "Gradient fusion bucket limit in bytes (binary size suffixes accepted)")
 _var("HOROVOD_STEP_GUARD", "str", "off",
      "NaN/Inf step-guard policy: off|skip|rollback|abort")
+_var("HOROVOD_FLASH_AUTO_MIN_T", "int", 1024,
+     "attention='auto' picks the flash kernel from this sequence length up")
 
 
 class UnknownEnvVar(KeyError):

@@ -5,7 +5,8 @@ The port names its submodules and leaves as flax does, so a flax path
 ``"BottleneckBlock_3.Conv_1.kernel"``.  What changes is layout: conv
 kernels are HWIO in flax and OIHW here, dense kernels ``[in, out]`` in
 flax and ``[out, in]`` here.  Arrays cross as numpy, so this module needs
-neither framework's other half.
+neither framework's other half.  The transformer LM's pytree crosses
+with ``lm_params_to_torch`` and ``lm_state_dict_to_params``.
 """
 
 from __future__ import annotations
@@ -76,3 +77,55 @@ def flax_ordered_parameters(model: torch.nn.Module
     fusion buckets as the reference's."""
     return sorted(model.named_parameters(),
                   key=lambda kv: tuple(kv[0].split(".")))
+
+
+# The transformer LM's parameters are a pytree of dicts and one list
+# (``{"embed", "pos", "ln_f_scale", "layers": [{...}, ...]}``), kept in the
+# JAX ``[in, out]`` layout, so crossing is a copy and a rename:
+# ``params["layers"][3]["wq"]`` is the parameter ``layers.3.wq``.
+
+def _pytree_key(name: str):
+    # A list index sorts by its value (the list's order), a dict key as a
+    # string: with 10 layers "layers.10" sorts after "layers.9", as JAX
+    # flattens the list, and not before "layers.2" as a string would.
+    return tuple(int(p) if p.isdigit() else p for p in name.split("."))
+
+
+def lm_ordered_parameters(model: torch.nn.Module
+                          ) -> List[Tuple[str, torch.nn.Parameter]]:
+    """``(name, parameter)`` of the LM in ``jax.tree_util`` flatten order
+    (dict keys sorted, list items by index), so the gradient leaves fall
+    into the reference's fusion buckets."""
+    return sorted(model.named_parameters(),
+                  key=lambda kv: _pytree_key(kv[0]))
+
+
+def lm_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The LM's parameter pytree of numpy arrays -> the port's
+    ``state_dict`` (``layers.<i>.<leaf>`` names, same layout)."""
+    out = {}
+    for key, value in params.items():
+        if key == "layers":
+            for i, layer in enumerate(value):
+                for leaf, arr in layer.items():
+                    out[f"layers.{i}.{leaf}"] = torch.from_numpy(
+                        np.array(arr, dtype=np.float32))
+        else:
+            out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
+def lm_state_dict_to_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's LM ``state_dict`` -> the parameter pytree of numpy f32
+    arrays (the inverse of :func:`lm_params_to_torch`)."""
+    out: Dict = {}
+    layers: Dict[int, Dict] = {}
+    for key, t in state_dict.items():
+        arr = t.detach().to("cpu", torch.float32).numpy().copy()
+        parts = key.split(".")
+        if parts[0] == "layers":
+            layers.setdefault(int(parts[1]), {})[parts[2]] = arr
+        else:
+            out[key] = arr
+    out["layers"] = [layers[i] for i in range(len(layers))]
+    return out

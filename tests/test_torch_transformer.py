@@ -1,0 +1,497 @@
+"""The port's transformer LM against the JAX package's, on the CPU.
+
+The same seeded parameters (numpy ``default_rng``, crossed with
+``convert.lm_params_to_torch``) and tokens go through
+``horovod_tpu.models.transformer`` (flash attention in Pallas interpret
+mode) and ``horovod_tpu_torch.models.transformer`` (the plain versions of
+the flash kernels on CPU tensors).  Config: vocab 64, d_model 32, 2 heads,
+2 layers, d_ff 64, T 32.  Tolerances: f32 logits, loss and gradients
+1e-4; bf16 logits 2e-2; params after one training step 1e-5 and the bf16
+momentum within one bf16 ulp.
+"""
+
+import os
+import socket
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from horovod_tpu.models import transformer as jtfm
+from horovod_tpu.ops import fusion as jfusion
+from horovod_tpu.topology import build_mesh as jax_build_mesh
+import horovod_tpu_torch as thvd
+from horovod_tpu_torch import benchmark
+from horovod_tpu_torch.models import convert
+from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.ops import fusion as tfusion
+from horovod_tpu_torch.optim import SGD
+
+T = 32
+LR = 0.1
+TOL = 1e-4
+BF16_TOL = 2e-2
+STEP_TOL = 1e-5
+
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _cfgs(dtype="float32", t=T, n_layers=2):
+    kw = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=n_layers,
+              d_ff=64, max_seq=t)
+    return (jtfm.TransformerConfig(dtype=_JDT[dtype], **kw),
+            tfm.TransformerConfig(dtype=_TDT[dtype], **kw))
+
+
+def _params(cfg, seed=0):
+    """Seeded f32 parameters in the JAX tree layout (numpy), at the scales
+    of the reference's ``init_params``, with RMSNorm scales away from one
+    so their path is exercised."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def dense(shape, scale=None):
+        return (rng.standard_normal(shape) * (scale or shape[0] ** -0.5)
+                ).astype(np.float32)
+
+    def norm():
+        return (1.0 + 0.2 * rng.standard_normal(d)).astype(np.float32)
+
+    return {
+        "embed": dense((cfg.vocab_size, d), 0.02),
+        "pos": dense((cfg.max_seq, d), 0.02),
+        "ln_f_scale": norm(),
+        "layers": [{"ln1_scale": norm(), "ln2_scale": norm(),
+                    "wq": dense((d, d)), "wk": dense((d, d)),
+                    "wv": dense((d, d)), "wo": dense((d, d)),
+                    "w1": dense((d, f)), "w2": dense((f, d))}
+                   for _ in range(cfg.n_layers)],
+    }
+
+
+def _tokens(b=2, t=T, seed=1):
+    toks = np.random.default_rng(seed).integers(0, 64, (b, t + 1))
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+def _port_model(tcfg, params):
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    model.load_state_dict(convert.lm_params_to_torch(params))
+    return model
+
+
+def _jtree(params):
+    return jax.tree_util.tree_map(jnp.asarray, params)
+
+
+def _names(tree):
+    """``{dotted name: leaf}`` of a JAX params tree, in flatten order."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        parts = [str(getattr(p, "key", getattr(p, "idx", p))) for p in path]
+        out[".".join(parts)] = leaf
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attention", ["flash", "local", "auto"])
+def test_logits_match_jax(attention, dtype):
+    jcfg, tcfg = _cfgs(dtype)
+    params = _params(jcfg)
+    tokens, _ = _tokens()
+    want = np.asarray(jtfm.forward(_jtree(params), jnp.asarray(tokens), jcfg,
+                                   attention=attention))
+    got = tfm.forward(_port_model(tcfg, params).tree(),
+                      torch.from_numpy(tokens), tcfg, attention=attention)
+    assert got.dtype == torch.float32 and got.shape == (2, T, 64)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("min_t,route", [(None, "local"), ("128", "flash")])
+def test_auto_route_matches_jax(monkeypatch, min_t, route):
+    """``auto`` picks flash from HOROVOD_FLASH_AUTO_MIN_T up (T=128 tiles
+    the 128-row blocks), local below; the logits match JAX's either way."""
+    if min_t is not None:
+        monkeypatch.setenv("HOROVOD_FLASH_AUTO_MIN_T", min_t)
+    calls = []
+    real = tfm.flash_attention
+    monkeypatch.setattr(tfm, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    jcfg, tcfg = _cfgs(t=128)
+    params = _params(jcfg)
+    tokens, _ = _tokens(b=1, t=128)
+    want = np.asarray(jtfm.forward(_jtree(params), jnp.asarray(tokens), jcfg,
+                                   attention="auto"))
+    got = tfm.forward(_port_model(tcfg, params).tree(),
+                      torch.from_numpy(tokens), tcfg, attention="auto")
+    assert bool(calls) == (route == "flash")
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("t,min_t", [(512, None), (1024, None),
+                                     (1000, None), (2048, None),
+                                     (1100, None), (64, "16"), (96, "16"),
+                                     (128, "128")])
+def test_flash_profitable_rule_matches_jax(monkeypatch, t, min_t):
+    if min_t is not None:
+        monkeypatch.setenv("HOROVOD_FLASH_AUTO_MIN_T", min_t)
+    assert tfm._flash_profitable(t) == jtfm._flash_profitable(t)
+
+
+def test_packed_segments_match_jax():
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg)
+    tokens, _ = _tokens(b=1)
+    seg = np.concatenate([np.zeros(12), np.ones(20)]).astype(np.int32)[None]
+    for attention in ("flash", "local"):
+        want = np.asarray(jtfm.forward(_jtree(params), jnp.asarray(tokens),
+                                       jcfg, attention=attention,
+                                       segment_ids=jnp.asarray(seg)))
+        got = tfm.forward(_port_model(tcfg, params).tree(),
+                          torch.from_numpy(tokens), tcfg,
+                          attention=attention,
+                          segment_ids=torch.from_numpy(seg))
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=TOL,
+                                   atol=TOL, err_msg=attention)
+
+
+@pytest.mark.parametrize("attention", ["flash", "local"])
+def test_loss_and_grads_match_jax(attention):
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg)
+    tokens, labels = _tokens()
+    jloss, jgrads = jax.value_and_grad(jtfm.loss_fn)(
+        _jtree(params), jnp.asarray(tokens), jnp.asarray(labels), jcfg,
+        None, None, attention)
+    model = _port_model(tcfg, params)
+    loss = tfm.loss_fn(model.tree(), torch.from_numpy(tokens),
+                       torch.from_numpy(labels), tcfg, attention=attention)
+    named = convert.lm_ordered_parameters(model)
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=TOL,
+                               atol=TOL)
+    want = _names(jgrads)
+    assert [n for n, _ in named] == list(want)
+    for (name, _), g in zip(named, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]),
+                                   rtol=TOL, atol=TOL, err_msg=name)
+
+
+def _bf16_ulp_close(got, want, name):
+    """|got - want| <= one bf16 ulp of the larger magnitude, plus the f32
+    gradients' own disagreement (STEP_TOL) for entries near zero, where a
+    bf16 ulp is smaller than that."""
+    got, want = (np.asarray(x, np.float32) for x in (got, want))
+    ulp = np.maximum(np.abs(got), np.abs(want)) * 2.0 ** -7
+    bad = np.abs(got - want) > ulp + STEP_TOL
+    assert not bad.any(), (name, got[bad][:5], want[bad][:5])
+
+
+def _jax_train(params, tokens, labels, n_devices, attention, seg=None,
+               steps=1):
+    jcfg, _ = _cfgs()
+    mesh = jax_build_mesh(axes=("data",), shape=(n_devices,),
+                          devices=jax.devices()[:n_devices])
+    opt = optax.sgd(LR, momentum=0.9, accumulator_dtype=jnp.bfloat16)
+    step, _, _ = jtfm.make_train_step(jcfg, opt, mesh, data_axis="data",
+                                      attention=attention, donate=False,
+                                      packed=seg is not None)
+    p = _jtree(params)
+    state = opt.init(p)
+    extra = () if seg is None else (jnp.asarray(seg),)
+    for _ in range(steps):
+        p, state, loss = step(p, state, jnp.asarray(tokens),
+                              jnp.asarray(labels), *extra)
+    return float(loss), _names(p), _names(state[0].trace)
+
+
+@pytest.fixture()
+def port_world():
+    thvd.init(device="cpu")
+    yield thvd
+    thvd.shutdown()
+
+
+def _port_train(params, tokens, labels, attention, mesh, seg=None,
+                steps_per_call=1):
+    _, tcfg = _cfgs()
+    model = _port_model(tcfg, params)
+    named = convert.lm_ordered_parameters(model)
+    opt = SGD([p for _, p in named], LR, momentum=0.9,
+              accumulator_dtype=torch.bfloat16)
+    step = tfm.make_train_step(model, opt, mesh, attention=attention,
+                               packed=seg is not None,
+                               steps_per_call=steps_per_call)
+    extra = () if seg is None else (torch.from_numpy(seg),)
+    loss = step(torch.from_numpy(tokens), torch.from_numpy(labels), *extra)
+    return (float(loss), {n: p.detach().numpy() for n, p in named},
+            {n: opt.trace[i].float().numpy()
+             for i, (n, _) in enumerate(named)})
+
+
+@pytest.mark.parametrize("attention", ["flash", "local"])
+def test_train_step_matches_jax(port_world, attention):
+    """One step with bf16-momentum SGD on one rank and one device."""
+    jcfg, _ = _cfgs()
+    params = _params(jcfg)
+    tokens, labels = _tokens()
+    jloss, jparams, jtrace = _jax_train(params, tokens, labels, 1, attention)
+    loss, got, trace = _port_train(params, tokens, labels, attention,
+                                   thvd.mesh())
+    np.testing.assert_allclose(loss, jloss, rtol=TOL, atol=TOL)
+    assert list(got) == list(jparams) == list(trace)
+    for name in jparams:
+        np.testing.assert_allclose(got[name], np.asarray(jparams[name]),
+                                   rtol=STEP_TOL, atol=STEP_TOL,
+                                   err_msg=name)
+        _bf16_ulp_close(trace[name], jtrace[name], name)
+
+
+def test_packed_train_step_matches_jax(port_world):
+    """packed=True threads segment ids into the step, as the reference's
+    ``make_train_step(packed=True)`` does."""
+    jcfg, _ = _cfgs()
+    params = _params(jcfg)
+    tokens, labels = _tokens()
+    seg = np.repeat(np.concatenate([np.zeros(10), np.ones(22)])[None], 2,
+                    axis=0).astype(np.int32)
+    jloss, jparams, _ = _jax_train(params, tokens, labels, 1, "flash", seg)
+    loss, got, _ = _port_train(params, tokens, labels, "flash", thvd.mesh(),
+                               seg)
+    np.testing.assert_allclose(loss, jloss, rtol=TOL, atol=TOL)
+    for name in jparams:
+        np.testing.assert_allclose(got[name], np.asarray(jparams[name]),
+                                   rtol=STEP_TOL, atol=STEP_TOL,
+                                   err_msg=name)
+
+
+def test_steps_per_call_runs_that_many_steps_on_one_batch(port_world):
+    """steps_per_call=2 is two steps on the same batch (the second uses the
+    bf16 momentum), as the reference's scanned steps are."""
+    jcfg, _ = _cfgs()
+    params = _params(jcfg)
+    tokens, labels = _tokens()
+    jloss, jparams, jtrace = _jax_train(params, tokens, labels, 1, "local",
+                                        steps=2)
+    loss, got, trace = _port_train(params, tokens, labels, "local",
+                                   thvd.mesh(), steps_per_call=2)
+    np.testing.assert_allclose(loss, jloss, rtol=TOL, atol=TOL)
+    for name in jparams:
+        # The second step's update reads the bf16 momentum, where a one-ulp
+        # difference in the first step's rounding moves a param by up to
+        # lr * 0.9 * ulp: hold to the bf16 tolerance.
+        np.testing.assert_allclose(got[name], np.asarray(jparams[name]),
+                                   rtol=BF16_TOL * LR, atol=BF16_TOL * LR,
+                                   err_msg=name)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _train_worker(rank, size, addr, out_dir):
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    os.environ["HOROVOD_COORDINATOR_ADDR"] = addr
+    thvd.init(device="cpu")
+    try:
+        jcfg, _ = _cfgs()
+        tokens, labels = _tokens(b=2 * size)
+        rows = slice(2 * rank, 2 * rank + 2)
+        loss, got, _ = _port_train(_params(jcfg), tokens[rows],
+                                   labels[rows], "flash", thvd.mesh())
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 loss=np.float32(loss), **got)
+    finally:
+        thvd.shutdown()
+
+
+def test_two_rank_gloo_step_matches_jax(tmp_path):
+    """One step over 2 gloo ranks on the halves of a global batch.  Data
+    parallelism must equal one step on the whole batch: the params on
+    every rank match the JAX step on one device and the global batch.
+    The mean loss matches the 2-device JAX mesh's.  The params are not
+    held to the 2-device mesh's: its LM step applies the SUM of the
+    per-device gradients, twice the mean at 2 devices (the gradient of a
+    replicated param inside the vma-checked shard_map already arrives
+    psummed, and the fused pmean keeps it), a divergence of the reference
+    recorded in ROADMAP.md Queue 3."""
+    addr = f"127.0.0.1:{_free_port()}"
+    mp.start_processes(_train_worker, args=(2, addr, str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    jcfg, _ = _cfgs()
+    tokens, labels = _tokens(b=4)
+    _, jparams, _ = _jax_train(_params(jcfg), tokens, labels, 1, "flash")
+    jloss2, _, _ = _jax_train(_params(jcfg), tokens, labels, 2, "flash")
+    for rank in range(2):
+        got = dict(np.load(tmp_path / f"rank{rank}.npz"))
+        np.testing.assert_allclose(got.pop("loss"), jloss2, rtol=TOL,
+                                   atol=TOL)
+        assert sorted(got) == sorted(jparams)
+        for name, want in jparams.items():
+            np.testing.assert_allclose(got[name], np.asarray(want),
+                                       rtol=STEP_TOL, atol=STEP_TOL,
+                                       err_msg=f"rank{rank} {name}")
+
+
+@pytest.mark.parametrize("acc", ["bfloat16", "float32", None])
+def test_sgd_matches_optax(acc):
+    """Three steps of the port's SGD against optax's on the same gradients:
+    the bf16 trace rounds ``0.9 * trace`` in bf16 and stores the f32 sum
+    rounded, while the update uses the unrounded sum."""
+    rng = np.random.default_rng(5)
+    shapes = [(7, 5), (11,)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(3)]
+    jacc = None if acc is None else _JDT[acc]
+    opt = optax.sgd(LR, momentum=0.9, accumulator_dtype=jacc)
+    jp = [jnp.asarray(x) for x in p0]
+    state = opt.init(jp)
+    params = [torch.from_numpy(x.copy()) for x in p0]
+    topt = SGD(params, LR, momentum=0.9,
+               accumulator_dtype=None if acc is None else _TDT[acc])
+    for g in grads:
+        upd, state = opt.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        topt.step([torch.from_numpy(x) for x in g])
+    for a, b in zip(params, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+    for i, t in enumerate(state[0].trace):
+        assert str(topt.trace[i].dtype).endswith(acc or "float32")
+        np.testing.assert_array_equal(topt.trace[i].float().numpy(),
+                                      np.asarray(t, np.float32))
+
+
+@pytest.mark.parametrize("n_layers", [10, 12])
+def test_gradient_leaf_order_and_buckets(n_layers):
+    """The port's leaves follow JAX's flatten order: list items by index,
+    so from 11 layers on ``layers.10`` comes after ``layers.9`` (a string
+    sort would put it after ``layers.1``), and the fusion buckets are the
+    reference's (10 layers: the benchmark of record's depth)."""
+    jcfg, tcfg = _cfgs(n_layers=n_layers)
+    named = convert.lm_ordered_parameters(tfm.TransformerLM(tcfg,
+                                                            device="cpu"))
+    abstract = jtfm.init_abstract(jcfg)
+    want = _names(abstract)
+    names = [n for n, _ in named]
+    assert names == list(want)
+    last = f"layers.{n_layers - 1}.wv"
+    assert names.index(last) == names.index("ln_f_scale") - 1
+    leaves = [p for _, p in named]
+    jleaves = [np.zeros(x.shape, np.float32) for x in want.values()]
+    for threshold in (4096, 20000, 1 << 26):
+        assert (tfusion._bucket_leaves(leaves, threshold)
+                == [list(b) for b in jfusion._bucket_leaves(jleaves,
+                                                            threshold)])
+
+
+def test_converter_round_trip():
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg)
+    model = _port_model(tcfg, params)
+    back = convert.lm_state_dict_to_params(model.state_dict())
+    assert _names(back).keys() == _names(params).keys()
+    for name, want in _names(params).items():
+        np.testing.assert_array_equal(_names(back)[name], want)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(model_axis="model"), "item 6"),
+    (dict(seq_axis="seq"), "item 7"),
+    (dict(attention="ring"), "item 7"),
+    (dict(attention="ring_flash"), "item 7"),
+    (dict(attention="ulysses"), "item 7"),
+    (dict(remat="dots"), "item 6"),
+    (dict(remat="full"), "item 6"),
+])
+def test_routes_not_ported_raise(kw, match):
+    _, tcfg = _cfgs()
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    tokens = torch.zeros((1, T), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match=match):
+        tfm.forward(model.tree(), tokens, tcfg, **kw)
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(attention="sdpa"), ValueError),
+    (dict(remat="sometimes"), ValueError),
+])
+def test_unknown_options_raise(kw, err):
+    _, tcfg = _cfgs()
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    with pytest.raises(err):
+        tfm.forward(model.tree(), torch.zeros((1, T), dtype=torch.long),
+                    tcfg, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(shard_optimizer=True),
+                                dict(compression="int8")])
+def test_train_step_options_not_ported_raise(port_world, kw):
+    _, tcfg = _cfgs()
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    opt = SGD([p for _, p in convert.lm_ordered_parameters(model)], LR,
+              0.9)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tfm.make_train_step(model, opt, thvd.mesh(), **kw)
+
+
+def test_train_step_rejects_optimizer_in_another_order(port_world):
+    _, tcfg = _cfgs()
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    opt = SGD(list(model.parameters()), LR, 0.9)
+    with pytest.raises(ValueError, match="pytree order"):
+        tfm.make_train_step(model, opt, thvd.mesh())
+
+
+@pytest.fixture()
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    thvd.shutdown()
+    yield
+    thvd.shutdown()
+
+
+def test_lm_entry_points_without_gpu_or_device_raise(no_gpu):
+    _, tcfg = _cfgs()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfm.TransformerLM(tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmark.run_lm_benchmark(d_model=32, n_layers=1, n_heads=2,
+                                   vocab_size=64, seq_len=32, batch_size=1)
+    assert not thvd.is_initialized()
+
+
+def test_lm_benchmark_runs_on_cpu_only_when_asked(no_gpu):
+    res = benchmark.run_lm_benchmark(
+        d_model=32, n_layers=2, n_heads=2, vocab_size=64, seq_len=32,
+        batch_size=2, attention="flash", num_warmup_batches=1,
+        num_batches_per_iter=1, num_iters=2, device="cpu", verbose=False)
+    assert res["platform"] == "cpu" and res["device"] == "cpu"
+    assert res["mfu"] is None and res["max_memory_allocated"] is None
+    assert len(res["step_losses"]) == 2
+    assert all(np.isfinite(res["step_losses"]))
+    _, tcfg = _cfgs(t=32)
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_heads=2,
+                                n_layers=2, d_ff=128, max_seq=32)
+    assert res["flops_per_step_analytic"] == benchmark.lm_train_flops(cfg, 2)
+
+
+def test_lm_train_flops_matches_jax():
+    """The benchmark of record's analytic count (bench.py:133-144)."""
+    from horovod_tpu.benchmark import lm_train_flops as jax_flops
+    kw = dict(vocab_size=32768, d_model=3072, n_heads=24, n_layers=10,
+              d_ff=12288, max_seq=2048)
+    assert (benchmark.lm_train_flops(tfm.TransformerConfig(**kw), 4)
+            == jax_flops(jtfm.TransformerConfig(**kw), 4))
