@@ -19,7 +19,8 @@ any failure ends the run with a traceback and a non-zero exit:
 6. flash kernel check: the forward, dQ and dK/dV flash-attention kernels
    against their plain PyTorch versions in bf16, row by row, at the LM's
    shape and at small ones (non-causal, a custom scale, segment ids with a
-   fully masked row, ragged T), the autograd Function's output and
+   fully masked row, ragged T, tiles half empty or cut by T or by segment
+   borders, every head dim), the autograd Function's output and
    gradients against the plain versions, and each kernel's time
    beside its bound, its plain version's and
    ``scaled_dot_product_attention``'s;
@@ -55,6 +56,10 @@ LM = dict(d_model=3072, n_layers=10, n_heads=24, d_ff=12288,
           vocab_size=32768, seq_len=2048, batch_size=4)
 LM_WARMUP_STEPS = 2
 LM_TIMED_STEPS = 10
+# First and last timed LM loss with the earlier wmma forward and dK/dV
+# kernels (same seeds), printed beside this run's for the record: the
+# summation order differs, so they are not expected bit for bit.
+LM_WMMA_LOSSES = (10.997063, 10.953733)
 # Card roofline (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
 # non-tensor-core operations/s and dense bf16 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -463,6 +468,21 @@ def phase_flash_check() -> list:
           flush=True)
     _flash_case(fa, 1, 40, 2, 16, True, None, None, None, 16,
                 "ragged T=40")
+    # The forward and dK/dV kernels tile by 128 rows or keys: a half-empty
+    # tile, several tiles with a ragged end, the small head dims over two
+    # tiles, segment borders inside a tile, and a non-causal ragged T.
+    _flash_case(fa, 2, 64, 4, 64, True, None, None, None, 21, "causal T=64")
+    _flash_case(fa, 2, 320, 2, 64, True, None, None, None, 22,
+                "causal T=320")
+    _flash_case(fa, 2, 256, 2, 16, True, None, None, None, 23,
+                "D=16 causal T=256")
+    _flash_case(fa, 2, 256, 2, 32, True, None, None, None, 24,
+                "D=32 causal T=256")
+    seg = _segments(2, 512, [100, 200, 150, 62])
+    _flash_case(fa, 2, 512, 2, 64, True, None, seg, seg, 25,
+                "segment borders inside tiles T=512")
+    _flash_case(fa, 2, 192, 2, 128, False, None, None, None, 26,
+                "non-causal T=192")
     _flash_grad_case(fa, 2, 256, 2, 128, None, 17, "T=256")
     _flash_grad_case(fa, 1, 192, 2, 64, _segments(1, 192, [100, 92]), 18,
                      "segments T=192")
@@ -577,7 +597,9 @@ def phase_lm_main_path(smi: str) -> dict:
     check(calls >= steps and calls % steps == 0,
           f"fusion all_reduce calls {calls} over {steps} LM steps")
     print(f"LM losses finite: {res['step_losses'][0]:.6f} -> "
-          f"{res['step_losses'][-1]:.6f}; flash launches {counts} = "
+          f"{res['step_losses'][-1]:.6f} (wmma kernels: "
+          f"{LM_WMMA_LOSSES[0]:.6f} -> {LM_WMMA_LOSSES[1]:.6f}); "
+          f"flash launches {counts} = "
           f"{LM['n_layers']} per step x {steps} steps; fusion all_reduce "
           f"calls {calls} ({calls // steps} bucket(s) per step)", flush=True)
     summary = {k: res[k] for k in (

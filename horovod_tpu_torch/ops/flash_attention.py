@@ -16,8 +16,8 @@ Contract, as the reference's:
   defaults to ``D ** -0.5`` and multiplies the scores after the product.
 * ``T`` must divide by the effective blocks (``_eff_blocks``), with the
   reference's ``ValueError`` otherwise.  The blocks are checked but the
-  kernels tile by 64 on Hopper: the reference's 1024 blocks are a v5e
-  VMEM choice.
+  kernels tile for Hopper (128-row tiles in the forward and dK/dV, 64-row
+  ones in dQ): the reference's 1024 blocks are a v5e VMEM choice.
 * ``_fwd_parts`` returns ``(o, m, l)``: ``m`` the row max of the scaled
   scores and ``l`` the UNnormalized row sum of ``exp(s - m)``, both
   ``[B*H, 1, T]`` f32.  ``_bwd_parts`` takes the global ``(m, l)``.  Both
@@ -45,9 +45,8 @@ dq_launches = _build.CallCounter("flash_attention.bwd_dq")
 dkv_launches = _build.CallCounter("flash_attention.bwd_dkv")
 
 NEG_INF = float("-inf")
-# Head dims the kernels are built for (multiples of the 16-deep wmma
-# product; at most 128, which keeps a 64-row tile's operands in shared
-# memory).
+# Head dims the kernels are built for (multiples of the 16-deep tensor-core
+# product; at most 128, which keeps a tile's operands in shared memory).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # Key block of the plain versions: bounds their score block to
 # [B*H, T, 128] f32.
@@ -269,7 +268,10 @@ class _Geometry:
 def _kernel_operands(*tensors):
     """Checks what the kernels take and returns the tensors with one
     layout: one shape, contiguous, 16-byte aligned, on one CUDA device
-    (the kernels address every operand with the first one's strides)."""
+    (the kernels address every operand with the first one's strides, and
+    their TMA tensor maps need the aligned base and strides that are
+    multiples of 16 bytes, which a contiguous bf16 tensor of a kernel
+    head dim has)."""
     ref = tensors[0]
     if ref.dtype != torch.bfloat16:
         raise TypeError(f"the flash attention kernels take bfloat16; got "

@@ -114,6 +114,15 @@ def _seg(b, lengths):
     (2, 40, 16, True, None, None),
     (4, 192, 32, False, None, ([64, 64, 40, 24], [64, 64, 64])),
     (2, 512, 64, True, None, ([200, 300, 12], [200, 300, 12])),
+    # The Hopper forward and dK/dV tile by 128 rows or keys: half-empty,
+    # ragged and multi-tile T, the small head dims, segment borders inside
+    # a tile, and a non-causal ragged T.
+    (4, 64, 64, True, None, None),
+    (4, 320, 64, True, None, None),
+    (4, 256, 16, True, None, None),
+    (4, 256, 32, True, None, None),
+    (4, 512, 64, True, None, ([100, 200, 150, 62], [100, 200, 150, 62])),
+    (4, 192, 128, False, None, None),
 ])
 def test_flash_kernels_match_plain_versions(cuda_device, bh, t, d, causal,
                                             scale, segs):
@@ -188,12 +197,19 @@ def test_flash_kernels_propagate_nan(cuda_device):
 
 # Faults planted in a copy of the kernel source, each wrong only on the
 # late tiles (queries or keys from 1024 on), where the causal gradients
-# are small: (text in flash_attention.cu, its faulty replacement).
+# are small: (text in flash_attention.cu, its faulty replacement).  The
+# forward and dK/dV faults sit in the tile-count helpers that the
+# producer and the consumers share, so the faulty kernels still finish.
 PLANTED_FAULTS = {
+    # The forward drops its diagonal key tile.
+    "fwd_drops_diagonal_k_tile": (
+        "const int kend = causal ? min(T, q0 + FWD_BR) : T;",
+        "const int kend = causal ? min(T, q0 + FWD_BR) - (q0 >= 1024) * "
+        "FWD_BC : T;"),
     # dK/dV starts one q tile late: it skips the diagonal tile.
     "dkv_starts_one_q_tile_late": (
-        "const int qstart = causal ? (k0 / BR) * BR : 0;",
-        "const int qstart = causal ? (k0 / BR + (k0 >= 1024)) * BR : 0;"),
+        "return causal ? k0 / DKV_BQ : 0;",
+        "return causal ? k0 / DKV_BQ + (k0 >= 1024) : 0;"),
     # dQ drops its last (diagonal) key tile.
     "dq_drops_last_k_tile": (
         "accumulate_p_times_x<D>(acc, sdS + warp * 16 * (64 + PADH), sK);",
@@ -213,13 +229,18 @@ def test_flash_row_check_catches_planted_faults(cuda_device, tmp_path,
     q, k, v, do = _flash_inputs(8, 2048, 128, seed=21)
     sc = 128 ** -0.5
     ro, rm, rl = fa._fwd_parts_plain(q, k, v, None, None, True, sc)
-    want = fa._bwd_parts_plain(q, k, v, ro, do, rm, rl, None, None, True, sc)
+    want = (ro,) + fa._bwd_parts_plain(q, k, v, ro, do, rm, rl, None, None,
+                                       True, sc)
 
-    def grads():
-        return fa._bwd_parts(q, k, v, ro, do, rm, rl, None, None, True, sc)
+    def outputs():
+        o, _, _ = fa._fwd_parts(q, k, v, None, None, True, sc)
+        return (o,) + fa._bwd_parts(q, k, v, ro, do, rm, rl, None, None,
+                                    True, sc)
 
-    for a, b in zip(grads(), want):
-        assert _row_ratio(a, b) <= 1.0
+    for name, a, b in zip(("o", "dq", "dk", "dv"), outputs(), want):
+        ratio = _row_ratio(a, b)
+        print(f"unmodified kernels: {name} worst row / limit {ratio:.4g}")
+        assert ratio <= 1.0
 
     old, new = PLANTED_FAULTS[fault]
     with open(f"{_build.CSRC}/flash_attention.cu") as f:
@@ -227,12 +248,13 @@ def test_flash_row_check_catches_planted_faults(cuda_device, tmp_path,
     assert src.count(old) == 1
     cu, lib = tmp_path / "flash_attention.cu", tmp_path / "libfault.so"
     cu.write_text(src.replace(old, new))
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(cu)], check=True, capture_output=True, timeout=600)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
+                    "-o", str(lib), str(cu)], check=True, capture_output=True,
+                   timeout=600)
     monkeypatch.setitem(_build._libs, "flash_attention",
                         ctypes.CDLL(str(lib)))
     ratios = {}
-    for name, a, b in zip(("dq", "dk", "dv"), grads(), want):
+    for name, a, b in zip(("o", "dq", "dk", "dv"), outputs(), want):
         old_err = ((a.float() - b.float()).abs().max()
                    / b.float().abs().max().clamp_min(1.0)).item()
         ratios[name] = _row_ratio(a, b)
