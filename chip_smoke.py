@@ -8,9 +8,11 @@ any failure ends the run with a traceback and a non-zero exit:
 
 1. card: the GPU's name and power limit as nvidia-smi reports them;
 2. build: every kernel under ``horovod_tpu_torch/ops/csrc`` with nvcc;
-3. kernel check: each kernel against its plain PyTorch version on the
-   card (bitwise), gradients through its autograd Function, and its time
-   beside the plain version's and the least time the card could take;
+3. kernel check: the fused stem against its plain PyTorch version on
+   the card (bitwise, at the main shape and at small ones that cut its
+   strips and column tiles short), gradients through its autograd
+   Function, and its time beside the plain version's and the least time
+   the card could take;
 4. main path: ``hvd.init()`` (an NCCL group of size 1) and the ResNet-50
    ``s2d_fused`` synthetic training benchmark at 224x224, full width,
    bf16, with the kernel and collective counts read around it;
@@ -147,7 +149,16 @@ def phase_kernel_check() -> dict:
     cases = [(main_shape, torch.bfloat16), ((2, 8, 8, 4), torch.float32),
              ((3, 12, 16, 8), torch.float32),
              ((3, 12, 16, 8), torch.bfloat16),
-             ((1, 6, 10, 3), torch.float32)]
+             ((1, 6, 10, 3), torch.float32),
+             # The kernel's strips and column tiles: H = 2, a last strip
+             # cut short (Ho = 59), W = 2, rows too wide for one strip in
+             # both dtypes, and C = 24 bf16 (three 16-byte groups).
+             ((2, 2, 8, 64), torch.bfloat16),
+             ((1, 118, 112, 64), torch.bfloat16),
+             ((2, 8, 2, 16), torch.bfloat16),
+             ((1, 16, 448, 64), torch.bfloat16),
+             ((2, 20, 112, 64), torch.float32),
+             ((2, 12, 16, 24), torch.bfloat16)]
     main_err = None
     for i, (shape, dtype) in enumerate(cases):
         x, scale, offset = _stem_inputs(shape, dtype, seed=i)

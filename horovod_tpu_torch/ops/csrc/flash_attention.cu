@@ -17,11 +17,11 @@
 // Here a thread block owns one tile and a loop inside it walks the other
 // side, so nothing carries between blocks.
 //
-// Forward and dK/dV (Hopper design, flash_hopper.cuh for the PTX).  The
-// full tensor-core rate needs wgmma, whose operands come from shared
-// memory (or A from registers) and whose sums stay in registers; round
-// trips of S and O through shared memory and register-staged tile loads
-// leave a kernel waiting on memory.  So:
+// All three kernels share one Hopper design (flash_hopper.cuh for the
+// PTX).  The full tensor-core rate needs wgmma, whose operands come from
+// shared memory (or A from registers) and whose sums stay in registers;
+// round trips of S and O through shared memory and register-staged tile
+// loads leave a kernel waiting on memory.  So:
 // * Warp specialisation: two consumer warpgroups, each owning 64 rows of
 //   the block's tile, and a producer.  The producer feeds a ring of
 //   shared-memory stages by TMA (one thread issues a whole tile; the copy
@@ -48,15 +48,21 @@
 //   dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as register A
 //   operands and the same Q and dO tiles read MN-major, so no transposed
 //   copy is needed.
+// * dQ, per 128-row q tile: Q, dO and O once, then K and V tiles of 64
+//   keys through three stages (K and V on separate barriers).  A producer
+//   warpgroup loads them and computes each row's di (from the loaded O),
+//   m and l into shared memory once, then gives its registers to the
+//   consumers.  Per key tile, S = Q.K^T and dP = dO.V^T by wgmma into
+//   registers; P = exp(S scale - m) / l (one exp2) and dS = P (dP - di)
+//   in registers, rounded to bf16 as the register A operand of dQ +=
+//   dS.K, the same K tile read MN-major.  dQ (64 x D f32 per warpgroup)
+//   stays in registers over the whole key loop; the epilogue stages it
+//   through shared memory for 16-byte stores.  64-key tiles keep S, dP,
+//   dS and dQ in registers together (144 a thread at D = 128).
 // * Tiles are [rows, D] in TMA's swizzled layout (flash_hopper.cuh); the
 //   maps address [B, T, H, D] in place as a 4-D (d, t, h, b) tensor, and
 //   the folded [B*H, T, D] layout of _fwd_parts as H = 1.  m and l are
 //   [B*H, T] f32 with row b*H + h, as the reference folds them.
-//
-// dQ (the earlier design, not yet redesigned for Hopper): 4 warps, 64x64
-// tiles, nvcuda::wmma bf16 m16n16k16 with f32 accumulation, S and dP
-// staged in shared memory, the next K/V tile fetched into registers during
-// the current tile's compute.
 //
 // Where the reference is delicate, and what this file does about it:
 // 1. -inf arithmetic (reference :138-145, :196-207, :252-261).  A masked
@@ -66,11 +72,12 @@
 //    denom = (l == 0) ? 1 : l.  A fully masked row gives o = 0, l = 0 and
 //    zero dQ, with dK and dV finite.
 // 2. Causal block skipping, re-derived for each tiling: the forward's q
-//    tile at q0 (128 rows) visits key tiles k0 < min(T, q0 + 128); dQ's
-//    (64 rows) k0 <= min(q0 + 64, T) - 1; dK/dV's key tile at k0 (128
-//    keys) visits q tiles of 64 from floor(k0 / 64) on, and a warpgroup
-//    skips a q tile that lies wholly before its 64 keys.  Entries inside
-//    a visited tile are masked by q >= k.
+//    tile at q0 (128 rows) visits key tiles k0 < min(T, q0 + 128), and
+//    so does dQ's (key tiles of 64), where a warpgroup skips the products
+//    of a key tile that lies wholly after its 64 rows; dK/dV's key tile
+//    at k0 (128 keys) visits q tiles of 64 from floor(k0 / 64) on, and a
+//    warpgroup skips a q tile that lies wholly before its 64 keys.
+//    Entries inside a visited tile are masked by q >= k.
 // 3. Tails: TMA reads rows past T as zeros (T = 40, 64 or 192 leave a
 //    tile partly empty), and keys and queries past T are still masked by
 //    index; rows past T are not written.  The scale multiplies s after
@@ -85,7 +92,6 @@
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -93,24 +99,7 @@
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
-
-// dQ tiles.
-constexpr int BR = 64;          // query rows per tile
-constexpr int BC = 64;          // keys per tile
-constexpr int NWARPS = 4;       // each warp owns 16 rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PADH = 8;         // bf16 row padding (keeps 32-byte alignment)
-constexpr int PADF = 4;         // f32 row padding
-
-static_assert(BR == NWARPS * 16 && BC == NWARPS * 16, "16 rows per warp");
-static_assert(BC == 64 && BR == 64, "two lanes per row cover 32 columns each");
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 struct Geometry {
   int H;                 // heads in the batch*head index (1 for [B*H, T, D])
@@ -127,128 +116,17 @@ __device__ __forceinline__ long long base_offset(const Geometry& g, int y) {
   return (long long)(y / g.H) * g.sb + (long long)(y % g.H) * g.sh;
 }
 
-// A 64-row [64, D] tile in flight: each thread holds tile_chunks<D>() of
-// its 16-byte chunks in registers.
-template <int D>
-__host__ __device__ constexpr int tile_chunks() {
-  return 64 * (D / 8) / NTHREADS;
-}
-
-// Reads rows [row0, row0 + 64) of a [T, D] slice (row stride st) into
-// registers; rows past T become zeros.  The loads stay in flight until
-// store_tile uses them, so a caller can fetch the next tile before
-// computing on the current one.
-template <int D>
-__device__ __forceinline__ void fetch_tile(uint4* regs, const bf16* src,
-                                           int row0, int T, long long st) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int k = 0; k < tile_chunks<D>(); ++k) {
-    const int i = threadIdx.x + k * NTHREADS;
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    regs[k] = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T)
-      regs[k] = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * st + c * 8);
-  }
-}
-
-// Writes a fetched tile to shared memory with row stride D + PADH.
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* dst, const uint4* regs) {
-  constexpr int CHUNKS = D / 8;
-#pragma unroll
-  for (int k = 0; k < tile_chunks<D>(); ++k) {
-    const int i = threadIdx.x + k * NTHREADS;
-    *reinterpret_cast<uint4*>(dst + (i / CHUNKS) * (D + PADH) +
-                              (i % CHUNKS) * 8) = regs[k];
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int T, long long st) {
-  uint4 regs[tile_chunks<D>()];
-  fetch_tile<D>(regs, src, row0, T, st);
-  store_tile<D>(dst, regs);
-}
-
-// sum_j a[j] * b[j] over N bf16 values (N a multiple of 8, both pointers
-// 16-byte aligned), upcast to f32 and summed in order j = 0 .. N-1, read
-// with 16-byte loads.
-template <int N>
-__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < N / 8; ++c) {
-    const uint4 va = *reinterpret_cast<const uint4*>(a + c * 8);
-    const uint4 vb = *reinterpret_cast<const uint4*>(b + c * 8);
-    const bf16* pa = reinterpret_cast<const bf16*>(&va);
-    const bf16* pb = reinterpret_cast<const bf16*>(&vb);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      s += __bfloat162float(pa[i]) * __bfloat162float(pb[i]);
-  }
-  return s;
-}
-
-// out[16 x 64] (f32, ld PADF-padded) = A[16 x D] . B^T, where B is a
-// [64 x D] tile: rows of A and rows of B are both contiguous in D.  The
-// depth loop is outside, so each A fragment is loaded from shared memory
-// once (four accumulators live); each accumulator still sums its depth
-// blocks in order.
-template <int D>
-__device__ __forceinline__ void rows_times_rows_t(float* out, const bf16* a,
-                                                  const bf16* b) {
-  FragAcc acc[64 / 16];
-#pragma unroll
-  for (int n = 0; n < 64 / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, D + PADH);
-#pragma unroll
-    for (int n = 0; n < 64 / 16; ++n) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * (D + PADH) + kk * 16, D + PADH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 64 / 16; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], 64 + PADF,
-                            wmma::mem_row_major);
-}
-
-// acc[n] += P[16 x 64] . X[64 x D] for the D/16 column blocks n, P with row
-// stride 64 + PADH and X with row stride D + PADH.  Depth outside, as
-// above: each P fragment is loaded once.
-template <int D>
-__device__ __forceinline__ void accumulate_p_times_x(FragAcc* acc,
-                                                     const bf16* p,
-                                                     const bf16* x) {
-#pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, p + kk * 16, 64 + PADH);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, x + kk * 16 * (D + PADH) + n * 16, D + PADH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The Hopper kernels (forward, dK/dV): shared pieces
+// Shared pieces
 // ---------------------------------------------------------------------------
 
 // Two consumer warpgroups of 128 threads and a producer: one warp in the
-// forward; in dK/dV a whole warpgroup, so that setmaxnreg can move its
-// registers to the consumers (dK and dV alone take 128 a thread).
+// forward; in dQ and dK/dV a whole warpgroup, so that setmaxnreg can move
+// its registers to the consumers (dK and dV alone take 128 a thread; dQ,
+// S, dP and dS 144).
 constexpr int CONSUMERS = 256;
 constexpr int FWD_THREADS = CONSUMERS + 32;
+constexpr int DQ_THREADS = CONSUMERS + 128;
 constexpr int DKV_THREADS = CONSUMERS + 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -257,6 +135,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int FWD_BR = 128;
 constexpr int FWD_BC = 128;
 constexpr int FWD_STAGES = 3;
+// dQ tiles: 128 q rows per block (64 per consumer warpgroup), key tiles
+// of 64 through a ring of three stages (196 KB at D = 128).
+constexpr int DQ_BR = 128;
+constexpr int DQ_BC = 64;
+constexpr int DQ_STAGES = 3;
 // dK/dV tiles: 128 keys per block (64 per consumer warpgroup), q tiles of
 // 64 through a ring of three stages.
 constexpr int DKV_BK = 128;
@@ -284,10 +167,50 @@ __device__ __forceinline__ int fwd_key_tiles(int q0, int T, int causal) {
   return (kend + FWD_BC - 1) / FWD_BC;
 }
 
+// dQ: the q tile at q0 visits key tiles of DQ_BC up to its last row.
+__device__ __forceinline__ int dq_key_tiles(int q0, int T, int causal) {
+  const int kend = causal ? min(T, q0 + DQ_BR) : T;
+  return (kend + DQ_BC - 1) / DQ_BC;
+}
+
 // dK/dV: the key tile at k0 visits q tiles from the first one holding a
 // row q >= k0.
 __device__ __forceinline__ int dkv_first_q_tile(int k0, int causal) {
   return causal ? k0 / DKV_BQ : 0;
+}
+
+// The producer warpgroup's per-row statistics of a q tile of ROWS rows,
+// beside its Q, dO and O tiles (dQ and dK/dV).
+template <int ROWS>
+struct RowStats {
+  float mlog2[ROWS];  // log2(exp(safe_m) * denom): p = 2^(s log2e - this)
+  float di[ROWS];     // rowsum(dO * O), O the stored bf16 o
+  int seg[ROWS];      // q-side segment ids (0 without segments)
+};
+
+// di of row rr of an R-row tile pair (dO, O) in shared memory (generic
+// pointers to the 1024-aligned tiles), two threads a row: `half` sums its
+// half of the row and the pair adds by a shuffle (trouble spot 4: the
+// stored bf16 o, upcast, summed in f32).  Rows past T were loaded as
+// zeros: di = 0.
+template <int D, int R>
+__device__ __forceinline__ float row_di(const unsigned char* tile_do,
+                                        const unsigned char* tile_o, int rr,
+                                        int half) {
+  constexpr int HALF = D / 16;  // 16-byte chunks in half a row
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const uint32_t at = hop::chunk_addr<D, R>(0u, rr, half * HALF + j);
+    const uint4 x = *reinterpret_cast<const uint4*>(tile_do + at);
+    const uint4 w = *reinterpret_cast<const uint4*>(tile_o + at);
+    const bf16* px = reinterpret_cast<const bf16*>(&x);
+    const bf16* pw = reinterpret_cast<const bf16*>(&w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      part += __bfloat162float(px[e]) * __bfloat162float(pw[e]);
+  }
+  return part + __shfl_xor_sync(0xffffffffu, part, 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -490,122 +413,237 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one block per (64-row q tile, batch*head); streams key tiles.
+// dQ: one block per (128-row q tile, batch*head); walks key tiles of 64.
+// Warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64).
 // ---------------------------------------------------------------------------
+
+using DqStats = RowStats<DQ_BR>;
+static_assert(sizeof(DqStats) <= 2048, "the statistics fit their slot");
 
 template <int D>
 constexpr int dq_smem_bytes() {
-  return 4 * 64 * (D + PADH) * 2      // Q, dO (reused to stage dQ), K, V
-         + 64 * (64 + PADF) * 4       // S, then dP
-         + 64 * (64 + PADH) * 2;      // dS (bf16)
+  return 1024 + 3 * DQ_BR * D * 2 + 2048 + DQ_STAGES * 2 * DQ_BC * D * 2 +
+         8 * (2 + 3 * DQ_STAGES);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_o,
                         const float* __restrict__ m_in,
                         const float* __restrict__ l_in,
                         const int* __restrict__ qseg,
                         const int* __restrict__ kseg, bf16* __restrict__ dq,
                         Geometry g, int causal, float scale) {
-  static_assert(64 * (D + PADF) * 4 <= 2 * 64 * (D + PADH) * 2,
-                "dQ staging fits in the Q and dO tiles");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + 64 * (D + PADH);
-  bf16* sK = sdO + 64 * (D + PADH);
-  bf16* sV = sK + 64 * (D + PADH);
-  float* sS = reinterpret_cast<float*>(sV + 64 * (D + PADH));
-  bf16* sdS = reinterpret_cast<bf16*>(sS + 64 * (64 + PADF));
+  constexpr int Q_BYTES = DQ_BR * D * 2;
+  constexpr int KV_BYTES = DQ_BC * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const SmemBase sm = smem_base(smem_raw);
+  const uint32_t sQ = sm.addr, sdO = sQ + Q_BYTES, sO = sdO + Q_BYTES;
+  const uint32_t sStats = sO + Q_BYTES;
+  const uint32_t sKV = sStats + 2048;  // stage s: K at + 2 s KV, V after it
+  // Barriers: Q, dO and O loaded; the statistics written (the producer
+  // warpgroup); per stage, K loaded, V loaded and freed by the consumers.
+  const uint32_t q_full = sKV + DQ_STAGES * 2 * KV_BYTES;
+  const uint32_t stats_full = q_full + 8, k_full = stats_full + 8;
+  const uint32_t v_full = k_full + 8 * DQ_STAGES;
+  const uint32_t empty = v_full + 8 * DQ_STAGES;
+  auto generic = [&](uint32_t addr) { return sm.ptr + (addr - sm.addr); };
+  DqStats* const stats = reinterpret_cast<DqStats*>(generic(sStats));
 
-  // Heavy (late) q tiles first, as in the forward.
-  const int T = g.T, y = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;
-  const long long off = base_offset(g, y);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = warp * 16 + (lane >> 1), half = lane & 1;
-  const int qrow = q0 + r;
-  const bool live = qrow < T;
+  // The last q tiles do the most work under causal masking: blockIdx.y = 0
+  // takes the last tile of every batch*head, as in the forward.
+  const int T = g.T, y = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BR;
+  const int n_tiles = dq_key_tiles(q0, T, causal);
   const int* qs = qseg ? qseg + (long long)(y / g.seg_heads) * T : nullptr;
   const int* ks = kseg ? kseg + (long long)(y / g.seg_heads) * T : nullptr;
-  const int my_seg = (qs && live) ? qs[qrow] : 0;
 
-  load_tile<D>(sQ, q + off, q0, T, g.st);
-  load_tile<D>(sdO, dout + off, q0, T, g.st);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    hop::mbar_init(stats_full, DQ_THREADS - CONSUMERS);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hop::mbar_init(k_full + 8 * s, 1);
+      hop::mbar_init(v_full + 8 * s, 1);
+      hop::mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    hop::mbar_init_fence();
+  }
   __syncthreads();
 
-  const float m_i = live ? m_in[(long long)y * T + qrow] : -INFINITY;
-  const float l_i = live ? l_in[(long long)y * T + qrow] : 0.f;
-  const float safe_m = (m_i == -INFINITY) ? 0.f : m_i;
-  const float denom = (l_i == 0.f) ? 1.f : l_i;
-  // Trouble spot 4: di from the stored bf16 o, upcast.
-  float di = 0.f;
-  if (live)
-    di = dot_bf16<D / 2>(sdO + r * (D + PADH) + half * (D / 2),
-                         o + off + (long long)qrow * g.st + half * (D / 2));
-  di += __shfl_xor_sync(0xffffffffu, di, 1);
-
-  FragAcc acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int kend = causal ? min(T, q0 + BR) : T;
-  uint4 kreg[tile_chunks<D>()], vreg[tile_chunks<D>()];
-  fetch_tile<D>(kreg, k + off, 0, T, g.st);
-  fetch_tile<D>(vreg, v + off, 0, T, g.st);
-  for (int k0 = 0; k0 < kend; k0 += BC) {
-    __syncthreads();
-    store_tile<D>(sK, kreg);
-    store_tile<D>(sV, vreg);
-    __syncthreads();
-    if (k0 + BC < kend) {
-      fetch_tile<D>(kreg, k + off, k0 + BC, T, g.st);
-      fetch_tile<D>(vreg, v + off, k0 + BC, T, g.st);
+  if (threadIdx.x >= CONSUMERS) {
+    // Producer warpgroup: gives its registers to the consumers (56 left
+    // a thread: 40 spill the statistics loop; 224 cover the consumers);
+    // thread 0 issues the TMA loads, and all 128 threads compute the q
+    // tile's statistics from the loaded tiles.
+    hop::setmaxnreg_dec<56>();
+    const int pt = threadIdx.x - CONSUMERS, half = pt % 2;
+    const int h = y % g.H, b = y / g.H;
+    auto load_kv = [&](int i) {
+      const int s = i % DQ_STAGES;
+      hop::mbar_wait(empty + 8 * s, ((i / DQ_STAGES) & 1) ^ 1);
+      const uint32_t sK = sKV + s * 2 * KV_BYTES;
+      hop::mbar_arrive_expect_tx(k_full + 8 * s, KV_BYTES);
+      hop::tma_tile<D, DQ_BC>(sK, &tm_k, k_full + 8 * s, i * DQ_BC, h, b);
+      hop::mbar_arrive_expect_tx(v_full + 8 * s, KV_BYTES);
+      hop::tma_tile<D, DQ_BC>(sK + KV_BYTES, &tm_v, v_full + 8 * s,
+                              i * DQ_BC, h, b);
+    };
+    // The first stages need no free slot, so they go out before the
+    // statistics, and the rest of the ring after them.
+    const int first = min(n_tiles, DQ_STAGES);
+    if (pt == 0) {
+      hop::mbar_arrive_expect_tx(q_full, 3 * Q_BYTES);
+      hop::tma_tile<D, DQ_BR>(sQ, &tm_q, q_full, q0, h, b);
+      hop::tma_tile<D, DQ_BR>(sdO, &tm_do, q_full, q0, h, b);
+      hop::tma_tile<D, DQ_BR>(sO, &tm_o, q_full, q0, h, b);
+      for (int i = 0; i < first; ++i) load_kv(i);
     }
-
-    // S, then p into registers, then dP into the same buffer.
-    float* sw = sS + warp * 16 * (64 + PADF);
-    rows_times_rows_t<D>(sw, sQ + warp * 16 * (D + PADH), sK);
-    __syncwarp();
-    const float* srow = sS + r * (64 + PADF) + half * 32;
-    float pv[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int kc = k0 + half * 32 + j;
-      const bool ok = live && kc < T && (!causal || kc <= qrow) &&
-                      (!qs || ks[kc] == my_seg);
-      const float s = ok ? srow[j] * scale : -INFINITY;
-      pv[j] = (s == -INFINITY) ? 0.f : expf(s - safe_m) / denom;
+    hop::mbar_wait(q_full, 0);
+    for (int rr = pt / 2; rr < DQ_BR; rr += (DQ_THREADS - CONSUMERS) / 2) {
+      const int qr = q0 + rr;
+      const float di = row_di<D, DQ_BR>(generic(sdO), generic(sO), rr, half);
+      if (half == 0) {
+        float m = -INFINITY, l = 0.f;
+        int seg = 0;
+        if (qr < T) {
+          m = m_in[(long long)y * T + qr];
+          l = l_in[(long long)y * T + qr];
+          if (qs) seg = qs[qr];
+        }
+        const float safe_m = (m == -INFINITY) ? 0.f : m;
+        const float denom = (l == 0.f) ? 1.f : l;
+        stats->mlog2[rr] = safe_m * LOG2E + log2f(denom);
+        stats->di[rr] = di;
+        stats->seg[rr] = seg;
+      }
     }
-    __syncwarp();
-    rows_times_rows_t<D>(sw, sdO + warp * 16 * (D + PADH), sV);
-    __syncwarp();
-    bf16* dsrow = sdS + r * (64 + PADH) + half * 32;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-      dsrow[j] = __float2bfloat16(pv[j] * (srow[j] - di));
-    __syncwarp();
-    accumulate_p_times_x<D>(acc, sdS + warp * 16 * (64 + PADH), sK);
+    hop::mbar_arrive(stats_full);
+    if (pt == 0)
+      for (int i = first; i < n_tiles; ++i) load_kv(i);
+    return;
   }
 
-  __syncthreads();  // every warp is done with sQ/sdO: reuse them as staging
-  float* const stage_base = reinterpret_cast<float*>(sQ);
-  float* stage = stage_base + warp * 16 * (D + PADF);
+  hop::setmaxnreg_inc<224>();
+  // Consumers: this thread holds rows row[0] and row[1] = row[0] + 8 of the
+  // warpgroup's 64 (rows of S, dP and dQ).
+  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int r_first = q0 + wg * 64;
+  int row[2];
+  row[0] = r_first + warp * 16 + lane / 4;
+  row[1] = row[0] + 8;
+
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  hop::mbar_wait(stats_full, 0);
+  float mlog2[2], di[2];
+  int my_seg[2];
 #pragma unroll
-    for (int i = 0; i < acc[n].num_elements; ++i) acc[n].x[i] *= scale;
-    wmma::store_matrix_sync(stage + n * 16, acc[n], D + PADF,
-                            wmma::mem_row_major);
+  for (int r = 0; r < 2; ++r) {
+    mlog2[r] = stats->mlog2[row[r] - q0];
+    di[r] = stats->di[row[r] - q0];
+    my_seg[r] = stats->seg[row[r] - q0];
   }
-  __syncwarp();
-  if (live) {
-    const float* srow = stage_base + r * (D + PADF) + half * (D / 2);
-    bf16* dst = dq + off + (long long)qrow * g.st + half * (D / 2);
+  const float scale_log2 = scale * LOG2E;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % DQ_STAGES, k0 = i * DQ_BC;
+    const uint32_t parity = (i / DQ_STAGES) & 1;
+    const uint32_t sK = sKV + s * 2 * KV_BYTES, sV = sK + KV_BYTES;
+    // Wait for K even when skipping: the stage's earlier use is then over,
+    // so this arrival on `empty` counts towards this tile's phase.
+    hop::mbar_wait(k_full + 8 * s, parity);
+    // Under causal masking a key tile wholly after this warpgroup's rows
+    // has nothing for it (the block's last tile, for warpgroup 0).
+    if (!causal || k0 <= r_first + 63) {
+      // S = Q . K^T and dP = dO . V^T for this warpgroup's 64 rows.
+      float sc[DQ_BC / 2], dp[DQ_BC / 2];
+      hop::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dst[j] = __float2bfloat16(srow[j]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        hop::wgmma_ss<DQ_BC>(sc, hop::kmajor<D, DQ_BR>(sQ, wg * 64, kk),
+                             hop::kmajor<D, DQ_BC>(sK, 0, kk), kk > 0);
+      hop::wgmma_commit();
+      hop::mbar_wait(v_full + 8 * s, parity);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hop::wgmma_ss<DQ_BC>(dp, hop::kmajor<D, DQ_BR>(sdO, wg * 64, kk),
+                             hop::kmajor<D, DQ_BC>(sV, 0, kk), kk > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait_all();
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+
+      // P = exp(S scale - m) / l and dS = P (dP - di), with the mask
+      // (trouble spots 1-3) where the tile needs one.
+      const bool need_mask = k0 + DQ_BC > T || ks != nullptr ||
+                             (causal && k0 + DQ_BC - 1 > r_first);
+#pragma unroll
+      for (int j = 0; j < DQ_BC / 2; ++j) {
+        const int r = (j / 2) % 2;
+        float p = exp2f(fmaf(sc[j], scale_log2, -mlog2[r]));
+        if (need_mask) {
+          const int kc = k0 + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+          const bool ok = kc < T && (!causal || kc <= row[r]) &&
+                          (!ks || ks[kc] == my_seg[r]);
+          if (!ok) p = 0.f;
+        }
+        dp[j] = p * (dp[j] - di[r]);
+      }
+      // dQ += dS . K, dS rounded to bf16 as the register A operand and K
+      // read MN-major (the reduction runs over its rows, the keys).
+      uint32_t da[DQ_BC / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_BC / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          da[kk][e] =
+              hop::pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+      hop::wgmma_fence();
+      hop::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < DQ_BC / 16; ++kk)
+        hop::wgmma_rs<D>(acc, da[kk], hop::mnmajor<D, DQ_BC>(sK, kk), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait_all();
+      hop::fence_regs(acc);
+      hop::fence_regs(da);
+    }
+    hop::mbar_arrive(empty + 8 * s);
+  }
+
+  // Epilogue: the scale multiplies dQ after its products (trouble spot 3).
+  // Each warpgroup stages its 64 rows, rounded to bf16, in its half of the
+  // O tile (free once the statistics are written) in the swizzled layout,
+  // then writes whole 16-byte chunks of its rows below T.
+  const uint32_t stage = sO + wg * 64 * D * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int lr = warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(
+          generic(hop::chunk_addr<D, 64>(stage, lr, j) + 4 * (lane % 4))) =
+          hop::pack_bf16(acc[4 * j + 2 * r] * scale,
+                         acc[4 * j + 2 * r + 1] * scale);
+  }
+  hop::named_barrier(1 + wg, 128);
+  const long long off = base_offset(g, y);
+  constexpr int CHUNKS = D / 8;
+#pragma unroll
+  for (int idx = threadIdx.x % 128; idx < 64 * CHUNKS; idx += 128) {
+    const int lr = idx / CHUNKS, c = idx % CHUNKS;
+    if (r_first + lr >= T) continue;
+    *reinterpret_cast<uint4*>(dq + off + (long long)(r_first + lr) * g.st +
+                              8 * c) =
+        *reinterpret_cast<const uint4*>(
+            generic(hop::chunk_addr<D, 64>(stage, lr, c)));
   }
 }
 
@@ -617,12 +655,7 @@ __global__ void __launch_bounds__(NTHREADS)
 // tiles serve as K-major B (in S^T and dP^T) and MN-major B (in dK, dV).
 // ---------------------------------------------------------------------------
 
-// Per q tile and stage, beside Q, dO and O: the producer's row statistics.
-struct DkvStats {
-  float mlog2[DKV_BQ];  // log2 of exp(safe_m) * denom: p = 2^(s log2e - this)
-  float di[DKV_BQ];     // rowsum(dO * O), O the stored bf16 o
-  int seg[DKV_BQ];      // q-side segment ids (0 without segments)
-};
+using DkvStats = RowStats<DKV_BQ>;
 static_assert(sizeof(DkvStats) <= 1024, "the statistics fit their slot");
 
 template <int D>
@@ -699,7 +732,6 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
       hop::tma_tile<D, DKV_BK>(sK, &tm_k, kv_full, k0, h, b);
       hop::tma_tile<D, DKV_BK>(sV, &tm_v, kv_full, k0, h, b);
     }
-    constexpr int HALF = D / 16;  // 16-byte chunks in half a row
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % DKV_STAGES, q0 = (q_first + i) * DKV_BQ;
       const int qr = q0 + rr;
@@ -721,28 +753,13 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
         hop::tma_tile<D, DKV_BQ>(sO, &tm_o, loaded + 8 * s, q0, h, b);
       }
       hop::mbar_wait(loaded + 8 * s, parity);
-      // Rows past T were loaded as zeros: di = 0 there.
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < HALF; ++j) {
-        const int c = half * HALF + j;
-        const uint4 x = *reinterpret_cast<const uint4*>(
-            generic(hop::chunk_addr<D, DKV_BQ>(sdO, rr, c)));
-        const uint4 w = *reinterpret_cast<const uint4*>(
-            generic(hop::chunk_addr<D, DKV_BQ>(sO, rr, c)));
-        const bf16* px = reinterpret_cast<const bf16*>(&x);
-        const bf16* pw = reinterpret_cast<const bf16*>(&w);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          part += __bfloat162float(px[e]) * __bfloat162float(pw[e]);
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      const float di = row_di<D, DKV_BQ>(generic(sdO), generic(sO), rr, half);
       if (half == 0) {
         DkvStats* st = stats(s);
         const float safe_m = (m == -INFINITY) ? 0.f : m;
         const float denom = (l == 0.f) ? 1.f : l;
         st->mlog2[rr] = safe_m * LOG2E + log2f(denom);
-        st->di[rr] = part;
+        st->di[rr] = di;
         st->seg[rr] = seg;
       }
       hop::mbar_arrive(full + 8 * s);
@@ -857,6 +874,10 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
   }
 }
 
+// The launches call this before they encode their tensor maps: as a
+// runtime call it makes the device's primary context current in the
+// calling thread (autograd runs the backward on a thread of its own),
+// and the driver's map encoder needs a current context.
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel,
@@ -925,12 +946,12 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* m, void* l, const void* qseg, const void* kseg,
                        int BH, const Geometry& g, int causal, float scale,
                        cudaStream_t stream) {
+  constexpr int smem = fwd_smem_bytes<D>();
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map<D>(&tq, q, BH, g, FWD_BR);
+  cudaError_t err = prepare(flash_fwd_kernel<D>, smem);
+  if (err == cudaSuccess) err = make_map<D>(&tq, q, BH, g, FWD_BR);
   if (err == cudaSuccess) err = make_map<D>(&tk, k, BH, g, FWD_BC);
   if (err == cudaSuccess) err = make_map<D>(&tv, v, BH, g, FWD_BC);
-  constexpr int smem = fwd_smem_bytes<D>();
-  if (err == cudaSuccess) err = prepare(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(BH, (g.T + FWD_BR - 1) / FWD_BR);
   flash_fwd_kernel<D><<<grid, FWD_THREADS, smem, stream>>>(
@@ -947,13 +968,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int BH, const Geometry& g, int causal,
                       float scale, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();
+  CUtensorMap tq, tk, tv, tdo, to;
   cudaError_t err = prepare(flash_bwd_dq_kernel<D>, smem);
+  if (err == cudaSuccess) err = make_map<D>(&tq, q, BH, g, DQ_BR);
+  if (err == cudaSuccess) err = make_map<D>(&tk, k, BH, g, DQ_BC);
+  if (err == cudaSuccess) err = make_map<D>(&tv, v, BH, g, DQ_BC);
+  if (err == cudaSuccess) err = make_map<D>(&tdo, dout, BH, g, DQ_BR);
+  if (err == cudaSuccess) err = make_map<D>(&to, o, BH, g, DQ_BR);
   if (err != cudaSuccess) return err;
-  dim3 grid((g.T + BR - 1) / BR, BH);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(m),
+  dim3 grid(BH, (g.T + DQ_BR - 1) / DQ_BR);
+  flash_bwd_dq_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, to, static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const int*>(qseg),
       static_cast<const int*>(kseg), static_cast<bf16*>(dq), g, causal,
       scale);
@@ -966,14 +991,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* l, const void* qseg, const void* kseg,
                        void* dk, void* dv, int BH, const Geometry& g,
                        int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = dkv_smem_bytes<D>();
   CUtensorMap tq, tk, tv, tdo, to;
-  cudaError_t err = make_map<D>(&tq, q, BH, g, DKV_BQ);
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, smem);
+  if (err == cudaSuccess) err = make_map<D>(&tq, q, BH, g, DKV_BQ);
   if (err == cudaSuccess) err = make_map<D>(&tk, k, BH, g, DKV_BK);
   if (err == cudaSuccess) err = make_map<D>(&tv, v, BH, g, DKV_BK);
   if (err == cudaSuccess) err = make_map<D>(&tdo, dout, BH, g, DKV_BQ);
   if (err == cudaSuccess) err = make_map<D>(&to, o, BH, g, DKV_BQ);
-  constexpr int smem = dkv_smem_bytes<D>();
-  if (err == cudaSuccess) err = prepare(flash_bwd_dkv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(BH, (g.T + DKV_BK - 1) / DKV_BK);
   flash_bwd_dkv_kernel<D><<<grid, DKV_THREADS, smem, stream>>>(

@@ -1,7 +1,8 @@
-// Hopper building blocks for the flash-attention kernels: mbarriers, TMA
-// tile loads, shared-memory matrix descriptors and the warpgroup matrix
-// products (wgmma) they use.  Inline PTX only, so the build needs nothing
-// but nvcc; wgmma needs the sm_90a target (_build.NVCC_FLAGS).
+// Hopper building blocks for the port's kernels: mbarriers, TMA tile and
+// bulk loads, shared-memory matrix descriptors and the warpgroup matrix
+// products (wgmma) the flash-attention kernels use.  Inline PTX only, so
+// the build needs nothing but nvcc; wgmma needs the sm_90a target
+// (_build.NVCC_FLAGS).
 //
 // Shared-memory tiles.  A [R, D] bf16 tile is stored as D / BOX boxes of
 // [R, BOX] (BOX = W / 2 columns, W = min(128, 2 D) bytes per row), each box
@@ -144,6 +145,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One contiguous run of bytes (16-byte aligned at both ends, a multiple
+// of 16 long) from device memory into shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 template <int D, int R>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int t0, int h, int b) {
@@ -184,6 +196,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// A barrier among the `threads` threads (a multiple of 32) that name the
+// same id (1-15; 0 is __syncthreads), e.g. one warpgroup.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Register reallocation between warpgroups (sm_90a): a producer gives

@@ -16,8 +16,8 @@ Contract, as the reference's:
   defaults to ``D ** -0.5`` and multiplies the scores after the product.
 * ``T`` must divide by the effective blocks (``_eff_blocks``), with the
   reference's ``ValueError`` otherwise.  The blocks are checked but the
-  kernels tile for Hopper (128-row tiles in the forward and dK/dV, 64-row
-  ones in dQ): the reference's 1024 blocks are a v5e VMEM choice.
+  kernels tile for Hopper (128-row q tiles in the forward and dQ, 128-key
+  tiles in dK/dV): the reference's 1024 blocks are a v5e VMEM choice.
 * ``_fwd_parts`` returns ``(o, m, l)``: ``m`` the row max of the scaled
   scores and ``l`` the UNnormalized row sum of ``exp(s - m)``, both
   ``[B*H, 1, T]`` f32.  ``_bwd_parts`` takes the global ``(m, l)``.  Both

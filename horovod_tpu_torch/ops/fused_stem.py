@@ -3,8 +3,9 @@
 Counterpart of ``horovod_tpu/ops/fused_stem.py``.  On a CUDA tensor the
 forward is one hand-written kernel (``csrc/fused_stem.cu``) that reads the
 stem conv's output once and writes the pooled result, so the BN-apply and
-relu output never reaches device memory.  On a CPU tensor the forward is
-the plain PyTorch version, ``_tail``.
+relu output never reaches device memory; ``_tiling`` cuts the launch into
+strips of output rows whose input a block stages in shared memory.  On a
+CPU tensor the forward is the plain PyTorch version, ``_tail``.
 
 Backward follows the reference's ``_bwd``: it recomputes ``_tail`` from the
 saved ``x``, ``scale`` and ``offset`` and differentiates it with autograd.
@@ -23,6 +24,7 @@ contiguous ``[H/2, 2]`` reshape; the same per axis.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -32,6 +34,30 @@ from horovod_tpu_torch.ops import _build
 launches = _build.CallCounter("fused_stem")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Shared memory of one kernel block: the staged input of a strip.  72 KB
+# lets three blocks share an SM (227 KB), so one block's loads overlap
+# another's arithmetic; a pixel wider than a ninth of it takes more, up to
+# the most a block can have.
+_STRIP_BYTES = 72 * 1024
+_BLOCK_SMEM_MAX = 227 * 1024
+
+
+def _tiling(shape, itemsize: int) -> Tuple[int, int]:
+    """The kernel's launch geometry for an NHWC ``shape`` (even H and W):
+    each block owns ``rows`` output rows and ``cols`` output columns of
+    one image and stages ``(2 rows + 1) (2 cols + 1)`` input pixels, plus
+    its 16-byte barrier, in shared memory.  Whole output rows where three
+    input rows fit ``_STRIP_BYTES``, else the widest column tile that
+    does; then as many rows as fit."""
+    _, h, w, c = shape
+    pixel = max(c, 1) * itemsize
+    if 9 * pixel + 16 > _BLOCK_SMEM_MAX:
+        raise ValueError(f"fused stem: {c} channels of {itemsize} bytes do "
+                         f"not fit a block's shared memory")
+    budget = max(_STRIP_BYTES, 9 * pixel)
+    cols = max(1, min(w // 2, (budget // (3 * pixel) - 1) // 2))
+    rows = max(1, min(h // 2, (budget // ((2 * cols + 1) * pixel) - 1) // 2))
+    return rows, cols
 
 
 def _pool_axis(y: torch.Tensor, axis: int) -> torch.Tensor:
@@ -84,18 +110,19 @@ def _launch(x: torch.Tensor, scale: torch.Tensor,
     scale, offset = scale.contiguous(), offset.contiguous()
     out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     lanes = 16 // x.element_size()
-    vec = int(c % lanes == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, scale, offset, out)))
+    vec = c % lanes == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, scale, offset, out))
+    rows, cols = _tiling(x.shape, x.element_size())
     lib = _build.load("fused_stem")
     fn = lib.hvd_fused_stem_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-                 out.data_ptr(), b, h, w, c, _DTYPE_CODE[x.dtype], vec,
-                 stream)
+                 out.data_ptr(), b, h, w, c, _DTYPE_CODE[x.dtype],
+                 int(vec), rows, cols, stream)
     if err != 0:
         raise RuntimeError(f"fused stem kernel launch failed: CUDA error "
                            f"{err}")

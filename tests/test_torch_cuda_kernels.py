@@ -34,7 +34,14 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 8, 8, 4), torch.float32), ((3, 12, 16, 8), torch.bfloat16),
-    ((1, 6, 10, 3), torch.float32), ((2, 112, 112, 64), torch.bfloat16)])
+    ((1, 6, 10, 3), torch.float32), ((2, 112, 112, 64), torch.bfloat16),
+    # The kernel stages strips of output rows (and, for wide rows, column
+    # tiles) with their halo: one output row, a last strip cut short, one
+    # output column, ragged column tiles in both dtypes, and a vector
+    # instance of three 16-byte channel groups.
+    ((2, 2, 8, 64), torch.bfloat16), ((1, 118, 112, 64), torch.bfloat16),
+    ((2, 8, 2, 16), torch.bfloat16), ((1, 16, 448, 64), torch.bfloat16),
+    ((2, 20, 112, 64), torch.float32), ((2, 12, 16, 24), torch.bfloat16)])
 def test_fused_stem_bitwise_equals_plain_version(cuda_device, shape, dtype):
     """Tolerance: none.  The kernel rounds where the plain version does,
     and it counts exactly one launch."""
@@ -198,8 +205,8 @@ def test_flash_kernels_propagate_nan(cuda_device):
 # Faults planted in a copy of the kernel source, each wrong only on the
 # late tiles (queries or keys from 1024 on), where the causal gradients
 # are small: (text in flash_attention.cu, its faulty replacement).  The
-# forward and dK/dV faults sit in the tile-count helpers that the
-# producer and the consumers share, so the faulty kernels still finish.
+# faults sit in the tile-count helpers that each kernel's producer and
+# consumers share, so the faulty kernels still finish.
 PLANTED_FAULTS = {
     # The forward drops its diagonal key tile.
     "fwd_drops_diagonal_k_tile": (
@@ -210,12 +217,11 @@ PLANTED_FAULTS = {
     "dkv_starts_one_q_tile_late": (
         "return causal ? k0 / DKV_BQ : 0;",
         "return causal ? k0 / DKV_BQ + (k0 >= 1024) : 0;"),
-    # dQ drops its last (diagonal) key tile.
+    # dQ drops its last key tiles, the diagonal ones of both warpgroups.
     "dq_drops_last_k_tile": (
-        "accumulate_p_times_x<D>(acc, sdS + warp * 16 * (64 + PADH), sK);",
-        "if (k0 + BC < kend || q0 < 1024)\n"
-        "      accumulate_p_times_x<D>(acc, sdS + warp * 16 * (64 + PADH), "
-        "sK);"),
+        "const int kend = causal ? min(T, q0 + DQ_BR) : T;",
+        "const int kend = causal ? min(T, q0 + DQ_BR) - (q0 >= 1024) * "
+        "DQ_BR : T;"),
 }
 
 

@@ -1,7 +1,7 @@
 """What the flash kernels' TMA tensor maps rely on, checked on the CPU.
 
-The Hopper forward and dK/dV kernels read q, k, v and dO through TMA
-tensor maps built over the strides that ``_Geometry`` reports: a 4-D map
+The Hopper forward, dQ and dK/dV kernels read q, k, v, o and dO through
+TMA tensor maps built over the strides that ``_Geometry`` reports: a 4-D map
 (d, t, h, b) over ``[B, T, H, D]`` in place, or over the folded
 ``[B*H, T, D]`` as H = 1.  TMA needs a 16-byte-aligned base and every
 stride but the innermost a multiple of 16 bytes.  ``_kernel_operands``

@@ -129,3 +129,46 @@ def test_cpu_route_is_the_plain_version_and_launches_nothing():
     out = tfs.fused_bn_relu_maxpool(x, s, b)
     assert tfs.launches.count == before
     assert torch.equal(out, tfs._tail(x, s, b))
+
+
+@pytest.mark.parametrize("shape,itemsize", [
+    ((256, 112, 112, 64), 2),   # the ResNet-50 main path
+    ((1, 118, 112, 64), 2),     # Ho = 59, not a multiple of the strip
+    ((2, 2, 8, 64), 2),         # H = 2: one output row
+    ((2, 8, 2, 16), 2),         # W = 2: one output column
+    ((1, 16, 448, 64), 2),      # rows too wide for whole-row strips
+    ((2, 20, 112, 64), 4),      # f32: ragged column tiles
+    ((2, 12, 16, 24), 2),       # C = 24 bf16: three 16-byte groups
+    ((1, 6, 10, 3), 4),         # the scalar instance's shapes
+    ((3, 4096, 6, 8), 4),       # tall and narrow: ragged row strips
+])
+def test_kernel_tiling_covers_every_output_once(shape, itemsize):
+    """The kernel's launch geometry: its strips of output rows and its
+    column tiles (``ceil(H/2 / rows)`` and ``ceil(W/2 / cols)`` a block
+    index, as the kernel cuts them) cover every output row and column of
+    an image exactly once, each block's staged input (its rows and
+    columns plus the one-pixel halo) lies in the image but for the top
+    and left padding and fits a block's shared memory, and the ResNet
+    shape takes whole-row strips of 2 rows, small enough for three
+    blocks an SM."""
+    _, h, w, c = shape
+    rows, cols = tfs._tiling(shape, itemsize)
+    for n_out, size in ((h // 2, rows), (w // 2, cols)):
+        tiles = -(-n_out // size)
+        covered = [o for k in range(tiles)
+                   for o in range(k * size, min((k + 1) * size, n_out))]
+        assert covered == list(range(n_out))
+        for k in range(tiles):
+            first_in = 2 * k * size - 1
+            last_in = 2 * min((k + 1) * size, n_out) - 1
+            assert -1 <= first_in and last_in <= 2 * n_out - 1
+    smem = (2 * rows + 1) * (2 * cols + 1) * c * itemsize + 16
+    assert smem <= tfs._BLOCK_SMEM_MAX
+    if shape == (256, 112, 112, 64):
+        assert (rows, cols) == (2, 56)
+        assert 3 * (smem + 1024) <= 228 * 1024
+
+
+def test_kernel_tiling_rejects_pixels_wider_than_a_block():
+    with pytest.raises(ValueError, match="shared memory"):
+        tfs._tiling((1, 4, 4, 8192), 4)
