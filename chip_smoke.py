@@ -31,7 +31,15 @@ any failure ends the run with a traceback and a non-zero exit:
    warmup and 10 timed steps, with the flash launch counts read around it;
 8. LM reference: a small f32 LM step on the GPU against the CPU, and a
    small packed bf16 LM's logits and gradients through the flash route
-   against the local one.
+   against the local one;
+9. the ``hvd.*`` API on the card (the NCCL group of size 1): every
+   collective on CUDA tensors in f32, bf16, f16, int32 and int64 (a
+   0-dim and an empty tensor too) against its size-1 result, the async
+   handles, the object ops and a process set; then the ResNet-50
+   ``s2d_fused`` step of phase 4 through ``hvd.DistributedOptimizer``,
+   ``hvd.broadcast_parameters`` and ``hvd.broadcast_optimizer_state``,
+   with the fused-stem launches read around it and its losses held to
+   phase 4's.
 
 It prints one JSON line of kernel numbers and, last, one JSON line naming
 the device.  With no GPU it exits non-zero and prints no result.
@@ -87,6 +95,12 @@ FLASH_ML_TOL = 1e-4
 # scores and probabilities to bf16, so it is the noisier of the two.
 LM_LOGIT_TOL = 2 ** -5
 LM_GRAD_TOL = 2 ** -4
+# Phase 9 runs phase 4's step (same seed, batch and SGD) through
+# hvd.DistributedOptimizer, which at size 1 adds no hook and no
+# collective, after broadcast_optimizer_state's zero-gradient fill (which
+# leaves parameters and momentum as a fresh start has them).  The math is
+# the same and cuDNN picks the same algorithms for the same shapes, so
+# every timed loss must equal phase 4's bit for bit.
 
 
 def check(cond: bool, msg: str) -> None:
@@ -274,7 +288,8 @@ def phase_main_path(smi: str) -> tuple:
         "peak_tflops", "mfu", "max_memory_allocated")}
     summary["nvidia_smi"] = smi
     print("main path: " + json.dumps(summary), flush=True)
-    return launches, calls // steps
+    summary["step_losses"] = res["step_losses"]
+    return launches, calls // steps, summary
 
 
 def phase_reference() -> None:
@@ -744,6 +759,149 @@ def phase_lm_reference() -> None:
           f"{LM_GRAD_TOL}); loss {loss_f:.6f} vs {loss_l:.6f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The hvd.* API
+# ---------------------------------------------------------------------------
+
+def _hvd_ops(hvd, x, ps):
+    """Every collective of the API on ``x`` at size 1, by name."""
+    out = {
+        "allreduce": hvd.allreduce(x),
+        "allreduce Sum": hvd.allreduce(x, op=hvd.Sum),
+        "allreduce Min": hvd.allreduce(x, op=hvd.Min),
+        "allreduce Max": hvd.allreduce(x, op=hvd.Max),
+        "allreduce process_set": hvd.allreduce(x, process_set=ps),
+        "allreduce_": hvd.allreduce_(x.clone()),
+        "grouped_allreduce": hvd.grouped_allreduce([x, x])[1],
+        "allgather": hvd.allgather(x),
+        "broadcast": hvd.broadcast(x, 0),
+        "broadcast_": hvd.broadcast_(x.clone(), 0),
+        "allreduce_async": hvd.synchronize(hvd.allreduce_async(x)),
+        "allreduce_async_": hvd.synchronize(hvd.allreduce_async_(
+            x.clone())),
+        "grouped_allreduce_async": hvd.synchronize(
+            hvd.grouped_allreduce_async([x, x]))[0],
+        "allgather_async": hvd.synchronize(hvd.allgather_async(x)),
+        "broadcast_async": hvd.synchronize(hvd.broadcast_async(x, 0)),
+        "broadcast_async_": hvd.synchronize(hvd.broadcast_async_(
+            x.clone(), 0)),
+    }
+    if x.dim():
+        out["reducescatter"] = hvd.reducescatter(x)
+        out["alltoall"] = hvd.alltoall(x)
+        out["alltoall splits"] = hvd.alltoall(x, splits=[x.shape[0]])[0]
+    if x.is_floating_point():
+        out["allreduce Adasum"] = hvd.allreduce(x, op=hvd.Adasum)
+    return out
+
+
+def phase_hvd_api(smi: str, main: dict) -> None:
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.benchmark import make_bench_state
+    from horovod_tpu_torch.ops import collective, fused_stem, fusion
+
+    dev = torch.device("cuda", 0)
+    check(hvd.size() == 1 and hvd.device() == dev and hvd.nccl_built(),
+          f"expected an NCCL world of one on cuda:0, got size {hvd.size()} "
+          f"on {hvd.device()}")
+    torch.cuda.empty_cache()
+    collective.calls.reset()
+    fusion.allreduce_calls.reset()
+    ps = hvd.add_process_set([0])
+    checked, names = 0, set()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+                  torch.int64):
+        base = torch.arange(-6, 6, device=dev).reshape(3, 4).to(dtype)
+        for x in (base, base[1, 2].clone(), base[:0]):
+            for name, got in _hvd_ops(hvd, x, ps).items():
+                names.add(name)
+                check(got.device == dev and got.dtype == dtype
+                      and got.shape == x.shape and torch.equal(got, x),
+                      f"hvd.{name} on {tuple(x.shape)} {dtype}: got "
+                      f"{tuple(got.shape)} {got.dtype} on {got.device}")
+                checked += 1
+        if dtype.is_floating_point:
+            # Average with scale factors, as the reference's size-1 eager
+            # plane computes it: x * 0.5 / 1 * 3, exact for these values.
+            got = hvd.allreduce(base, prescale_factor=0.5,
+                                postscale_factor=3.0)
+            want = (base.double() * 1.5).to(dtype)
+            check(got.dtype == dtype and torch.equal(got, want),
+                  f"hvd.allreduce pre/postscale {dtype}: {got} != {want}")
+            h = hvd.allreduce_async(base, op=hvd.Sum)
+            check(isinstance(hvd.poll(h), bool), "hvd.poll")
+            check(torch.equal(hvd.synchronize(h), base), "hvd.synchronize")
+            checked += 2
+    obj = {"phase": 9, "ranks": [0]}
+    check(hvd.broadcast_object(obj) == obj, "hvd.broadcast_object")
+    check(hvd.allgather_object(obj) == [obj], "hvd.allgather_object")
+    hvd.barrier()
+    torch.cuda.synchronize()
+    print(f"hvd API: {checked + 2} checks of {len(names)} ops x 5 dtypes x "
+          f"(2-D, 0-dim, empty) on cuda:0 over NCCL: results on the "
+          f"device, in the input's dtype, equal to the size-1 result; "
+          f"{collective.calls.count} collective calls and "
+          f"{fusion.allreduce_calls.count} bucket all-reduces", flush=True)
+
+    # Phase 4's step through the DistributedOptimizer recipe.
+    st = make_bench_state("resnet50", batch_size=BATCH, image_size=IMAGE,
+                          stem="s2d_fused", input_dtype="bfloat16")
+    model = st.model
+    opt = hvd.DistributedOptimizer(
+        st.optimizer, named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+    def step():
+        model.train()
+        loss = F.cross_entropy(model(st.images), st.labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        return loss.detach()
+
+    fused_stem.launches.reset()
+    collective.calls.reset()
+    fusion.allreduce_calls.reset()
+    losses = [step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    losses += [step() for _ in range(TIMED_STEPS)]
+    t1.record()
+    torch.cuda.synchronize()
+    launches = fused_stem.launches.count
+    calls = collective.calls.count + fusion.allreduce_calls.count
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses = [float(x) for x in losses]
+    for i, loss in enumerate(losses):
+        check(loss == loss and abs(loss) != float("inf"),
+              f"phase 9 step {i} loss is not finite: {loss}")
+    check(launches == steps, f"fused_stem launched {launches} times in "
+          f"phase 9's {steps} forward passes")
+    timed = losses[WARMUP_STEPS:]
+    check(len(timed) == len(main["step_losses"]) == TIMED_STEPS,
+          "phase 9: missing timed losses")
+    diffs = [abs(a - b) for a, b in zip(timed, main["step_losses"])]
+    check(timed == main["step_losses"],
+          f"phase 9 timed losses {timed} differ from phase 4's "
+          f"{main['step_losses']} (|diff| {diffs})")
+    ms = t0.elapsed_time(t1) / TIMED_STEPS
+    print(f"hvd DistributedOptimizer ResNet-50 s2d_fused, batch {BATCH}: "
+          f"{BATCH / ms * 1e3:.1f} img/s, {ms:.2f} ms/step (phase 4: "
+          f"{main['img_sec_total']:.1f} img/s, {main['ms_per_step']:.2f} "
+          f"ms/step) on {smi}; fused_stem launches {launches} = forward "
+          f"passes {steps}; {calls} collective calls in the steps (size 1: "
+          f"no hook, no all-reduce); the {TIMED_STEPS} timed losses "
+          f"{timed[0]:.6f} -> {timed[-1]:.6f} equal phase 4's bit for bit",
+          flush=True)
+    del st, model, opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -753,11 +911,12 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     stem_row = phase_kernel_check()
-    stem_row["launches"], _ = phase_main_path(smi)
+    stem_row["launches"], _, main_summary = phase_main_path(smi)
     phase_reference()
     flash_rows = phase_flash_check()
     counts = phase_lm_main_path(smi)
     phase_lm_reference()
+    phase_hvd_api(smi, main_summary)
     for row, count in zip(flash_rows, counts.values()):
         row["launches"] = count
     hvd.shutdown()

@@ -11,6 +11,11 @@ Rank and size come from the launcher's ``HOROVOD_RANK``/``HOROVOD_SIZE``
 contract.  The rendezvous address comes from ``HOROVOD_COORDINATOR_ADDR``
 (``host:port``), else from torch's own ``MASTER_ADDR``/``MASTER_PORT``;
 only a size-1 world may fall back to a free localhost port.
+
+``init(ranks=...)`` restricts the job to a subset of the launched
+processes (reference ``basics.py:155-165``): members get their position
+in the subset as rank and a process group of their own; every other
+process becomes an inactive world of one.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import atexit
 import os
 import socket
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,6 +47,10 @@ class _State:
         self.local_rank, self.local_size = 0, 1
         self.cross_rank, self.cross_size = 0, 1
         self.device: Optional[torch.device] = None
+        # The group this job's collectives span (None = the default
+        # group) and the torch.distributed rank of each hvd rank in it.
+        self.group: Optional[dist.ProcessGroup] = None
+        self.global_ranks: Tuple[int, ...] = (0,)
 
 
 _state = _State()
@@ -83,13 +92,15 @@ def _init_method(size: int) -> str:
         f"HOROVOD_COORDINATOR_ADDR=host:port or MASTER_ADDR/MASTER_PORT")
 
 
-def init(device=None) -> None:
+def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
     """Initialize horovod_tpu_torch (reference ``basics.py:90``).
 
     ``device`` defaults to ``cuda:<local_rank>``; pass ``"cpu"`` to run on
     the CPU over gloo.  Topology resolution follows the JAX package: the
     ``HOROVOD_*`` env contract, with local = global and one host when the
-    launcher exported nothing.
+    launcher exported nothing.  ``ranks`` restricts the job to those
+    launched ranks (taken sorted, as a process set's are); every
+    launched process must call ``init`` with the same ``ranks``.
     """
     with _state.lock:
         if _state.initialized:
@@ -102,17 +113,50 @@ def init(device=None) -> None:
                                     rank // max(local_size, 1))
         cross_size = config.env_int("HOROVOD_CROSS_SIZE",
                                     -(-size // max(local_size, 1)))
+        members = None
+        if ranks is not None:
+            members = sorted({int(r) for r in ranks})
+            if not members or members[0] < 0 or members[-1] >= size:
+                raise ValueError(f"init(ranks={list(ranks)}): ranks must be "
+                                 f"in [0, {size})")
         dev = resolve_device(device, local_rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         dist.init_process_group(backend, init_method=_init_method(size),
                                 rank=rank, world_size=size)
+        group, global_ranks = None, tuple(range(size))
+        if members is not None:
+            group, global_ranks = _subset_group(rank, size, members)
+            rank, size = global_ranks.index(rank), len(global_ranks)
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
         _state.cross_rank, _state.cross_size = cross_rank, cross_size
         _state.device = dev
+        _state.group, _state.global_ranks = group, global_ranks
         _state.initialized = True
+
+
+def _subset_group(rank: int, size: int, members: List[int]):
+    """The group of a rank-subset job: the members' group for a member,
+    a group of its own for any other process.  Creating a group is
+    collective over the default group, so every process creates every
+    one of them, in the same order."""
+    groups = {tuple(members): dist.new_group(members)}
+    for r in range(size):
+        if r not in members:
+            groups[(r,)] = dist.new_group([r])
+    key = tuple(members) if rank in members else (rank,)
+    return groups[key], key
+
+
+_shutdown_hooks: List[Callable[[], None]] = []
+
+
+def on_shutdown(fn: Callable[[], None]) -> None:
+    """Have :func:`shutdown` call ``fn``: a module built on the process
+    group forgets what it holds of it (process sets, handles)."""
+    _shutdown_hooks.append(fn)
 
 
 def shutdown() -> None:
@@ -121,6 +165,8 @@ def shutdown() -> None:
     with _state.lock:
         if not _state.initialized:
             return
+        for fn in _shutdown_hooks:
+            fn()
         if dist.is_initialized():
             dist.destroy_process_group()
         _state.reset()
@@ -174,6 +220,32 @@ def device() -> torch.device:
     return _state.device
 
 
+def process_group() -> Optional[dist.ProcessGroup]:
+    """The group this job's collectives span (None = the default group)."""
+    _check_initialized()
+    return _state.group
+
+
+def global_rank(hvd_rank: int) -> int:
+    """The ``torch.distributed`` rank of ``hvd_rank`` (they differ only
+    under ``init(ranks=...)``)."""
+    _check_initialized()
+    return _state.global_ranks[hvd_rank]
+
+
+def num_devices() -> int:
+    """Devices the job's collectives span (reference ``basics.py:431``).
+    One process drives one device here, so it is the world size."""
+    _check_initialized()
+    return _state.size
+
+
+def local_devices() -> List[torch.device]:
+    """The devices this process drives (reference ``basics.py:439``)."""
+    _check_initialized()
+    return [_state.device]
+
+
 class Topology(NamedTuple):
     """The job's host->slots map plus this rank's place in it
     (reference ``basics.py:289``).  ``leaders`` holds the global rank of
@@ -204,25 +276,47 @@ class Topology(NamedTuple):
 
 def _build_topology(rank: int, size: int, local_rank: int, local_size: int,
                     cross_rank: int, cross_size: int) -> Topology:
-    """Uniform block synthesis from the LOCAL/CROSS contract: cross_size
-    hosts of local_size slots (rank = host * local_size + local_rank), the
-    last host taking the remainder of a world that does not divide."""
-    hosts = []
-    for h in range(max(cross_size, 1)):
-        slots = (min(local_size, size - h * local_size) if local_size > 0
-                 else size)
-        if slots <= 0:
-            break
-        hosts.append(("", slots))
+    """The reference's host map (``basics.py:325-379``): the launcher's
+    ``HOROVOD_TOPOLOGY`` when its slots add up to the live world size,
+    else uniform blocks from the LOCAL/CROSS contract (cross_size hosts of
+    local_size slots, rank = host * local_size + local_rank, the last
+    host taking the remainder of a world that does not divide), named
+    ``HOROVOD_HOSTNAME``."""
+    spec = config.env_str("HOROVOD_TOPOLOGY").strip()
+    hosts: list = []
+    if spec:
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if ":" in part:
+                name, slots = part.rsplit(":", 1)
+                hosts.append((name, int(slots)))
+            else:
+                hosts.append((part, 1))
+        if sum(s for _, s in hosts) != size:
+            hosts = []
+    if not hosts:
+        name = config.env_str("HOROVOD_HOSTNAME")
+        for h in range(max(cross_size, 1)):
+            slots = (min(local_size, size - h * local_size) if local_size > 0
+                     else size)
+            if slots <= 0:
+                break
+            hosts.append((name, slots))
     leaders, base = [], 0
-    host_start, host_slots = 0, size
     for _, slots in hosts:
         leaders.append(base)
-        if base <= rank < base + slots:
-            host_start, host_slots = base, slots
         base += slots
+    host_idx, host_start, host_slots = 0, 0, size
+    for i, ((_, slots), start) in enumerate(zip(hosts, leaders)):
+        if start <= rank < start + slots:
+            host_idx, host_start, host_slots = i, start, slots
+            break
+    hostname = (hosts[host_idx][0] if hosts
+                else config.env_str("HOROVOD_HOSTNAME"))
     return Topology(
-        hosts=tuple(hosts), hostname="", leaders=tuple(leaders),
+        hosts=tuple(hosts), hostname=hostname, leaders=tuple(leaders),
         local_group=tuple(range(host_start, host_start + host_slots)),
         rank=rank, size=size, local_rank=local_rank, local_size=local_size,
         cross_rank=cross_rank, cross_size=cross_size)
@@ -241,4 +335,50 @@ def mesh():
     and this process's device (see :mod:`horovod_tpu_torch.topology`)."""
     from horovod_tpu_torch.topology import build_mesh
     _check_initialized()
-    return build_mesh()
+    return build_mesh(_state.group)
+
+
+# ---------------------------------------------------------------------------
+# Build-capability queries (reference ``basics.py:478-515``), answered for
+# this port: its collectives are torch.distributed's NCCL and gloo.
+# ---------------------------------------------------------------------------
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    """True when this job's collectives run on gloo (a CPU world)."""
+    return _state.initialized and dist.get_backend(_state.group) == "gloo"
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def mlsl_built() -> bool:
+    return False
+
+
+def tpu_built() -> bool:
+    return False
+
+
+def tpu_enabled() -> bool:
+    return False

@@ -40,6 +40,10 @@ _var("HOROVOD_CROSS_SIZE", "int", None,
      "Number of hosts (default: ceil(size / local_size))")
 _var("HOROVOD_COORDINATOR_ADDR", "str", None,
      "host:port of the torch.distributed TCP rendezvous")
+_var("HOROVOD_HOSTNAME", "str", "",
+     "Launcher-assigned host name used in the topology")
+_var("HOROVOD_TOPOLOGY", "str", "",
+     "host:slots,... map exported by the launcher; drives hvd.topology()")
 _var("HOROVOD_FUSION_THRESHOLD", "int", 64 * 1024 * 1024,
      "Gradient fusion bucket limit in bytes (binary size suffixes accepted)")
 _var("HOROVOD_STEP_GUARD", "str", "off",

@@ -22,10 +22,11 @@ dtype; tanh-approximate GELU (``jax.nn.gelu``'s default); a residual
 stream in the compute dtype; logits from a compute-dtype matmul, cast to
 f32.
 
-Not ported yet: tensor parallelism (``model_axis``), the sequence-parallel
-routes (``seq_axis``, ``ring``, ``ring_flash``, ``ulysses``), ``remat``,
-the KV-cache decode and ``generate``, and the pipelined forward.  Each
-raises ``NotImplementedError`` naming its ROADMAP item.
+Not ported yet: tensor parallelism (``model_axis``), sequence parallelism
+(a ``seq_axis``; without one the ``ring``, ``ring_flash`` and ``ulysses``
+routes run as in the reference), ``remat``, the KV-cache decode and
+``generate``, and the pipelined forward.  Each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,7 +47,10 @@ from horovod_tpu_torch.topology import Mesh, data_axis as mesh_data_axis
 
 LAYER_LEAVES = ("ln1_scale", "ln2_scale", "wq", "wk", "wv", "wo", "w1",
                 "w2")
-ATTENTION_ROUTES = ("local", "flash", "auto")
+# Routes the reference takes under a sequence axis (``auto`` upgrades to
+# ``ring_flash``), plus ``local``, the port's default, which stands for the
+# reference's default ``ring``.  The port has no sequence axis yet.
+SEQUENCE_ROUTES = ("local", "ring", "ring_flash", "ulysses", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +75,17 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_route(model_axis, seq_axis, attention: str, remat: str) -> None:
+    """Raise for what the port does not run.  Without a sequence axis
+    every route name runs, as in the reference (``:200-260``): ``ring``,
+    ``ulysses`` and any other name compute local attention, ``ring_flash``
+    the flash kernels."""
     if model_axis is not None:
         raise _not_ported("tensor parallelism (model_axis)", "item 6")
-    if seq_axis is not None or attention in ("ring", "ring_flash",
-                                             "ulysses"):
+    if seq_axis is not None:
+        if attention not in SEQUENCE_ROUTES:
+            raise ValueError(f"attention={attention!r} is not available "
+                             f"with a sequence axis; choose 'ring', "
+                             f"'ring_flash' or 'ulysses'")
         raise _not_ported(f"sequence parallelism (seq_axis={seq_axis!r}, "
                           f"attention={attention!r})", "item 7")
     if remat != "none":
@@ -82,9 +93,6 @@ def _check_route(model_axis, seq_axis, attention: str, remat: str) -> None:
             raise ValueError(f"remat={remat!r}: expected 'none', 'dots' or "
                              f"'full'")
         raise _not_ported(f"remat={remat!r}", "item 6")
-    if attention not in ATTENTION_ROUTES:
-        raise ValueError(f"attention={attention!r}: expected one of "
-                         f"{ATTENTION_ROUTES}")
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -150,19 +158,19 @@ def forward(params: Mapping, tokens: torch.Tensor, cfg: TransformerConfig,
             remat: str = "none") -> torch.Tensor:
     """tokens ``[B, T]`` integer -> logits ``[B, T, vocab]`` f32.
 
-    ``attention``: ``"local"`` (plain attention in the compute dtype),
-    ``"flash"`` (the flash kernels; ``T`` must tile) or ``"auto"`` (flash
-    where :func:`_flash_profitable`).  The reference's default route,
-    ``"ring"``, is local attention when there is no sequence axis; the
-    port names that route ``"local"``.  ``segment_ids`` ([B, T] integer)
-    packs sequences on every route.
+    ``attention``: ``"flash"`` or ``"ring_flash"`` (the flash kernels;
+    ``T`` must tile), ``"auto"`` (flash where :func:`_flash_profitable`),
+    or any other name (``"local"``, the reference's default ``"ring"``,
+    ``"ulysses"``, ``"dense"``): plain attention in the compute dtype, as
+    the reference computes every route without a sequence axis.
+    ``segment_ids`` ([B, T] integer) packs sequences on every route.
     """
     _check_route(model_axis, seq_axis, attention, remat)
     dt = cfg.dtype
     t = tokens.shape[1]
     x = (params["embed"][tokens] + params["pos"][:t][None]).to(dt)
-    use_flash = attention == "flash" or (attention == "auto" and
-                                         _flash_profitable(t))
+    use_flash = attention in ("flash", "ring_flash") or (
+        attention == "auto" and _flash_profitable(t))
     for layer in params["layers"]:
         q, k, v, dh = _qkv_proj(x, layer, dt, cfg.head_dim)
         b = q.shape[0]

@@ -92,9 +92,6 @@ def _check(x: torch.Tensor, scale: torch.Tensor,
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused stem takes float32 or bfloat16; got "
                         f"{x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("fused stem takes a contiguous NHWC tensor (the "
-                         "NHWC view of a channels_last NCHW tensor)")
     for name, t in (("scale", scale), ("offset", offset)):
         if t.shape != (c,):
             raise ValueError(f"{name} must have shape ({c},); got "
@@ -165,8 +162,9 @@ def fused_bn_relu_maxpool(x: torch.Tensor, scale: torch.Tensor,
                           offset: torch.Tensor) -> torch.Tensor:
     """``maxpool3x3/s2/pad1(relu(x*scale + offset))`` in one fused pass.
 
-    ``x``: contiguous ``[B, H, W, C]`` (float32 or bfloat16) with even H, W;
+    ``x``: ``[B, H, W, C]`` (float32 or bfloat16) with even H, W, made
+    contiguous first when it is not (the kernel reads dense NHWC);
     ``scale``/``offset``: ``[C]`` (BN folded in), cast to ``x.dtype``.
     Returns ``[B, H/2, W/2, C]`` in ``x.dtype``.
     """
-    return FusedBnReluMaxpool.apply(x, scale, offset)
+    return FusedBnReluMaxpool.apply(x.contiguous(), scale, offset)

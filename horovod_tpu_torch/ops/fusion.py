@@ -1,7 +1,8 @@
 """Tensor fusion for the gradient all-reduce.
 
 Counterpart of ``horovod_tpu/ops/fusion.py`` (``parse_size_bytes``
-``:93``, ``fusion_threshold_bytes`` ``:106``, ``_bucket_leaves`` ``:191``,
+``:93``, ``fusion_threshold_bytes`` ``:106``, ``max_bucket_bytes`` ``:137``,
+``_bucket_leaves`` ``:191``,
 ``fused_psum`` ``:280``, ``fused_pytree_mean`` ``:327``).  Leaves are
 grouped by dtype into buckets up to the threshold; each bucket is
 flattened into one buffer, reduced with ONE ``dist.all_reduce`` and split
@@ -23,7 +24,7 @@ from horovod_tpu_torch.ops._build import CallCounter
 
 log = logging.getLogger(__name__)
 
-# Reference default: 64 MB (the JAX package's fusion.py:46).
+# Reference default: 64 MB (the JAX package's fusion.py).
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 
 _SIZE_SUFFIXES = {
@@ -33,8 +34,9 @@ _SIZE_SUFFIXES = {
     "g": 1024 ** 3, "gb": 1024 ** 3, "gib": 1024 ** 3,
 }
 
-# One count per dist.all_reduce the fusion layer issues, so a run can show
-# that the gradient mean went through the collective library.
+# One count per bucket all-reduce (start_bucket), whoever asked for it, so
+# a run can show that the gradient mean went through the collective
+# library.
 allreduce_calls = CallCounter("fusion.all_reduce")
 
 _warned_bad_threshold = False
@@ -101,6 +103,52 @@ def _bucket_leaves(leaves, threshold: int) -> List[List[int]]:
     return buckets
 
 
+def _times(t: torch.Tensor, factor: float, promote) -> torch.Tensor:
+    """``t * factor`` in ``promote(t)``'s dtype, the factor rounded to that
+    dtype first, as jnp and numpy multiply by a Python scalar."""
+    if factor == 1.0:
+        return t
+    t = promote(t)
+    return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def start_bucket(tensors: Sequence[torch.Tensor], group, size: int, *,
+                 op=dist.ReduceOp.SUM, mean: bool = False,
+                 prescale_factor: float = 1.0,
+                 postscale_factor: float = 1.0, promote=_same,
+                 device: Optional[torch.device] = None):
+    """Start ONE async all-reduce of a bucket: ``tensors`` flattened into
+    one buffer on ``device`` (default: where they lie).
+
+    Returns ``(work, finish)``: ``work`` is None for an empty bucket, and
+    ``finish()``, called once the work is complete, gives the reduced
+    tensors in order, shaped as the inputs, in the arithmetic dtype.
+    ``promote`` picks that dtype: the scale factors and the ``mean``
+    divide by ``size`` run in ``promote(flat)``'s dtype.  The identity
+    keeps the bucket's dtype, as the reference's SPMD plane computes
+    (``fused_psum``); the eager API passes numpy's promotion.
+    """
+    # cat copies, so the reduction never writes into a caller's tensor.
+    flat = torch.cat([t.reshape(-1).to(device) for t in tensors])
+    flat = _times(flat, prescale_factor, promote)
+    work = None
+    if flat.numel():
+        work = dist.all_reduce(flat, op=op, group=group, async_op=True)
+        allreduce_calls.count += 1
+
+    def finish() -> List[torch.Tensor]:
+        r = promote(flat) / size if mean else flat
+        r = _times(r, postscale_factor, promote)
+        parts = r.split([t.numel() for t in tensors])
+        return [part.view(t.shape) for part, t in zip(parts, tensors)]
+
+    return work, finish
+
+
 def fused_psum(tensors: Sequence[torch.Tensor], group=None,
                mean: bool = True, threshold: Optional[int] = None,
                prescale_factor: float = 1.0,
@@ -109,28 +157,24 @@ def fused_psum(tensors: Sequence[torch.Tensor], group=None,
 
     Returns new tensors in the original order; the inputs are not
     modified.  ``prescale_factor``/``postscale_factor`` multiply the flat
-    bucket around the reduction, ``mean`` divides it by the group size.
+    bucket around the reduction, ``mean`` divides it by the group size,
+    all in the bucket's dtype as the reference's ``fused_psum``.
     """
     tensors = list(tensors)
     if not tensors:
         return []
     threshold = fusion_threshold_bytes() if threshold is None else threshold
     n = dist.get_world_size(group)
+    started = [(bucket, start_bucket(
+        [tensors[i] for i in bucket], group, n, mean=mean,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor))
+        for bucket in _bucket_leaves(tensors, threshold)]
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
-    for bucket in _bucket_leaves(tensors, threshold):
-        # cat copies, so the reduction never writes into a caller's tensor.
-        flat = torch.cat([tensors[i].reshape(-1) for i in bucket])
-        if prescale_factor != 1.0:
-            flat.mul_(prescale_factor)
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        allreduce_calls.count += 1
-        if mean:
-            flat.div_(n)
-        if postscale_factor != 1.0:
-            flat.mul_(postscale_factor)
-        parts = flat.split([tensors[i].numel() for i in bucket])
-        for i, part in zip(bucket, parts):
-            out[i] = part.view(tensors[i].shape)
+    for bucket, (work, finish) in started:
+        if work is not None:
+            work.wait()
+        for i, r in zip(bucket, finish()):
+            out[i] = r
     return out
 
 

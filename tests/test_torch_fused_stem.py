@@ -112,15 +112,45 @@ def test_odd_shapes_rejected(shape):
 
 
 def test_other_dtypes_and_layouts_rejected():
+    """Other dtypes and mismatched coefficients raise; a strided layout
+    no longer does (it is made contiguous, as the reference takes any
+    array), so it must give its contiguous copy's result."""
     with pytest.raises(TypeError):
         tfs.fused_bn_relu_maxpool(torch.zeros(1, 4, 4, 2, dtype=torch.float64),
                                   torch.ones(2), torch.zeros(2))
-    with pytest.raises(ValueError, match="contiguous"):
-        tfs.fused_bn_relu_maxpool(torch.zeros(1, 4, 8, 2)[:, :, ::2],
-                                  torch.ones(2), torch.zeros(2))
+    x = torch.randn(1, 4, 8, 2, generator=torch.Generator().manual_seed(0))
+    strided = x[:, :, ::2]
+    assert torch.equal(
+        tfs.fused_bn_relu_maxpool(strided, torch.ones(2), torch.zeros(2)),
+        tfs.fused_bn_relu_maxpool(strided.contiguous(), torch.ones(2),
+                                  torch.zeros(2)))
     with pytest.raises(ValueError, match="shape"):
         tfs.fused_bn_relu_maxpool(torch.zeros(1, 4, 4, 2), torch.ones(3),
                                   torch.zeros(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_non_contiguous_input_matches_contiguous_and_jax(dtype):
+    """An NCHW tensor permuted to NHWC (not contiguous) gives its
+    contiguous copy's result bitwise, and JAX's on the same numpy input
+    (bitwise at f32; bf16 within one bf16 ulp, as
+    test_bf16_within_one_ulp_of_jax)."""
+    nchw = np.random.default_rng(5).standard_normal((2, 8, 4, 4)).astype(
+        np.float32)
+    x = torch.from_numpy(nchw).to(dtype).permute(0, 2, 3, 1)
+    assert not x.is_contiguous()
+    scale, offset = torch.ones(8), torch.zeros(8)
+    got = tfs.fused_bn_relu_maxpool(x, scale, offset)
+    assert got.shape == (2, 2, 2, 8) and got.dtype == dtype
+    assert torch.equal(got, tfs.fused_bn_relu_maxpool(x.contiguous(), scale,
+                                                      offset))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = np.asarray(jfs._tail(
+        jnp.asarray(nchw.transpose(0, 2, 3, 1)).astype(jdt),
+        *_jax(np.ones(8, np.float32), np.zeros(8, np.float32))
+    ).astype(jnp.float32))
+    tol = 0 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=0)
 
 
 def test_cpu_route_is_the_plain_version_and_launches_nothing():

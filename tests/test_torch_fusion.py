@@ -20,9 +20,13 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from horovod_tpu.models import get_model as jax_get_model
 from horovod_tpu.ops import fusion as jfusion
+import horovod_tpu_torch as thvd
 from horovod_tpu_torch.models import get_model
 from horovod_tpu_torch.models.convert import flax_ordered_parameters
+from horovod_tpu_torch.ops import collective as tcollective
 from horovod_tpu_torch.ops import fusion as tfusion
+
+from torch_support import jax_world, world1  # noqa: F401
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
         "float16": jnp.float16, "int32": jnp.int32}
@@ -147,3 +151,49 @@ def test_two_rank_gloo_fused_psum_matches_jax_shard_map(tmp_path):
             w = want[i][rank * rows:(rank + 1) * rows]
             np.testing.assert_allclose(got[f"arr_{i}"], w, rtol=1e-6,
                                        atol=1e-6)
+
+
+def _scaling_leaves(dtype):
+    rng = np.random.default_rng(7)
+    return [rng.standard_normal(shape).astype(np.float32).astype(
+        _JNP[dtype]) for shape in [(3, 5), (7,), (2, 2, 3), (4, 4)]]
+
+
+@pytest.mark.parametrize("route", ["fused_psum", "grouped_allreduce"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_size1_bucket_arithmetic_matches_jax(jax_world, dtype, route):
+    """Both users of the one bucket all-reduce against their reference
+    at size 1, bitwise, with factors no 16-bit type holds exactly:
+    ``fused_psum`` computes in the bucket's dtype as the reference's SPMD
+    ``fused_psum`` under ``shard_map`` does; ``grouped_allreduce`` in
+    numpy's promotion, as the reference's eager plane.  Each bucket is
+    one all-reduce, counted once, in ``fusion.allreduce_calls``."""
+    hvd = jax_world
+    leaves = _scaling_leaves(dtype)
+    tensors = [torch.from_numpy(np.asarray(a, np.float32)).to(_TORCH[dtype])
+               for a in leaves]
+    kw = dict(prescale_factor=0.1, postscale_factor=3.3)
+    tfusion.allreduce_calls.reset()
+    tcollective.calls.reset()
+    if route == "fused_psum":
+        got = tfusion.fused_psum(tensors, mean=True, threshold=64, **kw)
+        mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+        specs = tuple(P("data") for _ in leaves)
+        f = jax.jit(jax.shard_map(
+            lambda *ts: tuple(jfusion.fused_psum(
+                list(ts), "data", mean=True, threshold=64, **kw)),
+            mesh=mesh, in_specs=specs, out_specs=specs, check_vma=False))
+        want = f(*[jnp.asarray(a) for a in leaves])
+        n_buckets = len(tfusion._bucket_leaves(tensors, 64))
+    else:
+        got = thvd.grouped_allreduce(tensors, **kw)
+        want = hvd.grouped_allreduce([jnp.asarray(a) for a in leaves], **kw)
+        n_buckets = len(tfusion._bucket_leaves(
+            tensors, tfusion.fusion_threshold_bytes()))
+    assert tfusion.allreduce_calls.count == n_buckets
+    assert tcollective.calls.count == 0
+    for g, w, t in zip(got, want, tensors):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        np.testing.assert_array_equal(
+            g.float().numpy(),
+            np.asarray(np.asarray(w).astype(_JNP[dtype]), np.float32))

@@ -410,13 +410,15 @@ def test_converter_round_trip():
 @pytest.mark.parametrize("kw,match", [
     (dict(model_axis="model"), "item 6"),
     (dict(seq_axis="seq"), "item 7"),
-    (dict(attention="ring"), "item 7"),
-    (dict(attention="ring_flash"), "item 7"),
-    (dict(attention="ulysses"), "item 7"),
+    (dict(attention="ring", seq_axis="seq"), "item 7"),
+    (dict(attention="ring_flash", seq_axis="seq"), "item 7"),
+    (dict(attention="ulysses", seq_axis="seq"), "item 7"),
     (dict(remat="dots"), "item 6"),
     (dict(remat="full"), "item 6"),
 ])
 def test_routes_not_ported_raise(kw, match):
+    """Only what needs a sequence axis, tensor parallelism or remat
+    raises; the sequence routes without an axis run (next test)."""
     _, tcfg = _cfgs()
     model = tfm.TransformerLM(tcfg, device="cpu")
     tokens = torch.zeros((1, T), dtype=torch.long)
@@ -425,15 +427,36 @@ def test_routes_not_ported_raise(kw, match):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(attention="sdpa"), ValueError),
+    (dict(attention="sdpa", seq_axis="seq"), ValueError),
     (dict(remat="sometimes"), ValueError),
 ])
 def test_unknown_options_raise(kw, err):
+    """An unknown route raises under a sequence axis, as in the reference
+    (without one the reference computes local attention for any name)."""
     _, tcfg = _cfgs()
     model = tfm.TransformerLM(tcfg, device="cpu")
     with pytest.raises(err):
         tfm.forward(model.tree(), torch.zeros((1, T), dtype=torch.long),
                     tcfg, **kw)
+
+
+@pytest.mark.parametrize("attention", ["ring", "ulysses", "dense",
+                                       "ring_flash"])
+def test_no_sequence_axis_routes_match_jax(attention):
+    """Without a sequence axis the reference computes every route name:
+    ``ring``, ``ulysses`` and ``dense`` as local attention, ``ring_flash``
+    with the flash kernel.  Tokens [1, 16], 1 layer, d 32, f32; tolerance
+    1e-6 (the local routes agree to 0 and ring_flash to about 1e-7)."""
+    jcfg, tcfg = _cfgs(t=16, n_layers=1)
+    params = _params(jcfg)
+    tokens, _ = _tokens(b=1, t=16)
+    want = np.asarray(jtfm.forward(_jtree(params), jnp.asarray(tokens), jcfg,
+                                   attention=attention))
+    got = tfm.forward(_port_model(tcfg, params).tree(),
+                      torch.from_numpy(tokens), tcfg, attention=attention)
+    assert got.shape == (1, 16, 64)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("kw", [dict(shard_optimizer=True),
