@@ -39,7 +39,18 @@ any failure ends the run with a traceback and a non-zero exit:
    ``s2d_fused`` step of phase 4 through ``hvd.DistributedOptimizer``,
    ``hvd.broadcast_parameters`` and ``hvd.broadcast_optimizer_state``,
    with the fused-stem launches read around it and its losses held to
-   phase 4's.
+   phase 4's;
+10. the control plane on the card (its thread, ready events, fusion and
+   NCCL launch at size 1): every eager op through the runtime on CUDA
+   tensors in f32, bf16 and int32, names submitted in an order reversed
+   on every other call, each result held to its size-1 result, and
+   ``join``; then phase 4's ResNet-50 ``s2d_fused`` step with every
+   gradient submitted as a named ``allreduce_async(op=Average)`` from
+   its autograd hook, in the order autograd produces them, and
+   synchronized before the SGD update, with the fused-stem launches read
+   around it, its losses held to phase 4's bit for bit (Average at size 1
+   divides by one) and its ms/step, cycles, fused all-reduces and ms per
+   cycle printed beside phase 4's ms/step.
 
 It prints one JSON line of kernel numbers and, last, one JSON line naming
 the device.  With no GPU it exits non-zero and prints no result.
@@ -902,6 +913,154 @@ def phase_hvd_api(smi: str, main: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The control plane
+# ---------------------------------------------------------------------------
+
+def _submit_all(hvd, x, tag, order):
+    """One async op of each kind per index of ``order``, in that order;
+    their results by (kind, index)."""
+    handles = {}
+    for i in order:
+        y = x + i
+        handles[("allreduce", i)] = (hvd.allreduce_async(
+            y, name=f"{tag}.ar.{i}", op=hvd.Sum), y)
+        handles[("allreduce_average", i)] = (hvd.allreduce_async(
+            y, name=f"{tag}.av.{i}"), y)
+        handles[("allgather", i)] = (hvd.allgather_async(
+            y, name=f"{tag}.ag.{i}"), y)
+        handles[("broadcast", i)] = (hvd.broadcast_async(
+            y, 0, name=f"{tag}.bc.{i}"), y)
+        handles[("grouped", i)] = (hvd.grouped_allreduce_async(
+            [y, y], name=f"{tag}.gr.{i}"), y)
+    out = {}
+    for key, (h, y) in handles.items():
+        got = hvd.synchronize(h)
+        out[key] = (got[1] if isinstance(got, list) else got, y)
+    return out
+
+
+def phase_control_plane(smi: str, main: dict) -> dict:
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.benchmark import make_bench_state
+    from horovod_tpu_torch.ops import fused_stem, fusion
+
+    dev = torch.device("cuda", 0)
+    rt = hvd.basics.runtime()
+    check(rt.thread.is_alive() and rt.groups[0].nccl,
+          "the control plane's thread or NCCL data group is missing")
+    torch.cuda.empty_cache()
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        base = torch.arange(-6, 6, device=dev).reshape(3, 4).to(dtype)
+        for call in range(4):
+            order = list(range(4))[::-1 if call % 2 else 1]
+            tag = f"p10.{str(dtype)[6:]}.{call}"
+            for (kind, i), (got, want) in _submit_all(hvd, base, tag,
+                                                      order).items():
+                check(got.device == dev and got.dtype == dtype
+                      and torch.equal(got, want),
+                      f"control plane {kind} {i} {dtype}: {got} != {want}")
+                checked += 1
+        for name, got in (
+                ("reducescatter", hvd.reducescatter(base)),
+                ("alltoall", hvd.alltoall(base)),
+                ("alltoall splits", hvd.alltoall(base, splits=[3])[0]),
+                ("allreduce_", hvd.allreduce_(base.clone(), op=hvd.Sum))):
+            check(got.device == dev and got.dtype == dtype
+                  and torch.equal(got, base), f"control plane {name} {dtype}")
+            checked += 1
+        if dtype.is_floating_point:
+            check(torch.equal(hvd.allreduce(base, op=hvd.Adasum), base),
+                  f"control plane Adasum {dtype}")
+            checked += 1
+    hvd.barrier()
+    check(hvd.join() == 0, "hvd.join() at size 1 is not 0")
+    print(f"control plane: {checked} results of every eager op through the "
+          f"runtime (f32, bf16, int32; names reversed every other call) "
+          f"equal their size-1 results; join() = 0", flush=True)
+
+    # Phase 4's step, every gradient submitted from its autograd hook.
+    st = make_bench_state("resnet50", batch_size=BATCH, image_size=IMAGE,
+                          stem="s2d_fused", input_dtype="bfloat16")
+    model, opt = st.model, st.optimizer
+    params = [p for p in model.parameters() if p.requires_grad]
+    index = {id(p): i for i, p in enumerate(params)}
+    handles = {}
+
+    def hook(p):
+        i = index[id(p)]
+        handles[i] = hvd.allreduce_async(p.grad, name=f"grad.{i}",
+                                         op=hvd.Average)
+
+    hooks = [p.register_post_accumulate_grad_hook(hook) for p in params]
+
+    def step():
+        model.train()
+        loss = F.cross_entropy(model(st.images), st.labels)
+        loss.backward()
+        check(len(handles) == len(params),
+              f"{len(handles)} of {len(params)} gradients submitted")
+        for i, h in handles.items():
+            params[i].grad = hvd.synchronize(h)
+        handles.clear()
+        opt.step()
+        opt.zero_grad()
+        return loss.detach()
+
+    fused_stem.launches.reset()
+    losses = [step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    fusion.allreduce_calls.reset()
+    cycles0, seconds0 = rt.cycles, rt.cycle_seconds
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    losses += [step() for _ in range(TIMED_STEPS)]
+    t1.record()
+    torch.cuda.synchronize()
+    cycles = rt.cycles - cycles0
+    seconds = rt.cycle_seconds - seconds0
+    fused = fusion.allreduce_calls.count
+    launches = fused_stem.launches.count
+    for h in hooks:
+        h.remove()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses = [float(x) for x in losses]
+    for i, loss in enumerate(losses):
+        check(loss == loss and abs(loss) != float("inf"),
+              f"phase 10 step {i} loss is not finite: {loss}")
+    check(launches == steps, f"fused_stem launched {launches} times in "
+          f"phase 10's {steps} forward passes")
+    timed = losses[WARMUP_STEPS:]
+    check(timed == main["step_losses"],
+          f"phase 10 timed losses {timed} differ from phase 4's "
+          f"{main['step_losses']}")
+    check(fused >= TIMED_STEPS, f"{fused} fused all-reduces in "
+          f"{TIMED_STEPS} steps")
+    ms = t0.elapsed_time(t1) / TIMED_STEPS
+    result = {"ms_per_step": ms, "phase4_ms_per_step": main["ms_per_step"],
+              "gradients": len(params), "cycles_per_step": cycles /
+              TIMED_STEPS, "fused_allreduces_per_step": fused / TIMED_STEPS,
+              "ms_per_cycle": seconds / max(cycles, 1) * 1e3,
+              "fused_stem_launches": launches, "nvidia_smi": smi}
+    print(f"control plane ResNet-50 s2d_fused, batch {BATCH}: {ms:.2f} "
+          f"ms/step (phase 4: {main['ms_per_step']:.2f} ms/step) on {smi}; "
+          f"{len(params)} gradients a step as named allreduce_async; "
+          f"{result['cycles_per_step']:.2f} cycles/step, "
+          f"{result['fused_allreduces_per_step']:.2f} fused all-reduces/"
+          f"step, {result['ms_per_cycle']:.3f} ms/cycle; fused_stem "
+          f"launches {launches} = forward passes {steps}; the "
+          f"{TIMED_STEPS} timed losses {timed[0]:.6f} -> {timed[-1]:.6f} "
+          f"equal phase 4's bit for bit", flush=True)
+    print("control plane: " + json.dumps(result), flush=True)
+    del st, model, opt
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -917,6 +1076,7 @@ def main() -> int:
     counts = phase_lm_main_path(smi)
     phase_lm_reference()
     phase_hvd_api(smi, main_summary)
+    phase_control_plane(smi, main_summary)
     for row, count in zip(flash_rows, counts.values()):
         row["launches"] = count
     hvd.shutdown()

@@ -2,9 +2,10 @@
 
 ``import horovod_tpu_torch as hvd`` reads like the reference: process and
 topology state over ``torch.distributed`` (NCCL on the GPU, gloo on the
-CPU), the ``hvd.*`` collectives with their async handles and process
-sets, ``DistributedOptimizer`` and the state broadcasts, the callbacks,
-the data-parallel mesh, fused gradient averaging, the step guard,
+CPU), the ``hvd.*`` collectives with their async handles, process sets
+and ``join`` on a name-negotiating control plane,
+``DistributedOptimizer`` and the state broadcasts, the callbacks, the
+data-parallel mesh, fused gradient averaging, the step guard,
 ResNet v1.5, the transformer LM with its flash-attention kernels, and
 the synthetic training benchmarks.  The package imports ``torch`` and
 never JAX or any module of ``horovod_tpu``.
@@ -79,6 +80,7 @@ from horovod_tpu_torch.ops.collective import (  # noqa: F401
     global_process_set,
     grouped_allreduce,
     grouped_allreduce_async,
+    join,
     poll,
     reducescatter,
     synchronize,

@@ -16,6 +16,13 @@ only a size-1 world may fall back to a free localhost port.
 processes (reference ``basics.py:155-165``): members get their position
 in the subset as rank and a process group of their own; every other
 process becomes an inactive world of one.
+
+``init`` also starts the control plane (:mod:`horovod_tpu_torch.native`)
+that every eager ``hvd.*`` collective goes through, at every size: a gloo
+control group and a data group of its own (NCCL on the GPU), created in
+the same order on every rank, and the runtime's thread.  ``shutdown``
+stops the thread (every rank agrees) and joins it before it destroys the
+groups.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import config
+from horovod_tpu_torch.native.runtime import CONTROL_TIMEOUT, Runtime
 
 NOT_INITIALIZED_ERROR = (
     "horovod_tpu_torch has not been initialized; use hvd.init()."
@@ -51,6 +59,7 @@ class _State:
         # group) and the torch.distributed rank of each hvd rank in it.
         self.group: Optional[dist.ProcessGroup] = None
         self.global_ranks: Tuple[int, ...] = (0,)
+        self.runtime = None
 
 
 _state = _State()
@@ -128,24 +137,35 @@ def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
         group, global_ranks = None, tuple(range(size))
         if members is not None:
             group, global_ranks = _subset_group(rank, size, members)
+            ctrl, _ = _subset_group(rank, size, members, "gloo",
+                                    CONTROL_TIMEOUT)
+            data, _ = _subset_group(rank, size, members, backend)
             rank, size = global_ranks.index(rank), len(global_ranks)
+        else:
+            ctrl = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
+            data = dist.new_group(backend=backend)
+        runtime = Runtime(rank, size, ctrl, data, global_ranks, dev)
+        runtime.start()
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
         _state.cross_rank, _state.cross_size = cross_rank, cross_size
         _state.device = dev
         _state.group, _state.global_ranks = group, global_ranks
+        _state.runtime = runtime
         _state.initialized = True
 
 
-def _subset_group(rank: int, size: int, members: List[int]):
+def _subset_group(rank: int, size: int, members: List[int],
+                  backend: Optional[str] = None, timeout=None):
     """The group of a rank-subset job: the members' group for a member,
     a group of its own for any other process.  Creating a group is
     collective over the default group, so every process creates every
     one of them, in the same order."""
-    groups = {tuple(members): dist.new_group(members)}
+    groups = {tuple(members): dist.new_group(members, timeout,
+                                             backend=backend)}
     for r in range(size):
         if r not in members:
-            groups[(r,)] = dist.new_group([r])
+            groups[(r,)] = dist.new_group([r], timeout, backend=backend)
     key = tuple(members) if rank in members else (rank,)
     return groups[key], key
 
@@ -160,11 +180,12 @@ def on_shutdown(fn: Callable[[], None]) -> None:
 
 
 def shutdown() -> None:
-    """Tear down the process group ``init`` created (reference
-    ``basics.py:211``)."""
+    """Stop the control plane and tear down the process groups ``init``
+    created (reference ``basics.py:211``)."""
     with _state.lock:
         if not _state.initialized:
             return
+        _state.runtime.stop()
         for fn in _shutdown_hooks:
             fn()
         if dist.is_initialized():
@@ -212,6 +233,12 @@ def cross_rank() -> int:
 def cross_size() -> int:
     _check_initialized()
     return _state.cross_size
+
+
+def runtime():
+    """The control plane every eager collective is submitted to."""
+    _check_initialized()
+    return _state.runtime
 
 
 def device() -> torch.device:

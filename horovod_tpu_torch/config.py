@@ -14,7 +14,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 class EnvVar(NamedTuple):
     name: str
-    type: str          # "str" | "int"
+    type: str          # "str" | "int" | "float"
     default: Any       # None = unset / derived
     doc: str
 
@@ -50,6 +50,16 @@ _var("HOROVOD_STEP_GUARD", "str", "off",
      "NaN/Inf step-guard policy: off|skip|rollback|abort")
 _var("HOROVOD_FLASH_AUTO_MIN_T", "int", 1024,
      "attention='auto' picks the flash kernel from this sequence length up")
+_var("HOROVOD_CYCLE_TIME", "float", 1.0,
+     "Control-plane cycle time in ms: the runtime negotiates at most this "
+     "often")
+_var("HOROVOD_STALL_CHECK_TIME_SECONDS", "float", 60.0,
+     "Seconds before the stall inspector warns about a name some ranks "
+     "have not submitted")
+_var("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", "float", 0.0,
+     "Seconds after which such a name fails on every rank; 0 disables")
+_var("HOROVOD_CACHE_CAPACITY", "int", 1024,
+     "Response-cache capacity in names; 0 disables the cache")
 
 
 class UnknownEnvVar(KeyError):
@@ -90,3 +100,32 @@ def env_int(name: str, default: Any = _UNSET) -> Any:
         return int(raw)
     except ValueError:
         raise ValueError(f"{name}={raw!r} is not an integer") from None
+
+
+def env_float(name: str, default: Any = _UNSET) -> Any:
+    entry = _entry(name)
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return entry.default if default is _UNSET else default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a number") from None
+
+
+def cycle_time_ms() -> float:
+    """``HOROVOD_CYCLE_TIME``: the least time between two negotiation
+    cycles, in milliseconds."""
+    return env_float("HOROVOD_CYCLE_TIME")
+
+
+def stall_check_seconds() -> float:
+    return env_float("HOROVOD_STALL_CHECK_TIME_SECONDS")
+
+
+def stall_shutdown_seconds() -> float:
+    return env_float("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS")
+
+
+def cache_capacity() -> int:
+    return env_int("HOROVOD_CACHE_CAPACITY")

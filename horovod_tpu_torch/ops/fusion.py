@@ -119,30 +119,29 @@ def _same(t: torch.Tensor) -> torch.Tensor:
 def start_bucket(tensors: Sequence[torch.Tensor], group, size: int, *,
                  op=dist.ReduceOp.SUM, mean: bool = False,
                  prescale_factor: float = 1.0,
-                 postscale_factor: float = 1.0, promote=_same,
+                 postscale_factor: float = 1.0,
                  device: Optional[torch.device] = None):
     """Start ONE async all-reduce of a bucket: ``tensors`` flattened into
     one buffer on ``device`` (default: where they lie).
 
     Returns ``(work, finish)``: ``work`` is None for an empty bucket, and
     ``finish()``, called once the work is complete, gives the reduced
-    tensors in order, shaped as the inputs, in the arithmetic dtype.
-    ``promote`` picks that dtype: the scale factors and the ``mean``
-    divide by ``size`` run in ``promote(flat)``'s dtype.  The identity
-    keeps the bucket's dtype, as the reference's SPMD plane computes
-    (``fused_psum``); the eager API passes numpy's promotion.
+    tensors in order, shaped as the inputs.  The scale factors and the
+    ``mean`` divide by ``size`` run in the bucket's dtype, as the
+    reference's SPMD plane computes (``fused_psum``); the control plane
+    passes neither and scales each result as numpy would.
     """
     # cat copies, so the reduction never writes into a caller's tensor.
     flat = torch.cat([t.reshape(-1).to(device) for t in tensors])
-    flat = _times(flat, prescale_factor, promote)
+    flat = _times(flat, prescale_factor, _same)
     work = None
     if flat.numel():
         work = dist.all_reduce(flat, op=op, group=group, async_op=True)
         allreduce_calls.count += 1
 
     def finish() -> List[torch.Tensor]:
-        r = promote(flat) / size if mean else flat
-        r = _times(r, postscale_factor, promote)
+        r = flat / size if mean else flat
+        r = _times(r, postscale_factor, _same)
         parts = r.split([t.numel() for t in tensors])
         return [part.view(t.shape) for part, t in zip(parts, tensors)]
 

@@ -7,25 +7,19 @@ torch binding's optimizer and state broadcasts
 ``DistributedOptimizer`` keeps the binding's contract: a dynamic subclass
 of the wrapped optimizer, gradient hooks that start the all-reduce during
 backward, ``synchronize``/``skip_synchronize``, the force-allreduce in
-``step``, and no hooks at all in a world of one.  Unlike the binding it
-does not reduce one tensor at a time: the hooks fill fusion buckets
-(``_bucket_leaves`` at ``HOROVOD_FUSION_THRESHOLD``) and each bucket goes
-out as ONE async flat all-reduce, as the reference runtime's fusion
-buffer does.
-
-Collectives here are paired by issue order, not by name, so every rank
-issues the same buckets in the same order:
-
-* The bucket plan is fixed at construction from the parameters in
-  reverse registration order, the order backward produces them in a
-  feed-forward model, and is the same on every rank.
-* A full bucket goes out only after every lower bucket; a rank whose
-  backward fills them in another order holds the early ones back.
-* ``synchronize`` (and so ``step``) issues every bucket not yet out, in
-  index order.  A parameter with no gradient on this rank joins its
-  bucket as zeros and, unless it is frozen, receives the average, so the
-  replicas stay equal where the reference's name-matched runtime would
-  wait for a tensor that this rank never submits.
+``step``, and no hooks at all in a world of one.  The hooks fill fusion
+buckets (``_bucket_leaves`` at ``HOROVOD_FUSION_THRESHOLD``, planned once
+from the parameters in reverse registration order) and submit a bucket
+to the control plane as soon as it is full, under names that are the
+same on every rank and every step (``DistributedOptimizer.<b>.<i>``).
+The control plane pairs them by name, so ranks whose backward fills the
+buckets in other orders need no agreement on order; the runtime fuses
+what is ready into flat all-reduces.  ``synchronize`` (and so ``step``)
+submits every bucket not yet out and waits on the handles.  A parameter
+with no gradient on this rank goes out as zeros and, unless it is
+frozen, receives the average, so the replicas stay equal where the
+reference's runtime would wait for a tensor that this rank never
+submits.
 """
 
 from __future__ import annotations
@@ -141,7 +135,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _reset_buckets(self):
         self._ready = [set() for _ in self._buckets]
-        self._next = 0          # the lowest bucket not yet issued
         self._inflight = []     # (bucket, pending, ctxs) in issue order
 
     def _register_hooks(self):
@@ -157,32 +150,32 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if self._passes[id(p)] != self.backward_passes_per_step:
                 return
             self._passes[id(p)] = 0
-            self._ready[self._bucket_of[id(p)]].add(id(p))
-            while (self._next < len(self._buckets)
-                   and len(self._ready[self._next])
-                   == len(self._buckets[self._next])):
-                self._issue(self._next)
+            b = self._bucket_of[id(p)]
+            self._ready[b].add(id(p))
+            if len(self._ready[b]) == len(self._buckets[b]):
+                self._issue(b)
 
     def _issue(self, b):
-        """Start bucket ``b``'s flat all-reduce (the caller holds the
-        lock and issues buckets in index order)."""
+        """Submit bucket ``b`` (the caller holds the lock)."""
         wires, ctxs = [], []
         for p in self._buckets[b]:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             wire, ctx = self._compression.compress(g)
             wires.append(wire)
             ctxs.append(ctx)
-        self._inflight.append((b, collective._start_bucket(
-            wires, self._op, 1.0, 1.0, collective._set_args(None)), ctxs))
-        self._next = b + 1
+        self._inflight.append((b, collective._start_grouped(
+            wires, self._op, f"DistributedOptimizer.{b}", 1.0, 1.0, None),
+            ctxs))
 
     def synchronize(self):
-        """Issue every bucket not yet out, in order, wait for all of them
-        and write the reduced gradients back (reference ``:336-345``)."""
+        """Submit every bucket not yet out, wait for all of them and
+        write the reduced gradients back (reference ``:336-345``)."""
         if basics.size() > 1:
             with self._lock:
-                while self._next < len(self._buckets):
-                    self._issue(self._next)
+                issued = {b for b, _, _ in self._inflight}
+                for b in range(len(self._buckets)):
+                    if b not in issued:
+                        self._issue(b)
                 inflight = self._inflight
                 self._reset_buckets()
             for b, pending, ctxs in inflight:
@@ -266,9 +259,8 @@ def broadcast_parameters(params, root_rank=0):
     from ``root_rank``, in place."""
     items = sorted(params.items()) if isinstance(params, dict) else list(
         params)
-    for _, p in items:
-        if torch.is_tensor(p):
-            collective.broadcast_(p.data, root_rank)
+    collective.synchronize([collective.broadcast_async_(p.data, root_rank)
+                            for _, p in items if torch.is_tensor(p)])
 
 
 def broadcast_variables(variables, root_rank=0):
@@ -308,8 +300,9 @@ def broadcast_optimizer_state(optimizer, root_rank=0):
                 meta["state_scalars"][f"{pid}.{key}"] = value
 
     meta = collective.broadcast_object(meta, root_rank=root_rank)
-    for name in sorted(tensors):
-        collective.broadcast_(tensors[name], root_rank)
+    collective.synchronize([collective.broadcast_async_(tensors[name],
+                                                        root_rank)
+                            for name in sorted(tensors)])
 
     if basics.rank() != root_rank:
         state_dict["param_groups"] = meta["param_groups"]

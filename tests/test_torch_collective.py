@@ -534,7 +534,7 @@ API = (
     "allreduce allreduce_ allreduce_async allreduce_async_ grouped_allreduce "
     "allgather allgather_async allgather_object broadcast broadcast_ "
     "broadcast_async broadcast_async_ broadcast_object reducescatter "
-    "alltoall barrier poll synchronize Average Sum Adasum Min Max "
+    "alltoall barrier join poll synchronize Average Sum Adasum Min Max "
     "ProcessSet add_process_set global_process_set Compression "
     "DistributedOptimizer DistributedGradientTape make_training_step "
     "broadcast_parameters broadcast_optimizer_state broadcast_variables "

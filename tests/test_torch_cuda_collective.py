@@ -1,7 +1,9 @@
 """The port's ``hvd.*`` API on the card: every op at NCCL size 1 keeps
-the device and dtype of its input and returns the size-1 result, and
+the device and dtype of its input and returns the size-1 result, the
+control plane answers names submitted in reversed orders and ``join``,
 ``DistributedOptimizer`` trains a small ResNet on ``cuda:0`` exactly as
-the optimizer it wraps.  Every test here carries the ``cuda`` marker and
+the optimizer it wraps, and two ranks on two cards pair names by name
+and join with uneven batches.  Every test here carries the ``cuda`` marker and
 skips without a CUDA device.  This file imports torch and the port only,
 so it runs on a GPU host without JAX:
 
@@ -68,6 +70,90 @@ def test_objects_barrier_and_cpu_tensor_under_nccl(nccl_world):
     x = torch.arange(4.0)
     out = hvd.allreduce(x)
     assert out.device.type == "cpu" and torch.equal(out, x)
+
+
+@pytest.mark.cuda
+def test_runtime_answers_reversed_names_and_join_on_the_card(nccl_world):
+    """Names submitted in an order reversed every other round, each op
+    kind, through the runtime's thread, stream and NCCL group."""
+    dev = nccl_world
+    xs = [torch.arange(i + 3, device=dev, dtype=torch.float32) * (i + 1)
+          for i in range(6)]
+    for rnd in range(4):
+        order = list(range(6))[::-1 if rnd % 2 else 1]
+        hs = {i: hvd.allreduce_async(xs[i], name=f"rev.{i}", op=hvd.Sum)
+              for i in order}
+        gs = {i: hvd.allgather_async(xs[i], name=f"rev.g.{i}")
+              for i in order}
+        bs = {i: hvd.broadcast_async(xs[i], 0, name=f"rev.b.{i}")
+              for i in order}
+        for i in range(6):
+            for h in (hs[i], gs[i], bs[i]):
+                got = hvd.synchronize(h)
+                assert got.device == dev and torch.equal(got, xs[i])
+    rt = hvd.basics.runtime()
+    assert rt.thread.is_alive() and rt.cycles > 0
+    assert hvd.join() == 0
+    assert torch.equal(hvd.allreduce(xs[0]), xs[0])
+
+
+def _pair_worker(rank, size, addr, out_dir):
+    import os
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    hvd.init()
+    try:
+        dev = hvd.device()
+        x = torch.full((4,), 1.0 + rank, device=dev)
+        y = torch.full((4,), 10.0 * (rank + 1), device=dev)
+        pairs = [("x", x), ("y", y)][::-1 if rank else 1]
+        hs = {k: hvd.allreduce_async(v, name=k, op=hvd.Sum)
+              for k, v in pairs}
+        out = {"x": hvd.synchronize(hs["x"]), "y": hvd.synchronize(hs["y"])}
+        # Rank r has r + 1 batches, then joins.
+        out["batches"] = torch.stack([hvd.allreduce(
+            torch.ones(3, device=dev), op=hvd.Sum, name=f"batch.{b}")
+            for b in range(rank + 1)])
+        out["last"] = hvd.join()
+        out["after"] = hvd.allreduce(torch.ones(2, device=dev), op=hvd.Sum,
+                                     name="after")
+        both, second = hvd.add_process_set([0, 1]), hvd.add_process_set([1])
+        out["set"] = hvd.allreduce(x, op=hvd.Sum, process_set=both)
+        if rank == 1:  # hvdlint: allow(rank-divergent)
+            out["set1"] = hvd.allreduce(x, op=hvd.Sum, process_set=second)
+        torch.save({k: v.cpu() if torch.is_tensor(v) else v
+                    for k, v in out.items()}, f"{out_dir}/pair{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_two_rank_nccl_pairs_names_and_joins(tmp_path):
+    """Two NCCL ranks on two cards: x and y issued in opposite orders
+    reduce to 3 and 30 on both, a join with uneven batches sums only the
+    active rank's data and reports rank 1 last, and process sets work."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    mp.start_processes(_pair_worker, args=(2, addr, str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    res = [torch.load(f"{tmp_path}/pair{r}.pt") for r in range(2)]
+    for r, out in enumerate(res):
+        assert torch.equal(out["x"], torch.full((4,), 3.0))
+        assert torch.equal(out["y"], torch.full((4,), 30.0))
+        want = torch.tensor([[2.0] * 3, [1.0] * 3][:r + 1])
+        assert torch.equal(out["batches"], want)
+        assert out["last"] == 1
+        assert torch.equal(out["after"], torch.full((2,), 2.0))
+        assert torch.equal(out["set"], torch.full((4,), 3.0))
+    assert torch.equal(res[1]["set1"], torch.full((4,), 2.0))
 
 
 @pytest.mark.cuda

@@ -128,6 +128,43 @@ for case in ("plain", "bpps2", "fp16", "skip_sync", "order", "adasum"):
     out[f"port/{case}"] = train(thvd, case)
 
 
+class Mirror(torch.nn.Module):
+    """Two branches that rank 0 runs in one order and rank 1 in the
+    other, so backward fills their buckets in opposite orders."""
+
+    def __init__(self):
+        super().__init__()
+        torch.manual_seed(2)
+        self.a = torch.nn.Linear(4, 3)
+        self.b = torch.nn.Linear(4, 3)
+
+    def forward(self, x):
+        first, second = (self.a, self.b) if r == 0 else (self.b, self.a)
+        h = first(x)
+        return (h ** 2).mean() + (second(x + h.sum()) ** 2).mean()
+
+
+def fill_order(pkg):
+    """Each bucket is submitted as soon as it fills; returns the
+    parameters after three steps and, for the port, the order in which
+    the buckets went out during each backward."""
+    model = Mirror()
+    opt = pkg.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    orders = []
+    for step in range(3):
+        model(batch(40 + step)).backward()
+        orders.append([b for b, _, _ in getattr(opt, "_inflight", [])])
+        opt.step()
+        opt.zero_grad()
+    return flat(model), np.array(orders)
+
+
+out["ref/fill_order"], _ = fill_order(jt)
+out["port/fill_order"], out["port/fill_order_buckets"] = fill_order(thvd)
+
+
 def guards(pkg):
     """zero_grad between backward and step, and a skip_synchronize step
     with no synchronize after the backward: both must raise."""
@@ -238,6 +275,23 @@ print(f"rank {r}: data job done", flush=True)
 def job(tmp_path_factory):
     return run_job(JOB, str(tmp_path_factory.mktemp("data_job")), np_=2,
                    env={"HOROVOD_FUSION_THRESHOLD": "48"})
+
+
+def test_buckets_go_out_as_they_fill_in_any_order(job):
+    """``Mirror``'s backward fills the buckets in opposite orders on the
+    two ranks; each rank submits every bucket during its backward, in
+    its own order, and the control plane pairs them by name: the
+    parameters equal the reference binding's bit for bit on both ranks."""
+    orders = [job[r]["port/fill_order_buckets"] for r in range(2)]
+    for o in orders:
+        assert sorted(o[0].tolist()) == list(range(len(o[0]))) and (
+            o == o[0]).all()
+    assert orders[0][0].tolist() != orders[1][0].tolist()
+    for r in range(2):
+        np.testing.assert_array_equal(job[r]["port/fill_order"],
+                                      job[r]["ref/fill_order"])
+    np.testing.assert_array_equal(job[0]["port/fill_order"],
+                                  job[1]["port/fill_order"])
 
 
 @pytest.mark.parametrize("case", ["plain", "bpps2", "fp16", "skip_sync",
@@ -365,10 +419,11 @@ def test_size1_optimizer_is_the_wrapped_one(jax_world):
 def test_planned_bucket_goes_out_as_one_all_reduce(world1, monkeypatch,
                                                    compression):
     """Each bucket of the optimizer's plan leaves as ONE flat all-reduce,
-    counted once in ``fusion.allreduce_calls``, even when the fusion
-    threshold has since shrunk below its leaves (the plan is not walked
-    again) and fp16 compression has changed the wire dtype; the result is
-    each gradient's average (itself at size 1)."""
+    counted once in ``fusion.allreduce_calls`` once its results are in,
+    even when the fusion threshold has since shrunk below its leaves (the
+    plan is not walked again, and the runtime fuses at the threshold it
+    read at ``init``) and fp16 compression has changed the wire dtype;
+    the result is each gradient's average (itself at size 1)."""
     from horovod_tpu_torch.ops import collective, fusion
     m = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 2))
     monkeypatch.setenv("HOROVOD_FUSION_THRESHOLD", "1mb")
@@ -381,12 +436,12 @@ def test_planned_bucket_goes_out_as_one_all_reduce(world1, monkeypatch,
     fusion.allreduce_calls.reset()
     collective.calls.reset()
     opt._issue(0)
-    assert fusion.allreduce_calls.count == 1 and collective.calls.count == 0
     (_, pending, ctxs), = opt._inflight
     wire = torch.float16 if compression == "fp16" else torch.float32
     for p, out in zip(opt._buckets[0], pending.result()):
         assert out.dtype == wire
         assert torch.equal(out, p.grad.to(wire))
+    assert fusion.allreduce_calls.count == 1 and collective.calls.count == 0
 
 
 def test_size1_broadcast_optimizer_state_fills_like_reference(jax_world):

@@ -4,6 +4,8 @@
   script gets the output directory as its one argument and writes
   ``rank<r>.npz`` there; the reference's ranks meet through the launcher,
   the port's gloo world through ``MASTER_ADDR``/``MASTER_PORT``.
+  :func:`run_port_job` runs a script of the port alone the same way,
+  without the launcher, and returns each rank's output too.
 * ``world1``: the port's gloo world of one, shut down after the test.
 * ``jax_world``: the JAX package initialised at size 1 for the test.  It
   leaves an initialisation it finds in place (unlike ``tests/conftest.py``'s
@@ -50,6 +52,34 @@ def run_job(script: str, out_dir: str, np_: int = 3, args=(), env=None,
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
     return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
             for r in range(np_)]
+
+
+def run_port_job(script: str, out_dir: str, np_: int = 2, env=None,
+                 timeout: int = 120):
+    """Run ``script`` as ``np_`` ranks of the port alone, without the
+    launcher: each process gets ``HOROVOD_RANK``/``HOROVOD_SIZE`` and one
+    rendezvous address.  Returns every rank's ``.npz`` and its output."""
+    path = os.path.join(out_dir, "job.py")
+    with open(path, "w") as f:
+        f.write(script)
+    base = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(free_port()), HOROVOD_SIZE=str(np_))
+    base.update(env or {})
+    procs = [subprocess.Popen(
+        [sys.executable, path, out_dir], cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=dict(base, HOROVOD_RANK=str(r))) for r in range(np_)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    return ([dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+             for r in range(np_)], logs)
 
 
 @pytest.fixture()
