@@ -50,9 +50,22 @@ any failure ends the run with a traceback and a non-zero exit:
    synchronized before the SGD update, with the fused-stem launches read
    around it, its losses held to phase 4's bit for bit (Average at size 1
    divides by one) and its ms/step, cycles, fused all-reduces and ms per
-   cycle printed beside phase 4's ms/step.
+   cycle printed beside phase 4's ms/step;
+11. sequence and tensor parallelism on the card: (a) ring-flash, ring
+   and Ulysses attention (flash kernel) at 4 virtual ranks (threads of
+   this process, every exchange a swap in memory: NCCL refuses two
+   ranks on one card) at B 4, T_global 8192, H 24, D 128 bf16, causal,
+   causal packed and non-causal packed, forward and backward, held row
+   by row to ``flash_attention`` over the whole sequence with phase 6's
+   limits, the flash launches checked per ring step and each variant's
+   ms printed beside the whole-sequence kernel's; (b) the LM of record
+   through the dp x tp x sp step on a 1x1x1 NCCL mesh with ring-flash
+   and with Ulysses attention, its losses held to phase 7's and its
+   tok/s printed beside them; (c) with 2 or more cards, two steps of a
+   small LM on a 1x1x2 or 1x2x2 NCCL mesh against gloo on the CPU, else
+   one line saying why it did not run.
 
-It prints one JSON line of kernel numbers and, last, one JSON line naming
+The flash rows' launches add phase 7's and phase 11's paths.  It prints one JSON line of kernel numbers and, last, one JSON line naming
 the device.  With no GPU it exits non-zero and prints no result.
 """
 
@@ -106,6 +119,47 @@ FLASH_ML_TOL = 1e-4
 # scores and probabilities to bf16, so it is the noisier of the two.
 LM_LOGIT_TOL = 2 ** -5
 LM_GRAD_TOL = 2 ** -4
+# Phase 11 (a): ring-flash, ring and Ulysses attention at 4 virtual ranks
+# (threads of this process on the one card) at the LM of record's width:
+# (B, T_global, H, D, ranks); T_local 2048, bf16.  Packed segments over
+# the global sequence cross the shard borders 0|1|2 and 2|3, and one
+# (positions 4600-5599) lies wholly inside shard 2.  Cases: (causal,
+# packed); the non-causal packed case gives ring steps whose every row is
+# masked.  Held with phase 6's limits.
+SP_SHAPE = (4, 8192, 24, 128, 4)
+SP_SEGMENTS = (1500, 3100, 1000, 2592)
+# (variant, operand dtype, held to phase 6's limits).  The plain ring
+# route computes scores, probabilities and its online state in its
+# operands' dtype, as the reference does, and its bf16 backward runs
+# through autograd in bf16, where dS = P * (dP - di) cancels: a CPU
+# rehearsal at H 2 read dq at 3.8x and dk at 10x the kernels' row limit.
+# So it is held on f32 copies of the same bf16 values, against the flash
+# function's plain version over the whole sequence in f32 (the bf16
+# kernels' backward takes di from their bf16 o, which moves dq on rows
+# that attend to one key: see _flash_grad_case), and its bf16 run is
+# printed beside them (checked finite only).
+SP_VARIANTS = (("ring_flash", torch.bfloat16, True),
+               ("ring", torch.float32, True),
+               ("ring", torch.bfloat16, False),
+               ("ulysses", torch.bfloat16, True))
+SP_CASES = ((True, False), (True, True), (False, True))
+SP_TIMED_RUNS = 3
+# Phase 11 (b): the LM of record through the dp x tp x sp step on a 1x1x1
+# mesh.  Ring-flash at ring size 1 runs only the diagonal step, phase 7's
+# kernel, but rounds o once more (acc = o*l, then /l); Ulysses at size 1
+# is phase 7's flash call.  Each timed loss within this relative
+# difference of phase 7's.
+LM_SP_LOSS_RTOL = 1e-3
+# Phase 11 (c) and tests/test_torch_cuda_collective.py: two steps of a
+# small bf16 LM (head_dim 64, T 512, ring-flash) on NCCL ranks against the
+# same on gloo ranks on the CPU: losses within SP_STEP_LOSS_RTOL
+# (relative), each leaf's update within SP_STEP_UPDATE_TOL of the gloo
+# update's norm (bf16 compute rounds differently on the card).
+SP_STEP_LM = dict(vocab_size=512, d_model=256, n_heads=4, n_layers=2,
+                  d_ff=512, max_seq=512)
+SP_STEP_BATCH = 2
+SP_STEP_LOSS_RTOL = 2e-2
+SP_STEP_UPDATE_TOL = 5e-2
 # Phase 9 runs phase 4's step (same seed, batch and SGD) through
 # hvd.DistributedOptimizer, which at size 1 adds no hook and no
 # collective, after broadcast_optimizer_state's zero-gradient fill (which
@@ -600,7 +654,7 @@ def phase_flash_check() -> list:
     return rows
 
 
-def phase_lm_main_path(smi: str) -> dict:
+def phase_lm_main_path(smi: str) -> tuple:
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -647,14 +701,20 @@ def phase_lm_main_path(smi: str) -> dict:
         "max_memory_allocated")}
     summary["nvidia_smi"] = smi
     print("LM main path: " + json.dumps(summary), flush=True)
-    return counts
+    summary["step_losses"] = res["step_losses"]
+    return counts, summary
 
 
 def _small_lm_params(cfg, seed):
     """A seeded LM parameter tree (numpy), as the port's state_dict."""
-    import numpy as np
-
     from horovod_tpu_torch.models.convert import lm_params_to_torch
+
+    return lm_params_to_torch(_small_lm_tree(cfg, seed))
+
+
+def _small_lm_tree(cfg, seed):
+    """A seeded LM parameter tree of numpy arrays (the JAX layout)."""
+    import numpy as np
 
     rng = np.random.default_rng(seed)
     d, f = cfg.d_model, cfg.d_ff
@@ -665,7 +725,7 @@ def _small_lm_params(cfg, seed):
     def norm():
         return 1.0 + 0.2 * rng.standard_normal(d)
 
-    return lm_params_to_torch({
+    return {
         "embed": dense((cfg.vocab_size, d), 0.02),
         "pos": dense((cfg.max_seq, d), 0.02),
         "ln_f_scale": norm(),
@@ -674,7 +734,7 @@ def _small_lm_params(cfg, seed):
                     "wv": dense((d, d)), "wo": dense((d, d)),
                     "w1": dense((d, f)), "w2": dense((f, d))}
                    for _ in range(cfg.n_layers)],
-    })
+    }
 
 
 def phase_lm_reference() -> None:
@@ -1061,6 +1121,355 @@ def phase_control_plane(smi: str, main: dict) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Sequence and tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _expected_flash_launches(variant: str, causal: bool, n: int) -> int:
+    """Launches of each flash kernel in one forward and backward over
+    ``n`` ranks: ring-flash runs the kernels on every ring step whose
+    block is visible (rank i: 1 + i steps under causal, n without),
+    Ulysses once per rank over the whole sequence, ring never."""
+    if variant == "ring_flash":
+        return n * (n + 1) // 2 if causal else n * n
+    return n if variant == "ulysses" else 0
+
+
+def _virtual_attention(variant, q, k, v, w, seg, causal, n):
+    """``variant`` over ``n`` virtual ranks (threads, one sequence chunk
+    each) on the inputs' device: the forward, then the backward of
+    ``sum(o * w)``; returns o, dq, dk, dv joined over the ranks.  Ring
+    and Ulysses are the package's functions, their exchanges swapped for
+    in-memory ones, with one backward over every rank's output;
+    ring-flash's forward and backward passes are called directly."""
+    from horovod_tpu_torch.parallel import sequence as sq
+
+    tl = q.shape[1] // n
+    scale = q.shape[-1] ** -0.5
+
+    def shard(x, i):
+        return x[:, i * tl:(i + 1) * tl].contiguous()
+
+    flash = variant == "ring_flash"
+    ins = [[shard(x, i).requires_grad_(not flash) for x in (q, k, v)]
+           for i in range(n)]
+
+    def rank(ax):
+        i = ax.index
+        sg = shard(seg, i) if seg is not None else None
+        if flash:
+            o, res = sq._ring_flash_fwd(*ins[i], ax, causal, scale, sg)
+            return (o,) + sq._ring_flash_bwd(ax, causal, scale, res,
+                                             shard(w, i))
+        if variant == "ring":
+            return sq.ring_attention(*ins[i], ax, causal, segment_ids=sg)
+        return sq.ulysses_attention(*ins[i], ax, causal, segment_ids=sg,
+                                    use_flash=True)
+
+    outs = sq.VirtualAxis(n).run(rank)
+    if flash:
+        return [torch.cat([o[j] for o in outs], 1) for j in range(4)]
+    grads = torch.autograd.grad(outs, [x for r in ins for x in r],
+                                [shard(w, i) for i in range(n)])
+    return [torch.cat(outs, 1).detach()] + [torch.cat(grads[j::3], 1)
+                                            for j in range(3)]
+
+
+def _wall_ms(fn, device, runs: int) -> float:
+    """Median host milliseconds of ``fn()`` ended by a synchronize (the
+    virtual ranks launch from four threads), after one warmup."""
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    fn()
+    times = []
+    for _ in range(runs):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_sequence_parallel(smi: str, device="cuda", shape=None) -> list:
+    """Phase 11 (a): ring-flash, ring and Ulysses attention at 4 virtual
+    ranks, held row by row to ``flash_attention`` over the whole
+    sequence; returns the flash launches of the checked runs."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, tg, h, d, n = (shape or SP_SHAPE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(31)
+    q, k, v, w = (torch.randn((b, tg, h, d), generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(4))
+    seg = _segments(b, tg, SP_SEGMENTS, device)
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    on_card = torch.device(device).type == "cuda"
+    path = [0, 0, 0]
+    for causal, packed in SP_CASES:
+        sg = seg if packed else None
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref_o = fa.flash_attention(*leaves, causal=causal, segment_ids=sg)
+        refs = {torch.bfloat16: [ref_o.detach()] + list(
+            torch.autograd.grad(ref_o, leaves, w))}
+        del leaves, ref_o
+        # The plain version over the whole sequence in f32, for the f32
+        # ring.
+        qf, kf, vf, wf = (fa._fold(x.float()) for x in (q, k, v, w))
+        of, m, l = fa._fwd_parts_plain(qf, kf, vf, sg, sg, causal, d ** -0.5)
+        refs[torch.float32] = [fa._unfold(x, b, h) for x in (of,) + tuple(
+            fa._bwd_parts_plain(qf, kf, vf, of, wf, m, l, sg, sg, causal,
+                                d ** -0.5))]
+        del qf, kf, vf, wf, of, m, l
+
+        def whole():
+            ls = [x.detach().requires_grad_() for x in (q, k, v)]
+            torch.autograd.grad(fa.flash_attention(
+                *ls, causal=causal, segment_ids=sg), ls, w)
+
+        whole_ms = _wall_ms(whole, device, SP_TIMED_RUNS)
+        label = (f"{'causal' if causal else 'non-causal'}"
+                 f"{', packed' if packed else ''}")
+        for variant, dtype, held in SP_VARIANTS:
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            ops = [x.to(dtype) for x in (q, k, v, w)]
+            for c in counters:
+                c.reset()
+            got = _virtual_attention(variant, *ops, sg, causal, n)
+            if on_card:
+                torch.cuda.synchronize()
+            launched = [c.count for c in counters]
+            want = _expected_flash_launches(variant, causal, n)
+            if on_card:
+                check(launched == [want] * 3, f"phase 11 {variant} "
+                      f"{label}: flash launches {launched}, expected "
+                      f"{want} of each kernel")
+            path = [a + x for a, x in zip(path, launched)]
+            ref = refs[dtype if held else torch.bfloat16]
+            err_o = _max_abs(got[0], ref[0])
+            rows = {name: _row_ratio(a, r) for name, a, r in
+                    zip(("o", "dq", "dk", "dv"), got, ref)}
+            for name, x in zip(("o", "dq", "dk", "dv"), got):
+                check(bool(torch.isfinite(x).all()), f"phase 11 {variant} "
+                      f"{label}: {name} has non-finite values")
+            if held:
+                check(err_o <= FLASH_O_TOL, f"phase 11 {variant} {label}: o "
+                      f"max abs err {err_o} > {FLASH_O_TOL}")
+                for name, ratio in rows.items():
+                    check(ratio <= 1.0, f"phase 11 {variant} {label}: "
+                          f"{name} row error at {ratio:.3g} x its limit")
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            del got
+            ms = _wall_ms(lambda: _virtual_attention(
+                variant, *ops, sg, causal, n), device, SP_TIMED_RUNS)
+            del ops
+            against = ("the plain version in f32" if dtype == torch.float32
+                       else "the kernels")
+            print(f"phase 11 {variant} ({str(dtype)[6:]} operands, "
+                  f"{'held to' if held else 'not held, beside'} {against} "
+                  f"over the whole sequence) at {n} virtual ranks "
+                  f"[B={b}, T_global={tg}, H={h}, D={d}] {label}: forward "
+                  f"+ backward {ms:.3f} ms (flash_attention over the whole "
+                  f"sequence, bf16: {whole_ms:.3f} ms) on {smi}; flash "
+                  f"launches fwd/dq/dkv {launched} (expected {want} each); "
+                  f"o max abs {err_o:.3g}; worst row / limit: " + ", ".join(
+                      f"{k_} {r:.3g}" for k_, r in rows.items()) +
+                  (f"; peak {peak} bytes" if peak is not None else ""),
+                  flush=True)
+        del refs
+    return path
+
+
+def phase_lm_parallel(smi: str, lm7: dict) -> list:
+    """Phase 11 (b): the LM of record through the dp x tp x sp step on a
+    1 x 1 x 1 (data, model, seq) NCCL mesh, with ring-flash and Ulysses
+    attention; its losses held to phase 7's.  Returns the flash
+    launches."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.benchmark import make_lm_bench_state
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.topology import build_mesh
+
+    mesh = build_mesh(axes=("data", "model", "seq"), shape=(1, 1, 1))
+    check(mesh.backend == "nccl" and mesh.device == torch.device("cuda", 0),
+          f"phase 11 mesh on {mesh.backend} {mesh.device}")
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    path = [0, 0, 0]
+    steps = LM_WARMUP_STEPS + LM_TIMED_STEPS
+    for route in ("ring_flash", "ulysses"):
+        torch.cuda.empty_cache()
+        st = make_lm_bench_state(
+            LM["d_model"], LM["n_layers"], LM["n_heads"], LM["d_ff"],
+            LM["vocab_size"], LM["seq_len"], LM["batch_size"],
+            momentum_dtype="bfloat16", mesh=mesh)
+        step = tfm.make_train_step(st.model, st.optimizer, mesh, "data",
+                                   "model", "seq", attention=route)
+        for c in counters:
+            c.reset()
+        losses = [step(st.tokens, st.labels) for _ in range(LM_WARMUP_STEPS)]
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        losses += [step(st.tokens, st.labels) for _ in range(LM_TIMED_STEPS)]
+        t1.record()
+        torch.cuda.synchronize()
+        launched = [c.count for c in counters]
+        path = [a + x for a, x in zip(path, launched)]
+        losses = [float(x) for x in losses]
+        timed = losses[LM_WARMUP_STEPS:]
+        check(all(x == x and abs(x) != float("inf") for x in losses),
+              f"phase 11 {route} LM losses not finite: {losses}")
+        check(launched == [LM["n_layers"] * steps] * 3, f"phase 11 {route} "
+              f"LM flash launches {launched}; expected {LM['n_layers']} "
+              f"layers x {steps} steps of each kernel")
+        rel = max(abs(a - b_) / abs(b_) for a, b_ in
+                  zip(timed, lm7["step_losses"]))
+        check(rel <= LM_SP_LOSS_RTOL, f"phase 11 {route} LM timed losses "
+              f"{timed} vs phase 7's {lm7['step_losses']}: worst relative "
+              f"difference {rel:.3g} > {LM_SP_LOSS_RTOL}")
+        ms = t0.elapsed_time(t1) / LM_TIMED_STEPS
+        tok = LM["batch_size"] * LM["seq_len"] / ms * 1e3
+        print(f"phase 11 LM d{LM['d_model']}/L{LM['n_layers']}/"
+              f"H{LM['n_heads']} T {LM['seq_len']} B {LM['batch_size']} "
+              f"through the dp x tp x sp step on a 1x1x1 {dist.get_backend()}"
+              f" mesh, attention={route}: {tok:,.0f} tok/s, {ms:.2f} "
+              f"ms/step (phase 7: {lm7['tok_sec_per_chip']:,.0f} tok/s, "
+              f"{lm7['ms_per_step']:.2f} ms/step) on {smi}; timed losses "
+              f"{timed[0]:.6f} -> {timed[-1]:.6f}, worst relative "
+              f"difference from phase 7's {rel:.3g} (tolerance "
+              f"{LM_SP_LOSS_RTOL}); flash launches {launched}", flush=True)
+        del st, step
+    torch.cuda.empty_cache()
+    return path
+
+
+def _parallel_step_worker(rank, size, addr, backend, shape, out_dir):
+    import os
+
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.optim import SGD
+    from horovod_tpu_torch.topology import build_mesh
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    hvd.init(device=None if backend == "nccl" else "cpu")
+    try:
+        mesh = build_mesh(axes=("data", "model", "seq"), shape=shape)
+        cfg = tfm.TransformerConfig(**SP_STEP_LM, dtype=torch.bfloat16)
+        tree = _small_lm_tree(cfg, 7)
+        model = tfm.TransformerLM(cfg, device=mesh.device,
+                                  model_shards=shape[1])
+        model.load_state_dict(convert.lm_params_to_shards(tree, mesh))
+        named = convert.lm_ordered_parameters(model)
+        opt = SGD([p for _, p in named], 0.1, momentum=0.9)
+        step = tfm.make_train_step(model, opt, mesh, "data", "model", "seq",
+                                   attention="ring_flash")
+        t = cfg.max_seq
+        toks = np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (SP_STEP_BATCH * shape[0], t + 1))
+        d, s = mesh.axis_index("data"), mesh.axis_index("seq")
+        rows = slice(d * SP_STEP_BATCH, (d + 1) * SP_STEP_BATCH)
+        cols = slice(s * t // shape[2], (s + 1) * t // shape[2])
+        tokens = torch.from_numpy(toks[rows, :-1][:, cols].copy())
+        labels = torch.from_numpy(toks[rows, 1:][:, cols].copy())
+        losses = [float(step(tokens.to(mesh.device), labels.to(mesh.device)))
+                  for _ in range(2)]
+        full = convert.lm_shards_to_params(model.state_dict(), mesh)
+        torch.save({"losses": losses, "params": full, "init": tree},
+                   f"{out_dir}/{backend}{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def run_parallel_lm_step(backend: str, shape, out_dir: str) -> list:
+    """Two dp x tp x sp steps of a small bf16 LM (ring-flash) on a mesh of
+    ``shape`` over ``backend`` (NCCL: one card a rank; gloo: the CPU);
+    each rank's losses and gathered parameters."""
+    import math
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    size = math.prod(shape)
+    mp.start_processes(_parallel_step_worker,
+                       args=(size, addr, backend, tuple(shape), out_dir),
+                       nprocs=size, start_method="spawn")
+    return [torch.load(f"{out_dir}/{backend}{r}.pt", weights_only=False)
+            for r in range(size)]
+
+
+def compare_parallel_lm_step(nccl: list, gloo: list) -> dict:
+    """The worst loss difference (relative) and the worst leaf's update
+    difference ``||du_nccl - du_gloo|| / ||du_gloo||`` over every rank,
+    checked against SP_STEP_LOSS_RTOL and SP_STEP_UPDATE_TOL."""
+    import numpy as np
+
+    def leaves(tree):
+        for key, val in tree.items():
+            if key == "layers":
+                for i, layer in enumerate(val):
+                    for leaf, arr in layer.items():
+                        yield f"layers.{i}.{leaf}", np.asarray(arr)
+            else:
+                yield key, np.asarray(val)
+
+    worst_loss, worst_update = 0.0, ("", 0.0)
+    for a, b in zip(nccl, gloo):
+        for x, y in zip(a["losses"], b["losses"]):
+            worst_loss = max(worst_loss, abs(x - y) / abs(y))
+        init = dict(leaves(a["init"]))
+        pb = dict(leaves(b["params"]))
+        for name, pa in leaves(a["params"]):
+            ua, ub = pa - init[name], pb[name] - init[name]
+            err = float(np.linalg.norm(ua - ub) /
+                        max(np.linalg.norm(ub), 1e-30))
+            if err > worst_update[1]:
+                worst_update = (name, err)
+    check(worst_loss <= SP_STEP_LOSS_RTOL, f"parallel LM step losses nccl "
+          f"vs gloo: {worst_loss:.3g} > {SP_STEP_LOSS_RTOL}")
+    check(worst_update[1] <= SP_STEP_UPDATE_TOL, f"parallel LM step "
+          f"updates nccl vs gloo: {worst_update} > {SP_STEP_UPDATE_TOL}")
+    return {"loss_rel": worst_loss, "update_leaf": worst_update[0],
+            "update_rel": worst_update[1]}
+
+
+def phase_parallel_processes(smi: str) -> None:
+    """Phase 11 (c): the NCCL path across processes, where the host has
+    the cards for it."""
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 11 (c) did not run: {n} CUDA device here, and the "
+              f"dp x tp x sp step across NCCL processes needs one card a "
+              f"rank (2 for a 1x1x2 mesh, 4 for 1x2x2; NCCL refuses two "
+              f"ranks on one card)", flush=True)
+        return
+    shape = (1, 2, 2) if n >= 4 else (1, 1, 2)
+    with tempfile.TemporaryDirectory() as out:
+        nccl = run_parallel_lm_step("nccl", shape, out)
+        gloo = run_parallel_lm_step("gloo", shape, out)
+    res = compare_parallel_lm_step(nccl, gloo)
+    print(f"phase 11 (c): two dp x tp x sp steps of a small bf16 LM "
+          f"(ring-flash) on a {shape} mesh over NCCL ({n} cards: {smi}) "
+          f"against gloo on the CPU: " + json.dumps(res), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1073,12 +1482,17 @@ def main() -> int:
     stem_row["launches"], _, main_summary = phase_main_path(smi)
     phase_reference()
     flash_rows = phase_flash_check()
-    counts = phase_lm_main_path(smi)
+    counts, lm_summary = phase_lm_main_path(smi)
     phase_lm_reference()
     phase_hvd_api(smi, main_summary)
     phase_control_plane(smi, main_summary)
-    for row, count in zip(flash_rows, counts.values()):
-        row["launches"] = count
+    ring = phase_sequence_parallel(smi)
+    lm_sp = phase_lm_parallel(smi, lm_summary)
+    phase_parallel_processes(smi)
+    for row, *count in zip(flash_rows, counts.values(), ring, lm_sp):
+        check(all(count), f"{row['name']} did not launch on every path: "
+              f"phase 7, 11 (a), 11 (b) {count}")
+        row["launches"] = sum(count)
     hvd.shutdown()
     print(smi, flush=True)
     print(json.dumps({"kernels": [stem_row] + flash_rows}), flush=True)

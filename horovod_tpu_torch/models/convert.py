@@ -6,7 +6,8 @@ The port names its submodules and leaves as flax does, so a flax path
 kernels are HWIO in flax and OIHW here, dense kernels ``[in, out]`` in
 flax and ``[out, in]`` here.  Arrays cross as numpy, so this module needs
 neither framework's other half.  The transformer LM's pytree crosses
-with ``lm_params_to_torch`` and ``lm_state_dict_to_params``.
+with ``lm_params_to_torch`` and ``lm_state_dict_to_params``, and as
+Megatron shards with ``lm_params_to_shards`` and ``lm_shards_to_params``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _STAT_LEAVES = ("mean", "var")
 
@@ -129,3 +131,53 @@ def lm_state_dict_to_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             out[key] = arr
     out["layers"] = [layers[i] for i in range(len(layers))]
     return out
+
+
+def _lm_split_dims(n_layers: int, model_axis: str) -> Dict[str, int]:
+    """The state-dict names of the leaves sharded over ``model_axis`` by
+    ``param_specs``, with the dim each is split on."""
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      param_specs)
+    specs = param_specs(TransformerConfig(n_layers=n_layers), model_axis)
+    flat = {k: v for k, v in specs.items() if k != "layers"}
+    for i, layer in enumerate(specs["layers"]):
+        flat.update({f"layers.{i}.{leaf}": v for leaf, v in layer.items()})
+    return {name: spec.index(model_axis) for name, spec in flat.items()
+            if model_axis in spec}
+
+
+def lm_params_to_shards(params: Mapping, mesh, model_axis: str = "model"
+                        ) -> Dict[str, torch.Tensor]:
+    """The LM's full parameter pytree of numpy arrays -> this rank's
+    ``state_dict`` of a ``TransformerLM(model_shards=...)``: each leaf
+    that ``param_specs`` shards over ``model_axis`` split into the
+    axis's size along its dim, this rank's piece (by its coordinate on
+    the axis); every other leaf whole."""
+    out = lm_params_to_torch(params)
+    if model_axis is None:
+        return out
+    n, i = mesh.axis_size(model_axis), mesh.axis_index(model_axis)
+    for name, dim in _lm_split_dims(len(params["layers"]),
+                                    model_axis).items():
+        out[name] = out[name].chunk(n, dim)[i].contiguous()
+    return out
+
+
+def lm_shards_to_params(state_dict: Mapping[str, torch.Tensor], mesh,
+                        model_axis: str = "model") -> Dict:
+    """The inverse of :func:`lm_params_to_shards`: the shards of every
+    rank of the model axis gathered into the full pytree of numpy f32
+    arrays.  Collective over the model axis: each of its ranks calls it
+    with its own shards."""
+    full = dict(state_dict)
+    if model_axis is not None and mesh.axis_size(model_axis) > 1:
+        group = mesh.axis(model_axis)
+        n_layers = 1 + max(int(k.split(".")[1]) for k in state_dict
+                           if k.startswith("layers."))
+        for name, dim in _lm_split_dims(n_layers, model_axis).items():
+            t = state_dict[name].detach().contiguous()
+            parts = [torch.empty_like(t)
+                     for _ in range(mesh.axis_size(model_axis))]
+            dist.all_gather(parts, t, group=group)
+            full[name] = torch.cat(parts, dim)
+    return lm_state_dict_to_params(full)

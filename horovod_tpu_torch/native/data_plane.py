@@ -146,7 +146,7 @@ def adasum(buf: torch.Tensor, g: DataGroup) -> torch.Tensor:
         p2 *= 2
     extra = me >= p2
     fold = me - p2 if extra else (me + p2 if me + p2 < n else -1)
-    calls.count += 1
+    calls.add()
     if extra:
         dist.send(vec, peer[fold], group=g.group)
         dist.recv(vec, peer[fold], group=g.group)
@@ -213,7 +213,7 @@ def allgather(resp: Response, t: Optional[torch.Tensor],
     out = buf.new_empty(most * g.size)
     work = None
     if out.numel():
-        calls.count += 1
+        calls.add()
         if g.nccl:
             work = dist.all_gather_into_tensor(out, buf, group=g.group,
                                                async_op=True)
@@ -237,7 +237,7 @@ def broadcast(resp: Response, t: Optional[torch.Tensor],
            else _zeros(resp.first_dims[0], resp.dtype, g))
     work = None
     if buf.numel():
-        calls.count += 1
+        calls.add()
         work = dist.broadcast(buf, src=g.peers[g.members.index(resp.arg)],
                               group=g.group, async_op=True)
     return [work], [lambda: on_caller(buf)]
@@ -261,7 +261,7 @@ def alltoall(resp: Response, t: Optional[torch.Tensor],
     out = buf.new_empty(sum(recv))
     work = None
     if buf.numel() or out.numel():
-        calls.count += 1
+        calls.add()
         work = dist.all_to_all_single(out, buf, output_split_sizes=recv,
                                       input_split_sizes=send, group=g.group,
                                       async_op=True)
@@ -279,7 +279,7 @@ def reducescatter(resp: Response, t: Optional[torch.Tensor],
     if g.nccl:
         out = buf.new_empty(k)
         if buf.numel():
-            calls.count += 1
+            calls.add()
             work = dist.reduce_scatter_tensor(out, buf, op=dist.ReduceOp.SUM,
                                               group=g.group, async_op=True)
     else:
@@ -287,7 +287,7 @@ def reducescatter(resp: Response, t: Optional[torch.Tensor],
         # sum of the whole buffer, then this member's block.
         out = buf[g.pos * k:(g.pos + 1) * k]
         if buf.numel():
-            calls.count += 1
+            calls.add()
             work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g.group,
                                    async_op=True)
     return [work], [lambda: on_caller(out)]

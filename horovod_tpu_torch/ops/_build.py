@@ -38,6 +38,12 @@ class CallCounter:
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        """One more; safe when several threads launch at once."""
+        with self._lock:
+            self.count += 1
 
     def reset(self) -> None:
         self.count = 0

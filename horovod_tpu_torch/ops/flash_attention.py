@@ -346,7 +346,7 @@ def _launch_fwd(q, k, v, qseg, kseg, causal, scale):
                  g.h, g.seg_heads, g.t, g.d, *g.strides, int(causal),
                  float(scale), _stream(q.device))
     _check_err(err, "forward")
-    fwd_launches.count += 1
+    fwd_launches.add()
     return o, m, l
 
 
@@ -366,7 +366,7 @@ def _launch_dq(q, k, v, o, do, m, l, qseg, kseg, causal, scale):
                  g.d, *g.strides, int(causal), float(scale),
                  _stream(q.device))
     _check_err(err, "dq")
-    dq_launches.count += 1
+    dq_launches.add()
     return dq
 
 
@@ -387,7 +387,7 @@ def _launch_dkv(q, k, v, o, do, m, l, qseg, kseg, causal, scale):
                  g.seg_heads, g.t, g.d, *g.strides, int(causal),
                  float(scale), _stream(q.device))
     _check_err(err, "dkv")
-    dkv_launches.count += 1
+    dkv_launches.add()
     return dk, dv
 
 
@@ -399,15 +399,21 @@ def _route(x: torch.Tensor) -> str:
 
 
 # ---------------------------------------------------------------------------
-# The folded-layout parts (reference :330, :399)
+# The parts, folded or [B, T, H, D] (reference :330, :399)
 # ---------------------------------------------------------------------------
 
 def _fwd_parts(qf, kf, vf, qseg=None, kseg=None, causal=True, scale=None):
-    """``[B*H, T, D]`` forward: ``(o, m, l)`` with ``m``/``l`` the
-    ``[B*H, 1, T]`` online-softmax state.  ``qseg``/``kseg`` are
-    ``[B, T]`` or ``[B, 1, T]`` (the same tensor for self-attention)."""
+    """``[B*H, T, D]`` or ``[B, T, H, D]`` forward: ``(o, m, l)``, ``o``
+    in the layout of ``qf`` and ``m``/``l`` the ``[B*H, 1, T]``
+    online-softmax state either way.  ``qseg``/``kseg`` are ``[B, T]`` or
+    ``[B, 1, T]`` (the same tensor for self-attention)."""
     scale = qf.shape[-1] ** -0.5 if scale is None else scale
     if _route(qf) == "cpu":
+        if qf.dim() == 4:
+            b, _, h, _ = qf.shape
+            o, m, l = _fwd_parts_plain(_fold(qf), _fold(kf), _fold(vf),
+                                       qseg, kseg, causal, scale)
+            return _unfold(o, b, h), m, l
         return _fwd_parts_plain(qf, kf, vf, qseg, kseg, causal, scale)
     o, m, l = _launch_fwd(qf, kf, vf, qseg, kseg, causal, scale)
     return o, m[:, None, :], l[:, None, :]
@@ -415,10 +421,16 @@ def _fwd_parts(qf, kf, vf, qseg=None, kseg=None, causal=True, scale=None):
 
 def _bwd_parts(qf, kf, vf, of, dof, m, l, qseg=None, kseg=None,
                causal=True, scale=None):
-    """``[B*H, T, D]`` backward from the GLOBAL ``(m, l)``: returns
-    ``(dq, dk, dv)``."""
+    """``[B*H, T, D]`` or ``[B, T, H, D]`` backward from the GLOBAL
+    ``(m, l)``: returns ``(dq, dk, dv)`` in the layout of ``qf``."""
     scale = qf.shape[-1] ** -0.5 if scale is None else scale
     if _route(qf) == "cpu":
+        if qf.dim() == 4:
+            b, _, h, _ = qf.shape
+            grads = _bwd_parts_plain(*(_fold(x) for x in (qf, kf, vf, of,
+                                                          dof)),
+                                     m, l, qseg, kseg, causal, scale)
+            return tuple(_unfold(g, b, h) for g in grads)
         return _bwd_parts_plain(qf, kf, vf, of, dof, m, l, qseg, kseg,
                                 causal, scale)
     dq = _launch_dq(qf, kf, vf, of, dof, m, l, qseg, kseg, causal, scale)

@@ -123,7 +123,7 @@ def _launch(x: torch.Tensor, scale: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused stem kernel launch failed: CUDA error "
                            f"{err}")
-    launches.count += 1
+    launches.add()
     return out
 
 

@@ -137,7 +137,7 @@ def start_bucket(tensors: Sequence[torch.Tensor], group, size: int, *,
     work = None
     if flat.numel():
         work = dist.all_reduce(flat, op=op, group=group, async_op=True)
-        allreduce_calls.count += 1
+        allreduce_calls.add()
 
     def finish() -> List[torch.Tensor]:
         r = flat / size if mean else flat

@@ -1,1 +1,1 @@
-"""Parallelism modes of the PyTorch port (sequence attention so far)."""
+"""Parallelism modes of the PyTorch port: data, sequence and tensor."""

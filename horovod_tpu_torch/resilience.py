@@ -62,21 +62,25 @@ def _mean_across(t: torch.Tensor, group=None) -> torch.Tensor:
 def apply_step_guard(do_update: Callable[[], None], *, loss: torch.Tensor,
                      grads: Sequence[torch.Tensor],
                      restore: Optional[Callable[[], None]] = None,
-                     group=None, policy: Optional[str] = None
-                     ) -> torch.Tensor:
-    """Run one optimizer update under the step guard; returns the mean loss.
+                     group=None, policy: Optional[str] = None,
+                     agree_group=None) -> torch.Tensor:
+    """Run one optimizer update under the step guard; returns the mean loss
+    over ``group``.
 
     ``do_update()`` applies the update in place.  ``restore()`` puts back
     whatever the forward pass already changed (the BatchNorm running
-    statistics).  Under policy ``off`` this is ``do_update()`` plus the
-    loss mean, with no check at all.
+    statistics).  The ranks of ``agree_group`` (default: ``group``; the
+    LM's step passes every mesh axis, as the reference's ``agree_axes``)
+    agree on the verdict.  Under policy ``off`` this is ``do_update()``
+    plus the loss mean, with no check at all.
     """
     policy = guard_policy() if policy is None else policy
     mean_loss = _mean_across(loss, group)
     if policy == "off":
         do_update()
         return mean_loss
-    if bool(all_finite(loss, grads, group)):
+    agree = group if agree_group is None else agree_group
+    if bool(all_finite(loss, grads, agree)):
         do_update()
         return mean_loss
     if restore is not None:

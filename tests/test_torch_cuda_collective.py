@@ -372,3 +372,21 @@ def test_four_rank_nccl_matches_gloo(tmp_path):
     for key in ("adasum_4", "optimizer_plain", "optimizer_bpps2"):
         for r in range(1, 4):
             assert torch.equal(nccl[r][key], nccl[0][key]), (r, key)
+
+
+@pytest.mark.cuda
+def test_dp_tp_sp_lm_step_nccl_matches_gloo(tmp_path):
+    """Two dp x tp x sp steps of a small bf16 LM (ring-flash attention,
+    head_dim 64, T 512) on NCCL ranks, one card each: a 1x2x2 (data,
+    model, seq) mesh on four cards, 1x1x2 on two or three, against the
+    same program on gloo ranks on the CPU.  The losses and each leaf's
+    update agree within ``chip_smoke.py``'s phase 11 (c) tolerances
+    (bf16 compute rounds differently on the card)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    shape = (1, 2, 2) if n >= 4 else (1, 1, 2)
+    nccl = chip_smoke.run_parallel_lm_step("nccl", shape, str(tmp_path))
+    gloo = chip_smoke.run_parallel_lm_step("gloo", shape, str(tmp_path))
+    chip_smoke.compare_parallel_lm_step(nccl, gloo)

@@ -408,17 +408,12 @@ def test_converter_round_trip():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(model_axis="model"), "item 6"),
-    (dict(seq_axis="seq"), "item 7"),
-    (dict(attention="ring", seq_axis="seq"), "item 7"),
-    (dict(attention="ring_flash", seq_axis="seq"), "item 7"),
-    (dict(attention="ulysses", seq_axis="seq"), "item 7"),
     (dict(remat="dots"), "item 6"),
     (dict(remat="full"), "item 6"),
 ])
 def test_routes_not_ported_raise(kw, match):
-    """Only what needs a sequence axis, tensor parallelism or remat
-    raises; the sequence routes without an axis run (next test)."""
+    """Only remat raises; the sequence and tensor-parallel routes run
+    (their tests are at the end of this file)."""
     _, tcfg = _cfgs()
     model = tfm.TransformerLM(tcfg, device="cpu")
     tokens = torch.zeros((1, T), dtype=torch.long)
@@ -518,3 +513,296 @@ def test_lm_train_flops_matches_jax():
               d_ff=12288, max_seq=2048)
     assert (benchmark.lm_train_flops(tfm.TransformerConfig(**kw), 4)
             == jax_flops(jtfm.TransformerConfig(**kw), 4))
+
+
+# ---------------------------------------------------------------------------
+# Tensor and sequence parallelism (model_axis, seq_axis)
+# ---------------------------------------------------------------------------
+# The tiny LM of tests/test_parallel.py:370 (vocab 64, d_model 32, 4 heads,
+# 2 layers, d_ff 64, f32), tokens [4, 32] from default_rng(9).  The
+# forward under model x seq = 2 x 2 (4 gloo ranks) and the dp x tp x sp
+# step at 2 x 2 x 2 (8 gloo ranks) run in one module fixture, while the
+# JAX single-device oracles are computed.
+
+PAR_T = 32
+PAR_ROUTES = ("ring", "ring_flash", "ulysses", "auto")
+PAR_PACKED = ("ring", "ring_flash", "ulysses")
+STEP_ROUTES = ("ring_flash", "ring", "ulysses")
+PAR_LR = 0.1
+
+
+def _par_cfgs():
+    kw = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+              max_seq=PAR_T)
+    return (jtfm.TransformerConfig(dtype=jnp.float32, **kw),
+            tfm.TransformerConfig(dtype=torch.float32, **kw))
+
+
+def _par_data():
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, 64, (4, PAR_T + 1)).astype(np.int32)
+    seg = np.zeros((4, PAR_T), np.int32)
+    seg[:, 11:] = 1             # crosses the seq shards' border at 16
+    seg[:, 20:27] = 2           # wholly inside seq shard 1
+    seg[:, 27:] = 3
+    return dict(tokens=toks[:, :-1], labels=toks[:, 1:], seg=seg)
+
+
+PAR_JOB = r'''
+import os, pickle, sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import convert
+from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.optim import SGD
+from horovod_tpu_torch.topology import build_mesh
+
+out, kind = sys.argv[1], os.environ["PAR_KIND"]
+hvd.init(device="cpu")
+r = hvd.rank()
+with open(os.path.join(out, "..", "lm.pkl"), "rb") as fh:
+    params, x = pickle.load(fh)
+cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                            n_layers=2, d_ff=64, max_seq=%(t)d,
+                            dtype=torch.float32)
+res = {}
+if kind == "forward":
+    mesh = build_mesh(axes=("model", "seq"), shape=(2, 2))
+    mg, sg = mesh.axis("model"), mesh.axis("seq")
+    s = mesh.axis_index("seq")
+    cols = slice(s * %(t)d // 2, (s + 1) * %(t)d // 2)
+    model = tfm.TransformerLM(cfg, device="cpu", model_shards=2)
+    model.load_state_dict(convert.lm_params_to_shards(params, mesh))
+    toks = torch.from_numpy(x["tokens"][:, cols])
+    seg = torch.from_numpy(x["seg"][:, cols])
+    for route in %(routes)r:
+        res[route] = tfm.forward(model.tree(), toks, cfg, mg, sg,
+                                 route).detach().numpy()
+    for route in %(packed)r:
+        res[route + "/packed"] = tfm.forward(
+            model.tree(), toks, cfg, mg, sg, route,
+            segment_ids=seg).detach().numpy()
+else:
+    mesh = build_mesh(axes=("data", "model", "seq"), shape=(2, 2, 2))
+    d, s = mesh.axis_index("data"), mesh.axis_index("seq")
+    rows = slice(d * 2, d * 2 + 2)
+    cols = slice(s * %(t)d // 2, (s + 1) * %(t)d // 2)
+    toks = torch.from_numpy(x["tokens"][rows, cols])
+    labs = torch.from_numpy(x["labels"][rows, cols])
+    for route in %(step_routes)r:
+        model = tfm.TransformerLM(cfg, device="cpu", model_shards=2)
+        model.load_state_dict(convert.lm_params_to_shards(params, mesh))
+        named = convert.lm_ordered_parameters(model)
+        opt = SGD([p for _, p in named], %(lr)r, momentum=0.9)
+        step = tfm.make_train_step(model, opt, mesh, "data", "model", "seq",
+                                   attention=route)
+        res[route + "/loss"] = np.array([float(step(toks, labs))
+                                         for _ in range(2)])
+        trees = {"param": model.state_dict(),
+                 "trace": {n: t for (n, _), t in zip(named, opt.trace)}}
+        for what, sd in trees.items():
+            full = convert.lm_shards_to_params(sd, mesh)
+            for k, v in full.items():
+                if k != "layers":
+                    res[f"{route}/{what}/{k}"] = v
+            for i, layer in enumerate(full["layers"]):
+                for leaf, v in layer.items():
+                    res[f"{route}/{what}/layers.{i}.{leaf}"] = v
+np.savez(os.path.join(out, f"rank{r}.npz"), **res)
+hvd.shutdown()
+'''
+
+
+def _jax_two_steps(params, x):
+    """Two steps of the JAX LM on one device and the global batch: loss,
+    gradient, optax SGD with an f32 momentum."""
+    jcfg, _ = _par_cfgs()
+    opt = optax.sgd(PAR_LR, momentum=0.9)
+    p = _jtree(params)
+    state = opt.init(p)
+    losses = []
+    for _ in range(2):
+        loss, g = jax.value_and_grad(jtfm.loss_fn)(
+            p, jnp.asarray(x["tokens"]), jnp.asarray(x["labels"]), jcfg)
+        upd, state = opt.update(g, state, p)
+        p = optax.apply_updates(p, upd)
+        losses.append(float(loss))
+    return np.array(losses), _names(p), _names(state[0].trace)
+
+
+@pytest.fixture(scope="module")
+def parallel_results(tmp_path_factory):
+    import pickle
+
+    from torch_support import start_port_job
+    root = tmp_path_factory.mktemp("lm_par")
+    jcfg, _ = _par_cfgs()
+    params, x = _params(jcfg, seed=3), _par_data()
+    with open(root / "lm.pkl", "wb") as fh:
+        pickle.dump((params, x), fh)
+    script = PAR_JOB % dict(t=PAR_T, routes=PAR_ROUTES, packed=PAR_PACKED,
+                            step_routes=STEP_ROUTES, lr=PAR_LR)
+    jobs = {}
+    for kind, n in (("forward", 4), ("step", 8)):
+        (root / kind).mkdir()
+        jobs[kind] = start_port_job(script, str(root / kind), np_=n,
+                                    timeout=300,
+                                    env={"PAR_KIND": kind,
+                                         "OMP_NUM_THREADS": "1"})
+    jp, jt = _jtree(params), jnp.asarray(x["tokens"])
+    want = {"logits": np.asarray(jtfm.forward(jp, jt, jcfg)),
+            "packed": np.asarray(jtfm.forward(
+                jp, jt, jcfg, segment_ids=jnp.asarray(x["seg"]))),
+            "step": _jax_two_steps(params, x)}
+    got = {kind: finish()[0] for kind, finish in jobs.items()}
+    return want, got
+
+
+@pytest.mark.parametrize("route", PAR_ROUTES + tuple(
+    r + "/packed" for r in PAR_PACKED))
+def test_model_seq_forward_matches_jax(parallel_results, route):
+    """Logits under model x seq = 2 x 2 (Megatron shards, sequence
+    chunks, position offset axis_index * T_local) against the JAX
+    single-device forward on the same converted params; every model rank
+    of a seq shard has the same logits.  rtol 5e-4 as
+    ``tests/test_parallel.py:383``."""
+    want, got = parallel_results
+    ranks = got["forward"]
+    ref = want["packed" if route.endswith("/packed") else "logits"]
+    for m in range(2):
+        # mesh (model, seq): rank = 2 * model + seq
+        joined = np.concatenate([ranks[2 * m + s][route] for s in range(2)],
+                                1)
+        np.testing.assert_allclose(joined, ref, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("what", ["loss", "param", "trace"])
+@pytest.mark.parametrize("route", STEP_ROUTES)
+def test_dp_tp_sp_step_matches_single_device_jax(parallel_results, route,
+                                                 what):
+    """Two steps of the 2 x 2 x 2 dp x tp x sp step (SGD momentum 0.9, f32
+    momentum), the shards gathered back on every rank, against two JAX
+    steps on one device and the global batch: the gradient mean over
+    data x seq is the global batch's gradient.  (The JAX shard_map step
+    is not the oracle: it applies 4x the mean at 2 x 2 x 2, see the next
+    test.)  Losses 1e-5, parameters and momentum 1e-5."""
+    want, got = parallel_results
+    jloss, jparams, jtrace = want["step"]
+    for rank in got["step"]:
+        if what == "loss":
+            np.testing.assert_allclose(rank[f"{route}/loss"], jloss,
+                                       rtol=1e-5, atol=1e-5)
+            continue
+        ref = jparams if what == "param" else jtrace
+        for name, w in ref.items():
+            np.testing.assert_allclose(rank[f"{route}/{what}/{name}"],
+                                       np.asarray(w), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+
+def test_jax_dp_tp_sp_step_applies_four_times_the_mean():
+    """The reference's finding recorded: JAX ``make_train_step`` on a
+    2 x 2 x 2 (data, model, seq) mesh moves every parameter, sharded or
+    replicated, by 4x (= data x seq) the single-device step's update on
+    the same global batch (plain SGD, lr 0.1, one step); its losses
+    agree."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    jcfg, _ = _par_cfgs()
+    params, x = _jtree(_params(jcfg, seed=3)), _par_data()
+    tokens, labels = jnp.asarray(x["tokens"]), jnp.asarray(x["labels"])
+    opt = optax.sgd(PAR_LR)
+    loss1, g = jax.value_and_grad(jtfm.loss_fn)(params, tokens, labels, jcfg)
+    one = optax.apply_updates(params, opt.update(g, opt.init(params))[0])
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2),
+                ("data", "model", "seq"))
+    step, specs, opt_specs = jtfm.make_train_step(
+        jcfg, opt, mesh, data_axis="data", model_axis="model",
+        seq_axis="seq", donate=False)
+    put = (lambda tree, spec: jax.device_put(tree, jax.tree_util.tree_map(
+        lambda s: NamedSharding(mesh, s), spec,
+        is_leaf=lambda v: isinstance(v, P))))
+    ds = NamedSharding(mesh, P("data", "seq"))
+    eight, _, loss8 = step(put(params, specs), put(opt.init(params),
+                                                   opt_specs),
+                           jax.device_put(tokens, ds),
+                           jax.device_put(labels, ds))
+    np.testing.assert_allclose(float(loss8), float(loss1), rtol=1e-5)
+    p0, p1, p8 = (_names(t) for t in (params, one, eight))
+    for name in p0:
+        d1 = np.asarray(p1[name]) - np.asarray(p0[name])
+        d8 = np.asarray(p8[name]) - np.asarray(p0[name])
+        big = np.abs(d1) > 1e-5
+        assert big.any(), name
+        np.testing.assert_allclose(np.median(d8[big] / d1[big]), 4.0,
+                                   rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("attention", ["flash", "local"])
+def test_single_device_routes_raise_under_a_sequence_axis(port_world,
+                                                          attention):
+    """The reference's ValueError: under a sequence axis the single-device
+    routes are refused, never substituted."""
+    from horovod_tpu_torch.topology import build_mesh
+    _, tcfg = _par_cfgs()
+    seq = build_mesh(axes=("seq",), shape=(1,)).axis("seq")
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    with pytest.raises(ValueError, match="not available with a sequence "
+                                         "axis; choose 'ring', 'ring_flash' "
+                                         "or 'ulysses'"):
+        tfm.forward(model.tree(), torch.zeros((1, 16), dtype=torch.long),
+                    tcfg, seq_axis=seq, attention=attention)
+
+
+@pytest.mark.parametrize("min_t,route", [(None, "ring"),
+                                         ("128", "ring_flash")])
+def test_auto_under_a_sequence_axis(port_world, monkeypatch, min_t, route):
+    """``auto`` under a sequence axis takes ``ring_flash`` once the local
+    chunk clears HOROVOD_FLASH_AUTO_MIN_T and tiles by 128 (lowered to
+    128 here, as ``tests/test_parallel.py:1091``), ``ring`` otherwise;
+    the logits match the JAX single-device forward either way."""
+    from horovod_tpu_torch.parallel import sequence as sq
+    from horovod_tpu_torch.topology import build_mesh
+    if min_t is not None:
+        monkeypatch.setenv("HOROVOD_FLASH_AUTO_MIN_T", min_t)
+    calls = []
+    for name in ("ring_attention", "ring_flash_attention"):
+        real = getattr(sq, name)
+        monkeypatch.setattr(sq, name, lambda *a, _n=name, _f=real, **kw:
+                            calls.append(_n) or _f(*a, **kw))
+    jcfg, tcfg = _cfgs(t=128, n_layers=1)
+    params = _params(jcfg)
+    tokens, _ = _tokens(b=1, t=128)
+    seq = build_mesh(axes=("seq",), shape=(1,)).axis("seq")
+    got = tfm.forward(_port_model(tcfg, params).tree(),
+                      torch.from_numpy(tokens), tcfg, seq_axis=seq,
+                      attention="auto")
+    assert calls == [route + "_attention"]
+    want = np.asarray(jtfm.forward(_jtree(params), jnp.asarray(tokens),
+                                   jcfg))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=TOL,
+                               atol=TOL)
+
+
+def test_train_step_axes_by_name(port_world):
+    """With a model or sequence axis the step's axes are names the mesh
+    resolves; a group there, or a mesh with neither a data nor a
+    sequence axis, is refused."""
+    from horovod_tpu_torch.topology import build_mesh
+    _, tcfg = _par_cfgs()
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    opt = SGD([p for _, p in convert.lm_ordered_parameters(model)], LR, 0.9)
+    mesh = build_mesh(axes=("data", "model", "seq"), shape=(1, 1, 1))
+    with pytest.raises(TypeError, match="by name"):
+        tfm.make_train_step(model, opt, mesh, model_axis=mesh.axis("model"))
+    with pytest.raises(ValueError, match="data or a sequence axis"):
+        tfm.make_train_step(model, opt, build_mesh(axes=("model",),
+                                                   shape=(1,)),
+                            model_axis="model")
+    step = tfm.make_train_step(model, opt, mesh, model_axis="model",
+                               seq_axis="seq", attention="ring_flash")
+    x = _par_data()
+    loss = step(torch.from_numpy(x["tokens"][:1].astype(np.int64)),
+                torch.from_numpy(x["labels"][:1].astype(np.int64)))
+    assert np.isfinite(float(loss))

@@ -5,7 +5,8 @@
   ``rank<r>.npz`` there; the reference's ranks meet through the launcher,
   the port's gloo world through ``MASTER_ADDR``/``MASTER_PORT``.
   :func:`run_port_job` runs a script of the port alone the same way,
-  without the launcher, and returns each rank's output too.
+  without the launcher, and returns each rank's output too;
+  :func:`start_port_job` starts one and returns what waits for it.
 * ``world1``: the port's gloo world of one, shut down after the test.
 * ``jax_world``: the JAX package initialised at size 1 for the test.  It
   leaves an initialisation it finds in place (unlike ``tests/conftest.py``'s
@@ -54,11 +55,13 @@ def run_job(script: str, out_dir: str, np_: int = 3, args=(), env=None,
             for r in range(np_)]
 
 
-def run_port_job(script: str, out_dir: str, np_: int = 2, env=None,
-                 timeout: int = 120):
-    """Run ``script`` as ``np_`` ranks of the port alone, without the
+def start_port_job(script: str, out_dir: str, np_: int = 2, env=None,
+                   timeout: int = 120):
+    """Start ``script`` as ``np_`` ranks of the port alone, without the
     launcher: each process gets ``HOROVOD_RANK``/``HOROVOD_SIZE`` and one
-    rendezvous address.  Returns every rank's ``.npz`` and its output."""
+    rendezvous address.  Returns ``finish()``, which waits for the ranks
+    and returns every rank's ``.npz`` and its output, so the caller can
+    compute its oracle meanwhile."""
     path = os.path.join(out_dir, "job.py")
     with open(path, "w") as f:
         f.write(script)
@@ -69,17 +72,27 @@ def run_port_job(script: str, out_dir: str, np_: int = 2, env=None,
         [sys.executable, path, out_dir], cwd=REPO, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         env=dict(base, HOROVOD_RANK=str(r))) for r in range(np_)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
-    return ([dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
-             for r in range(np_)], logs)
+
+    def finish():
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, log[-4000:]
+        return ([dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+                 for r in range(np_)], logs)
+
+    return finish
+
+
+def run_port_job(script: str, out_dir: str, np_: int = 2, env=None,
+                 timeout: int = 120):
+    """:func:`start_port_job`, waited for."""
+    return start_port_job(script, out_dir, np_, env, timeout)()
 
 
 @pytest.fixture()
