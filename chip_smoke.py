@@ -63,10 +63,27 @@ any failure ends the run with a traceback and a non-zero exit:
    and with Ulysses attention, its losses held to phase 7's and its
    tok/s printed beside them; (c) with 2 or more cards, two steps of a
    small LM on a 1x1x2 or 1x2x2 NCCL mesh against gloo on the CPU, else
-   one line saying why it did not run.
+   one line saying why it did not run;
+12. decode, remat and pipeline parallelism: (a) the decode benchmark at
+   the reference's defaults (d2048/L8/H16, vocab 32768, B 8, prompt 16,
+   total 512, bf16) beside its byte bound, then at the LM of record's
+   width (bf16, a cache of 2048) ``decode_step``'s logits at each of 256
+   positions held row by row to ``forward`` with flash and with local
+   attention, and ``generate`` held to a step-by-step argmax; (b) phase
+   7's step under ``remat="dots"`` and ``"full"``, its losses held to
+   phase 7's and the flash launches to the policy's count (2/1/1 a layer
+   and step); (c) the LM of record on a 1x2 (data, pipe) mesh of 2
+   virtual ranks under GPipe, 1F1B, interleaved and interleaved 1F1B
+   (virtual 5), three steps each, held to the plain local-attention step
+   on the same batch and weights, with ms/step and peak memory; (d) with
+   2 or more cards, two dp x pp steps of every schedule of a small LM
+   over NCCL against gloo on the CPU, else one line saying why it did not
+   run.
 
-The flash rows' launches add phase 7's and phase 11's paths.  It prints one JSON line of kernel numbers and, last, one JSON line naming
-the device.  With no GPU it exits non-zero and prints no result.
+The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
+(b) and, for the forward kernel, 12 (a).  It prints one JSON line of
+kernel numbers and, last, one JSON line naming the device.  With no GPU
+it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -160,6 +177,56 @@ SP_STEP_LM = dict(vocab_size=512, d_model=256, n_heads=4, n_layers=2,
 SP_STEP_BATCH = 2
 SP_STEP_LOSS_RTOL = 2e-2
 SP_STEP_UPDATE_TOL = 5e-2
+# Phase 12 (a): the decode benchmark at the reference's defaults
+# (horovod_tpu/benchmark.py:595), bf16; its byte bound counts each bf16
+# matmul weight (layers and tied head) and the whole static K/V cache
+# read once a step, the logits written once.
+DECODE_BENCH = dict(d_model=2048, n_layers=8, n_heads=16, vocab_size=32768,
+                    batch_size=8, prompt_len=16, total_len=512, num_iters=3)
+# The decode==forward oracle at the LM of record's width: a cache of
+# DECODE_MAX_LEN positions, the first DECODE_POSITIONS of DECODE_BATCH
+# sequences, each decode step's logits held row by row (||a_r - b_r|| /
+# ||b_r||) to the forward's at that position, flash and local.  The
+# decode's attention is f32 over the cache, the flash kernel's f32 with a
+# bf16 P, the local route's bf16; the residual stream is rounded to bf16
+# after every sublayer, 20 times over 10 layers.  On the H100 this phase
+# reads 0.0118 at the worst row against either route: the limit is about
+# 2.7x that, and a decode that dropped a layer or a head reads O(1).
+DECODE_MAX_LEN = 2048
+DECODE_POSITIONS = 256
+DECODE_BATCH = 2
+DECODE_LOGIT_TOL = 2 ** -5
+# generate against a step-by-step argmax of decode_step: prompt, total.
+DECODE_GENERATE = (16, 64)
+# Phase 12 (b): remat recomputes each layer's forward in the backward, the
+# flash forward kernel with it: per step and layer 2 forward launches
+# under "dots" and "full" (1 under "none"), 1 dQ and 1 dK/dV.  The same
+# operations on the same inputs: the losses are expected equal to phase
+# 7's bit for bit, and held within LM_SP_LOSS_RTOL.
+REMAT_FWD_PER_LAYER = {"none": 1, "dots": 2, "full": 2}
+# Phase 12 (c): the LM of record on a 1 x 2 (data x pipe) mesh of 2
+# virtual ranks, M microbatches, PP_STEPS steps of each schedule (the
+# interleaved ones with PP_VIRTUAL chunks a rank, one layer each), held to
+# the plain local-attention step on the same batch and weights: each loss
+# within LM_PP_LOSS_RTOL (relative) of the plain step's and of GPipe's,
+# and each leaf's update after PP_STEPS steps within LM_PP_UPDATE_TOL of
+# the plain step's (||du - du_plain|| / ||du_plain||).  The microbatched
+# [1, T, D] matmuls round differently in bf16 from the [4, T, D] ones; on
+# the H100 this phase reads losses 2.3e-5 apart and a worst leaf (an
+# RMSNorm scale) at 0.114; a gradient scaled by P = 2 reads 1.0.
+PP_MICROBATCHES = 4
+PP_STEPS = 3
+PP_VIRTUAL = 5
+LM_PP_LOSS_RTOL = 1e-3
+LM_PP_UPDATE_TOL = 0.25
+# Phase 12 (d) and tests/test_torch_cuda_collective.py: two steps of every
+# schedule of a small bf16 pipelined LM (4 layers, 2 microbatches, the
+# interleaved schedules with 2 chunks a rank) on NCCL ranks against gloo
+# ranks on the CPU, held as phase 11 (c).
+PP_STEP_LM = dict(SP_STEP_LM, n_layers=4)
+PP_STEP_BATCH = 2
+PP_STEP_MICROBATCHES = 2
+PP_STEP_VIRTUAL = 2
 # Phase 9 runs phase 4's step (same seed, batch and SGD) through
 # hvd.DistributedOptimizer, which at size 1 adds no hook and no
 # collective, after broadcast_optimizer_state's zero-gradient fill (which
@@ -1470,6 +1537,476 @@ def phase_parallel_processes(smi: str) -> None:
           f"against gloo on the CPU: " + json.dumps(res), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Decode, remat and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def _decode_step_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes one decode step must move: each matmul weight read once in
+    bf16 (the layers' and the tied head's), the whole static K/V cache
+    read once, the f32 logits written once."""
+    d, f, v, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    weights = (n * (4 * d * d + 2 * d * f) + v * d) * 2
+    cache = n * 2 * batch * max_len * d * 2
+    return weights + cache + batch * v * 4
+
+
+def _row_rel(a, b) -> float:
+    """The worst row's ||a_r - b_r|| / ||b_r||, rows along the last dim."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+
+
+def phase_decode(smi: str) -> list:
+    """Phase 12 (a): the decode benchmark, the decode==forward oracle at
+    the LM of record's width and generate against a step-by-step argmax.
+    Returns the flash launches (the oracle's forward)."""
+    import numpy as np
+
+    from horovod_tpu_torch.benchmark import run_decode_benchmark
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    bench, device, dtype = DECODE_BENCH, "cuda", torch.bfloat16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_decode_benchmark(**bench, verbose=False)
+    peak = torch.cuda.max_memory_allocated()
+    d = bench["d_model"]
+    cfg = tfm.TransformerConfig(vocab_size=bench["vocab_size"], d_model=d,
+                                n_heads=bench["n_heads"],
+                                n_layers=bench["n_layers"], d_ff=4 * d)
+    nbytes = _decode_step_bytes(cfg, bench["batch_size"],
+                                bench["total_len"])
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    check(res["decode_tok_sec"] > 0 and res["ms_per_step"] > 0,
+          f"phase 12 decode benchmark: {res}")
+    print(f"phase 12 (a) decode d{d}/L{bench['n_layers']}/"
+          f"H{bench['n_heads']} vocab {bench['vocab_size']} B "
+          f"{bench['batch_size']} prompt {bench['prompt_len']} total "
+          f"{bench['total_len']} {str(dtype)[6:]}: "
+          f"{res['decode_tok_sec']:,.1f} tok/s, {res['ms_per_step']:.4f} "
+          f"ms/step (byte bound {bound_ms:.4f} ms: {nbytes} bytes a step "
+          f"at {HBM_BYTES_PER_S:.3g} B/s, "
+          f"{bound_ms / res['ms_per_step'] * 100:.1f} % of bound); peak "
+          f"{peak} bytes on {smi}", flush=True)
+
+    cfg = tfm.TransformerConfig(
+        vocab_size=LM["vocab_size"], d_model=LM["d_model"],
+        n_heads=LM["n_heads"], n_layers=LM["n_layers"], d_ff=LM["d_ff"],
+        max_seq=DECODE_MAX_LEN, dtype=dtype)
+    n_pos, b = DECODE_POSITIONS, DECODE_BATCH
+    model = tfm.TransformerLM(cfg, generator=torch.Generator(
+        device=device).manual_seed(3), device=device)
+    tree = model.tree()
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, n_pos))).to(device)
+    with torch.no_grad():
+        for c in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches):
+            c.reset()
+        fwd = {"flash": tfm.forward(tree, toks, cfg, attention="flash")}
+        launched = fa.fwd_launches.count
+        fwd["local"] = tfm.forward(tree, toks, cfg, attention="local")
+        cache = tfm.init_kv_cache(cfg, b, cfg.max_seq, device=device)
+        worst = {"flash": 0.0, "local": 0.0}
+        agree = 0
+        for pos in range(n_pos):
+            logits, cache = tfm.decode_step(tree, toks[:, pos], cache, pos,
+                                            cfg)
+            for route, ref in fwd.items():
+                worst[route] = max(worst[route],
+                                   _row_rel(logits, ref[:, pos]))
+            agree += int((logits.argmax(-1) ==
+                          fwd["flash"][:, pos].argmax(-1)).sum())
+        del cache, fwd
+        for route, err in worst.items():
+            check(err <= DECODE_LOGIT_TOL, f"phase 12 decode_step vs "
+                  f"forward({route}): worst row {err:.3g} > "
+                  f"{DECODE_LOGIT_TOL}")
+        p_len, total = DECODE_GENERATE
+        prompt = toks[:, :p_len]
+        out = tfm.generate(tree, prompt, total, cfg)
+        cache = tfm.init_kv_cache(cfg, b, total, device=device)
+        token, seq = prompt[:, 0], [prompt[:, 0]]
+        for pos in range(total - 1):
+            logits, cache = tfm.decode_step(tree, token, cache, pos, cfg)
+            token = (prompt[:, pos + 1] if pos + 1 < p_len
+                     else logits.argmax(-1))
+            seq.append(token)
+        check(tuple(out.shape) == (b, total) and
+              torch.equal(out[:, :p_len], prompt),
+              "phase 12 generate does not begin with its prompt")
+        check(torch.equal(out, torch.stack(seq, 1)), "phase 12 generate's "
+              "tokens differ from a step-by-step argmax of decode_step")
+    print(f"phase 12 (a) decode==forward at d{cfg.d_model}/L{cfg.n_layers}/"
+          f"H{cfg.n_heads} vocab {cfg.vocab_size} {str(dtype)[6:]}, cache "
+          f"{cfg.max_seq}, {n_pos} positions x {b} sequences: worst row "
+          f"vs flash {worst['flash']:.4g}, vs local {worst['local']:.4g} "
+          f"(tolerance {DECODE_LOGIT_TOL}); argmax agrees with flash's on "
+          f"{agree} of {n_pos * b} rows; generate({p_len} -> {total}) "
+          f"equals the step-by-step argmax and keeps its prompt; flash "
+          f"forward launches {launched}", flush=True)
+    del model, tree
+    return [launched, 0, 0]
+
+
+def phase_remat(smi: str, lm7: dict) -> list:
+    """Phase 12 (b): phase 7's benchmark under remat="dots" and "full",
+    the flash launches checked against the policy's count and the losses
+    held to phase 7's.  Returns the flash launches."""
+    from horovod_tpu_torch.benchmark import run_lm_benchmark
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    steps = LM_WARMUP_STEPS + LM_TIMED_STEPS
+    path = [0, 0, 0]
+    for remat in ("dots", "full"):
+        torch.cuda.empty_cache()
+        for c in counters:
+            c.reset()
+        res = run_lm_benchmark(
+            **LM, attention="flash", remat=remat, momentum_dtype="bfloat16",
+            num_warmup_batches=LM_WARMUP_STEPS, num_batches_per_iter=1,
+            num_iters=LM_TIMED_STEPS, verbose=False)
+        launched = [c.count for c in counters]
+        path = [a + x for a, x in zip(path, launched)]
+        n = LM["n_layers"] * steps
+        want = [REMAT_FWD_PER_LAYER[remat] * n, n, n]
+        check(launched == want, f"phase 12 remat={remat} flash launches "
+              f"{launched}; expected {want} (fwd, dq, dkv over {steps} "
+              f"steps)")
+        timed = res["step_losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(timed, lm7["step_losses"]))
+        check(rel <= LM_SP_LOSS_RTOL, f"phase 12 remat={remat} losses "
+              f"{timed} vs phase 7's {lm7['step_losses']}: worst relative "
+              f"difference {rel:.3g} > {LM_SP_LOSS_RTOL}")
+        print(f"phase 12 (b) LM d{LM['d_model']}/L{LM['n_layers']}/"
+              f"H{LM['n_heads']} T {LM['seq_len']} B {LM['batch_size']} "
+              f"flash remat={remat}: {res['tok_sec_per_chip']:,.0f} +-"
+              f"{res['tok_sec_conf']:,.0f} tok/s, {res['ms_per_step']:.2f} "
+              f"ms/step, peak {res['max_memory_allocated']} bytes (phase "
+              f"7, remat=none: {lm7['tok_sec_per_chip']:,.0f} tok/s, "
+              f"{lm7['ms_per_step']:.2f} ms/step, peak "
+              f"{lm7['max_memory_allocated']} bytes) on {smi}; timed "
+              f"losses equal to phase 7's bit for bit: "
+              f"{timed == lm7['step_losses']} (worst relative difference "
+              f"{rel:.3g}); flash launches fwd/dq/dkv {launched} = "
+              f"{REMAT_FWD_PER_LAYER[remat]}/1/1 per layer and step",
+              flush=True)
+        del res
+    torch.cuda.empty_cache()
+    return path
+
+
+def _pipeline_peak_reckoning(cfg, batch: int, m: int, n_stages: int,
+                             schedule: str) -> int:
+    """Bytes the pipelined step should need at its peak on one card with
+    every pipe rank on it: f32 parameters and their stacked copies, two
+    f32 gradient sets (the accumulated and the replayed), the bf16
+    momentum, and per live microbatch and layer the saved activations of
+    the local-attention layer (bf16 probabilities [mb, H, T, T], the
+    layer's bf16 weight casts, the MLP's [mb, T, d_ff] pair, q/k/v/o and
+    the f32 RMSNorm rows), plus each rank's logits head ([B, T, V] f32
+    logits, log-softmax and their gradient).  GPipe keeps all M
+    microbatches of every layer; 1F1B one stage's recompute a rank."""
+    d, f, v, n, t = (cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers,
+                     cfg.max_seq)
+    mb = batch // m
+    layer_params = 4 * d * d + 2 * d * f + 2 * d
+    base = v * d + t * d + d
+    params = 4 * (n * layer_params + n_stages * base)
+    state = params + 4 * n * layer_params + 2 * params + params // 2
+    act = (2 * mb * cfg.n_heads * t * t + 2 * layer_params +
+           2 * 2 * mb * t * f + 4 * 2 * mb * t * d + 3 * 4 * mb * t * d)
+    live = n * m if schedule in ("gpipe", "interleaved") else n
+    head = n_stages * 3 * 4 * batch * t * v
+    return state + act * live + head
+
+
+def _stage_of(name: str, n_layers: int, n_stages: int, virtual: int):
+    """Which pipe rank holds a plain LM leaf, and its PipelineLM name."""
+    if not name.startswith("layers."):
+        return 0, name
+    _, j, leaf = name.split(".")
+    lpc = n_layers // (n_stages * virtual)
+    c, i = divmod(int(j), lpc)
+    p, k = (c % n_stages, c // n_stages) if virtual > 1 else (c, 0)
+    return p, f"chunks.{k}.{i}.{leaf}"
+
+
+def phase_pipeline(smi: str, device="cuda", lm=None,
+                   microbatches: int = PP_MICROBATCHES,
+                   virtual: int = PP_VIRTUAL, steps: int = PP_STEPS) -> dict:
+    """Phase 12 (c): the LM on a 1 x 2 (data x pipe) mesh of 2 virtual
+    ranks under every schedule, held to the plain local-attention step on
+    the same batch and weights.  Returns the schedules' results."""
+    from horovod_tpu_torch.benchmark import make_lm_bench_state
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.optim import SGD
+    from horovod_tpu_torch.parallel.sequence import VirtualAxis
+
+    on_card = torch.device(device).type == "cuda"
+    lm = dict(lm or LM)
+    n_stages = 2
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def reset():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    reset()
+    st = make_lm_bench_state(lm["d_model"], lm["n_layers"], lm["n_heads"],
+                             lm["d_ff"], lm["vocab_size"], lm["seq_len"],
+                             lm["batch_size"], momentum_dtype="bfloat16",
+                             device=None if on_card else device)
+    cfg, device = st.cfg, st.mesh.device
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in st.model.state_dict().items()}
+    step = tfm.make_train_step(st.model, st.optimizer, st.mesh, st.axis,
+                               attention="local")
+    plain_losses, plain_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        plain_losses.append(float(step(st.tokens, st.labels)))
+        sync()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    plain_peak = peak()
+    du_plain = {k: v.detach().cpu() - init[k]
+                for k, v in st.model.state_dict().items()}
+    tokens, labels, mesh = st.tokens, st.labels, st.mesh
+    del st, step
+    reset()
+    tree = {k: init[k] for k in ("embed", "pos", "ln_f_scale")}
+    tree["layers"] = [{leaf: init[f"layers.{i}.{leaf}"]
+                       for leaf in tfm.LAYER_LEAVES}
+                      for i in range(cfg.n_layers)]
+    print(f"phase 12 (c) plain step (attention=local) on the LM "
+          f"d{cfg.d_model}/L{cfg.n_layers}/H{cfg.n_heads} T "
+          f"{cfg.max_seq} B {lm['batch_size']} {str(cfg.dtype)[6:]}: "
+          f"losses {plain_losses}, ms per step {plain_ms}, peak "
+          f"{plain_peak} bytes on {smi}", flush=True)
+    results = {}
+    for schedule in tfm.PIPELINE_SCHEDULES:
+        v = virtual if schedule.startswith("interleaved") else 1
+        split = tfm.split_pipeline_params(tree, n_stages, v)
+
+        def rank(r, v=v, schedule=schedule, split=split):
+            model = tfm.PipelineLM(cfg, n_stages, r.index, v, device=device)
+            model.load_state_dict(convert.lm_pipeline_to_rank(
+                split, r.index, v))
+            opt = SGD([p for _, p in
+                       convert.lm_pipeline_ordered_parameters(model)],
+                      1e-4, 0.9, torch.bfloat16)
+            pstep = tfm.make_train_step_pipelined(
+                model, opt, mesh, "data", r, n_microbatches=microbatches,
+                schedule=schedule, virtual=v)
+            losses, ms = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                losses.append(float(pstep(tokens, labels)))
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return losses, ms, {k: x.detach().cpu()
+                                for k, x in model.state_dict().items()}
+
+        reset()
+        out = VirtualAxis(n_stages).run(rank)
+        pk = peak()
+        del split
+        losses, ms = out[0][0], out[0][1]
+        check(all(o[0] == losses for o in out), f"phase 12 {schedule}: the "
+              f"pipe ranks disagree on the loss: {[o[0] for o in out]}")
+        check(all(x == x and abs(x) != float("inf") for x in losses),
+              f"phase 12 {schedule} losses not finite: {losses}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        check(rel <= LM_PP_LOSS_RTOL, f"phase 12 {schedule} losses {losses}"
+              f" vs the plain step's {plain_losses}: worst relative "
+              f"difference {rel:.3g} > {LM_PP_LOSS_RTOL}")
+        if "gpipe" in results:
+            g = results["gpipe"]["losses"]
+            rel_g = max(abs(a - b) / abs(b) for a, b in zip(losses, g))
+            check(rel_g <= LM_PP_LOSS_RTOL, f"phase 12 {schedule} losses "
+                  f"{losses} vs gpipe's {g}: {rel_g:.3g} > "
+                  f"{LM_PP_LOSS_RTOL}")
+        worst = ("", 0.0)
+        for name, du in du_plain.items():
+            p, local = _stage_of(name, cfg.n_layers, n_stages, v)
+            du_pp = out[p][2][local] - init[name]
+            err = ((du_pp - du).norm() / du.norm().clamp_min(1e-30)).item()
+            if err > worst[1]:
+                worst = (name, err)
+        check(worst[1] <= LM_PP_UPDATE_TOL, f"phase 12 {schedule}: update "
+              f"of {worst[0]} differs from the plain step's by "
+              f"{worst[1]:.3g} > {LM_PP_UPDATE_TOL}")
+        base_gap = max((out[0][2][k] - out[1][2][k]).abs().max().item()
+                       for k in ("embed", "pos", "ln_f_scale"))
+        reckoned = _pipeline_peak_reckoning(cfg, lm["batch_size"],
+                                            microbatches, n_stages, schedule)
+        results[schedule] = {"losses": losses, "ms": ms, "peak": pk,
+                             "reckoned_peak": reckoned,
+                             "worst_update": worst, "loss_rel": rel}
+        print(f"phase 12 (c) {schedule} (P {n_stages} virtual ranks, M "
+              f"{microbatches}, {cfg.n_layers // (n_stages * v)} layer(s) a "
+              f"chunk, {v} chunk(s) a rank): losses {losses} (worst "
+              f"relative difference from the plain step's {rel:.3g}, "
+              f"tolerance {LM_PP_LOSS_RTOL}); worst leaf update "
+              f"{worst[0]} {worst[1]:.3g} (tolerance {LM_PP_UPDATE_TOL}); "
+              f"base leaves across pipe ranks max abs {base_gap:.3g}; ms "
+              f"per step {ms} (plain: {plain_ms}); peak {pk} bytes "
+              f"(reckoned {reckoned}; plain {plain_peak}) on {smi}",
+              flush=True)
+        del out
+    reset()
+    return results
+
+
+def _pipeline_step_worker(rank, size, addr, backend, shape, out_dir):
+    import os
+
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.optim import SGD
+    from horovod_tpu_torch.topology import build_mesh
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    hvd.init(device=None if backend == "nccl" else "cpu")
+    try:
+        mesh = build_mesh(axes=("data", "pipe"), shape=shape)
+        cfg = tfm.TransformerConfig(**PP_STEP_LM, dtype=torch.bfloat16)
+        tree = _small_lm_tree(cfg, 11)
+        ttree = {k: (torch.from_numpy(np.asarray(x, np.float32))
+                     if k != "layers" else
+                     [{a: torch.from_numpy(np.asarray(w, np.float32))
+                       for a, w in layer.items()} for layer in x])
+                 for k, x in tree.items()}
+        t = cfg.max_seq
+        toks = np.random.default_rng(12).integers(
+            0, cfg.vocab_size, (PP_STEP_BATCH * shape[0], t + 1))
+        d, p = mesh.axis_index("data"), mesh.axis_index("pipe")
+        rows = slice(d * PP_STEP_BATCH, (d + 1) * PP_STEP_BATCH)
+        tokens = torch.from_numpy(toks[rows, :-1].copy()).to(mesh.device)
+        labels = torch.from_numpy(toks[rows, 1:].copy()).to(mesh.device)
+        out = {"init": {}}
+        for schedule in tfm.PIPELINE_SCHEDULES:
+            v = PP_STEP_VIRTUAL if schedule.startswith("interleaved") else 1
+            split = tfm.split_pipeline_params(ttree, shape[1], v)
+            model = tfm.PipelineLM(cfg, shape[1], p, v, device=mesh.device)
+            model.load_state_dict(convert.lm_pipeline_to_rank(split, p, v))
+            opt = SGD([x for _, x in
+                       convert.lm_pipeline_ordered_parameters(model)],
+                      0.1, momentum=0.9)
+            step = tfm.make_train_step_pipelined(
+                model, opt, mesh, "data", "pipe",
+                n_microbatches=PP_STEP_MICROBATCHES, schedule=schedule,
+                virtual=v)
+            losses = [float(step(tokens, labels)) for _ in range(2)]
+            out[schedule] = {"losses": losses,
+                             "params": convert.lm_rank_to_pipeline(
+                                 model.state_dict(), mesh.axis("pipe"), v)}
+            out["init"][schedule] = {
+                "base": {k: np.asarray(x) for k, x in tree.items()
+                         if k != "layers"},
+                "stacked": {k: x.numpy() for k, x in
+                            split["stacked"].items()}}
+        torch.save(out, f"{out_dir}/pp_{backend}{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def run_pipeline_lm_step(backend: str, shape, out_dir: str) -> list:
+    """Two DP x PP steps of every schedule of a small bf16 pipelined LM on
+    a (data, pipe) mesh of ``shape`` over ``backend`` (NCCL: one card a
+    rank; gloo: the CPU); each rank's losses and gathered parameters."""
+    import math
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    size = math.prod(shape)
+    mp.start_processes(_pipeline_step_worker,
+                       args=(size, addr, backend, tuple(shape), out_dir),
+                       nprocs=size, start_method="spawn")
+    return [torch.load(f"{out_dir}/pp_{backend}{r}.pt", weights_only=False)
+            for r in range(size)]
+
+
+def compare_pipeline_lm_step(nccl: list, gloo: list) -> dict:
+    """Per schedule, the worst loss difference (relative) and the worst
+    leaf's update difference ``||du_nccl - du_gloo|| / ||du_gloo||`` over
+    every rank, checked against SP_STEP_LOSS_RTOL and
+    SP_STEP_UPDATE_TOL."""
+    import numpy as np
+
+    out = {}
+    for schedule in nccl[0]:
+        if schedule == "init":
+            continue
+        worst_loss, worst_update = 0.0, ("", 0.0)
+        for a, b in zip(nccl, gloo):
+            for x, y in zip(a[schedule]["losses"], b[schedule]["losses"]):
+                worst_loss = max(worst_loss, abs(x - y) / abs(y))
+            init = a["init"][schedule]
+            for group in ("base", "stacked"):
+                for name, pa in a[schedule]["params"][group].items():
+                    w0 = np.asarray(init[group][name], np.float32)
+                    ua = pa - w0
+                    ub = b[schedule]["params"][group][name] - w0
+                    err = float(np.linalg.norm(ua - ub) /
+                                max(np.linalg.norm(ub), 1e-30))
+                    if err > worst_update[1]:
+                        worst_update = (f"{group}.{name}", err)
+        check(worst_loss <= SP_STEP_LOSS_RTOL, f"pipelined LM step "
+              f"{schedule} losses nccl vs gloo: {worst_loss:.3g} > "
+              f"{SP_STEP_LOSS_RTOL}")
+        check(worst_update[1] <= SP_STEP_UPDATE_TOL, f"pipelined LM step "
+              f"{schedule} updates nccl vs gloo: {worst_update} > "
+              f"{SP_STEP_UPDATE_TOL}")
+        out[schedule] = {"loss_rel": worst_loss,
+                         "update_leaf": worst_update[0],
+                         "update_rel": worst_update[1]}
+    return out
+
+
+def phase_pipeline_processes(smi: str) -> None:
+    """Phase 12 (d): the pipelined step across NCCL processes, where the
+    host has the cards for it."""
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 12 (d) did not run: {n} CUDA device here, and the "
+              f"dp x pp step across NCCL processes needs one card a rank "
+              f"(2 for a 1x2 (data, pipe) mesh, 4 for 2x2; NCCL refuses "
+              f"two ranks on one card)", flush=True)
+        return
+    shape = (2, 2) if n >= 4 else (1, 2)
+    with tempfile.TemporaryDirectory() as out:
+        nccl = run_pipeline_lm_step("nccl", shape, out)
+        gloo = run_pipeline_lm_step("gloo", shape, out)
+    res = compare_pipeline_lm_step(nccl, gloo)
+    print(f"phase 12 (d): two dp x pp steps of every schedule of a small "
+          f"bf16 pipelined LM on a {shape} (data, pipe) mesh over NCCL ({n} "
+          f"cards: {smi}) against gloo on the CPU: " + json.dumps(res),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1489,10 +2026,16 @@ def main() -> int:
     ring = phase_sequence_parallel(smi)
     lm_sp = phase_lm_parallel(smi, lm_summary)
     phase_parallel_processes(smi)
-    for row, *count in zip(flash_rows, counts.values(), ring, lm_sp):
+    decode = phase_decode(smi)
+    remat = phase_remat(smi, lm_summary)
+    phase_pipeline(smi)
+    phase_pipeline_processes(smi)
+    check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
+    for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat):
         check(all(count), f"{row['name']} did not launch on every path: "
-              f"phase 7, 11 (a), 11 (b) {count}")
+              f"phase 7, 11 (a), 11 (b), 12 (b) {count}")
         row["launches"] = sum(count)
+    flash_rows[0]["launches"] += decode[0]
     hvd.shutdown()
     print(smi, flush=True)
     print(json.dumps({"kernels": [stem_row] + flash_rows}), flush=True)

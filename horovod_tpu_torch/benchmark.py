@@ -14,7 +14,8 @@ the host clock.
 
 The transformer LM's harness is the counterpart of ``lm_train_flops``
 (``:428``) and ``run_lm_benchmark`` (``:443``), with the same protocol in
-tokens per second.  ``python -m horovod_tpu_torch.benchmark [--model lm]``
+tokens per second; ``run_decode_benchmark`` (``:595``) times greedy
+KV-cache decoding.  ``python -m horovod_tpu_torch.benchmark [--model lm]``
 prints a device-time breakdown of either step.
 """
 
@@ -35,7 +36,7 @@ from horovod_tpu_torch.models.convert import (flax_ordered_parameters,
                                               lm_ordered_parameters)
 from horovod_tpu_torch.models.resnet import space_to_depth
 from horovod_tpu_torch.models.transformer import (TransformerConfig,
-                                                  TransformerLM)
+                                                  TransformerLM, generate)
 from horovod_tpu_torch.models.transformer import (
     make_train_step as make_lm_train_step)
 from horovod_tpu_torch.ops.fusion import fused_pytree_mean
@@ -472,6 +473,85 @@ def run_lm_benchmark(d_model: int = 2048, n_layers: int = 8,
     return result
 
 
+class DecodeBenchState(NamedTuple):
+    cfg: TransformerConfig
+    params: dict            # the model's tree, f32 leaves
+    prompt: torch.Tensor    # int64 [B, prompt_len]
+
+
+def make_decode_bench_state(d_model: int = 2048, n_layers: int = 8,
+                            n_heads: int = 16, vocab_size: int = 32768,
+                            batch_size: int = 8, prompt_len: int = 16,
+                            total_len: int = 512, device=None,
+                            seed: int = 0) -> DecodeBenchState:
+    """The decode benchmark's state recipe (reference
+    ``run_decode_benchmark``): bf16 compute on the GPU and f32 on the
+    CPU, ``d_ff = 4 * d_model``, a cache of ``total_len`` positions, f32
+    parameters from ``torch.Generator(device).manual_seed(seed)`` and a
+    numpy ``default_rng(0)`` prompt ``[B, prompt_len]``."""
+    if prompt_len >= total_len:
+        raise ValueError(f"prompt_len ({prompt_len}) must be < "
+                         f"total_len ({total_len}) to decode anything")
+    dev = basics.resolve_device(device)
+    cfg = TransformerConfig(
+        vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
+        n_layers=n_layers, d_ff=4 * d_model, max_seq=total_len,
+        dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32)
+    model = TransformerLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, vocab_size, (batch_size, prompt_len))).to(dev)
+    return DecodeBenchState(cfg, model.tree(), prompt)
+
+
+def run_decode_benchmark(d_model: int = 2048, n_layers: int = 8,
+                         n_heads: int = 16, vocab_size: int = 32768,
+                         batch_size: int = 8, prompt_len: int = 16,
+                         total_len: int = 512, num_iters: int = 3,
+                         device=None, seed: int = 0,
+                         verbose: bool = True) -> dict:
+    """Greedy-decode (KV-cache) throughput (reference ``:595``): new
+    tokens/s and ms per decode step of :func:`~horovod_tpu_torch.models.
+    transformer.generate` on :func:`make_decode_bench_state`'s model and
+    prompt.  One warmup call, then ``num_iters`` timed calls (CUDA events
+    on the GPU); ``decode_tok_sec`` counts the ``B * (total_len -
+    prompt_len)`` new tokens, ``ms_per_step`` divides a call by its
+    ``total_len - 1`` decode steps (the prompt's positions are stepped
+    too)."""
+    st = make_decode_bench_state(d_model, n_layers, n_heads, vocab_size,
+                                 batch_size, prompt_len, total_len, device,
+                                 seed)
+    cfg, params, prompt = st.cfg, st.params, st.prompt
+    dev = prompt.device
+    on_gpu = dev.type == "cuda"
+    generate(params, prompt, total_len, cfg)
+    if on_gpu:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    rounds = _Rounds(dev)
+    rounds.mark()
+    for _ in range(num_iters):
+        generate(params, prompt, total_len, cfg)
+        rounds.mark()
+    dt = float(np.mean(rounds.seconds()))
+    res = {
+        "d_model": d_model, "n_layers": n_layers,
+        "batch_size": batch_size, "total_len": total_len,
+        "decode_tok_sec": batch_size * (total_len - prompt_len) / dt,
+        "ms_per_step": dt / (total_len - 1) * 1e3,
+        "platform": "gpu" if on_gpu else "cpu",
+        "device": torch.cuda.get_device_name(dev) if on_gpu else "cpu",
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                 if on_gpu else None),
+    }
+    if verbose:
+        print(f"decode d{d_model} L{n_layers} B{batch_size}: "
+              f"{res['decode_tok_sec']:,.0f} tok/s, "
+              f"{res['ms_per_step']:.2f} ms/step", flush=True)
+    return res
+
+
 def _kernel_category(name: str) -> str:
     n = name.lower()
     if "fused_stem" in n:
@@ -583,16 +663,40 @@ def run_lm_profile(batch_size: int = 4, steps: int = 5, device=None,
     return out
 
 
+def run_decode_profile(batch_size: int = 8) -> dict:
+    """Trace one ``generate`` call of :func:`run_decode_benchmark` at its
+    defaults (d2048/L8/H16, vocab 32768, prompt 16, total 512, bf16;
+    :func:`make_decode_bench_state`), and give its numbers per decode
+    step too (a call steps ``total_len - 1`` times): how much of a step
+    the device is busy shows how much of it the host's launches take.
+    Needs a CUDA device."""
+    st = make_decode_bench_state(batch_size=batch_size)
+    total_len = st.cfg.max_seq
+    out = {"model": "decode", "batch_size": batch_size,
+           "prompt_len": st.prompt.shape[1], "total_len": total_len}
+    out.update(_trace_steps(
+        lambda: generate(st.params, st.prompt, total_len, st.cfg),
+        st.prompt.device, 1, 15))
+    steps = total_len - 1
+    out["per_decode_step"] = {
+        "wall_ms": out["wall_ms_per_step"] / steps,
+        "kernel_ms": out["kernel_ms_per_step"] / steps,
+        "kernels": out["kernels_per_step"] / steps}
+    return out
+
+
 if __name__ == "__main__":
     import argparse
     import json
 
     ap = argparse.ArgumentParser(
         description="Trace a few training steps on the GPU and print where "
-                    "the device time goes as JSON (run_profile, or "
-                    "run_lm_profile with --model lm).")
+                    "the device time goes as JSON (run_profile, "
+                    "run_lm_profile with --model lm, or one generate call "
+                    "with --model decode).")
     ap.add_argument("--model", default="resnet50",
-                    help="a ResNet name, or 'lm' for the transformer LM")
+                    help="a ResNet name, 'lm' for the transformer LM or "
+                         "'decode' for its greedy decode")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="per rank (default 64 for a ResNet, 4 for the LM)")
     ap.add_argument("--image-size", type=int, default=224)
@@ -601,6 +705,8 @@ if __name__ == "__main__":
     args = ap.parse_args()
     if args.model == "lm":
         res = run_lm_profile(batch_size=args.batch_size or 4)
+    elif args.model == "decode":
+        res = run_decode_profile(batch_size=args.batch_size or 8)
     else:
         res = run_profile(args.model, args.batch_size or 64,
                           image_size=args.image_size, stem=args.stem,

@@ -7,7 +7,9 @@ kernels are HWIO in flax and OIHW here, dense kernels ``[in, out]`` in
 flax and ``[out, in]`` here.  Arrays cross as numpy, so this module needs
 neither framework's other half.  The transformer LM's pytree crosses
 with ``lm_params_to_torch`` and ``lm_state_dict_to_params``, and as
-Megatron shards with ``lm_params_to_shards`` and ``lm_shards_to_params``.
+Megatron shards with ``lm_params_to_shards`` and ``lm_shards_to_params``,
+and as a pipe rank's ``PipelineLM`` with ``lm_pipeline_to_rank`` and
+``lm_rank_to_pipeline``.
 """
 
 from __future__ import annotations
@@ -181,3 +183,72 @@ def lm_shards_to_params(state_dict: Mapping[str, torch.Tensor], mesh,
             dist.all_gather(parts, t, group=group)
             full[name] = torch.cat(parts, dim)
     return lm_state_dict_to_params(full)
+
+
+# A pipe rank's ``PipelineLM`` holds the base leaves whole and its chunks'
+# layers as ``chunks.<k>.<i>.<leaf>``: row ``p·v + k`` of every leaf of the
+# reference's ``split_pipeline_params(params, P, v)["stacked"]`` (row p at
+# ``v`` 1), whose layer i is the module's layer ``(k, i)``.
+
+_BASE_LEAVES = ("embed", "ln_f_scale", "pos")
+
+
+def lm_pipeline_ordered_parameters(model: torch.nn.Module
+                                   ) -> List[Tuple[str, torch.nn.Parameter]]:
+    """``(name, parameter)`` of a ``PipelineLM`` in ``jax.tree_util``
+    flatten order of the reference's ``{"base", "stacked"}`` tree: the base
+    leaves by name, then each stacked leaf by name, its rows (the chunks)
+    and their layers in order."""
+    from horovod_tpu_torch.models.transformer import LAYER_LEAVES
+    out = [(n, getattr(model, n)) for n in _BASE_LEAVES]
+    for leaf in sorted(LAYER_LEAVES):
+        for k, chunk in enumerate(model.chunks):
+            for i, layer in enumerate(chunk):
+                out.append((f"chunks.{k}.{i}.{leaf}", getattr(layer, leaf)))
+    return out
+
+
+def _f32(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float()
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def lm_pipeline_to_rank(split: Mapping, pipe_index: int, virtual: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """``split_pipeline_params(params, P, virtual)`` of either package
+    (numpy arrays or tensors) -> pipe rank ``pipe_index``'s ``PipelineLM``
+    ``state_dict``: the base leaves whole, and rows ``[p·v, (p+1)·v)`` of
+    every stacked leaf as its chunks' layers."""
+    out = {k: _f32(v) for k, v in split["base"].items()}
+    for leaf, rows in split["stacked"].items():
+        rows = _f32(rows)
+        for k in range(virtual):
+            for i, w in enumerate(rows[pipe_index * virtual + k]):
+                out[f"chunks.{k}.{i}.{leaf}"] = w
+    return out
+
+
+def lm_rank_to_pipeline(state_dict: Mapping[str, torch.Tensor], pipe_axis,
+                        virtual: int = 1) -> Dict:
+    """The inverse of :func:`lm_pipeline_to_rank`: every pipe rank's chunks
+    gathered into the ``{"base", "stacked"}`` tree of numpy f32 arrays that
+    ``split_pipeline_params(params, P, virtual)`` gives.  Collective over
+    ``pipe_axis`` (the pipe group or a ``VirtualRank``): each of its ranks
+    calls it with its own ``state_dict``."""
+    from horovod_tpu_torch.models.transformer import LAYER_LEAVES
+    from horovod_tpu_torch.parallel.sequence import all_gather
+
+    def cpu(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    lpc = 1 + max(int(k.split(".")[2]) for k in state_dict
+                  if k.startswith("chunks."))
+    stacked = {}
+    for leaf in LAYER_LEAVES:
+        rows = torch.stack([torch.stack([state_dict[f"chunks.{k}.{i}.{leaf}"]
+                                         for i in range(lpc)])
+                            for k in range(virtual)])
+        stacked[leaf] = cpu(all_gather(rows.contiguous(), pipe_axis, 0))
+    return {"base": {k: cpu(state_dict[k]) for k in _BASE_LEAVES},
+            "stacked": stacked}

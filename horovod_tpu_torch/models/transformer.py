@@ -4,9 +4,16 @@ Counterpart of ``horovod_tpu/models/transformer.py``: ``TransformerConfig``
 (``:36``), ``init_params`` (``:50``), the shared blocks ``_rmsnorm``
 (``:101``), ``_mlp_block`` (``:111``), ``_qkv_proj`` (``:123``),
 ``_attn_out`` (``:137``), ``_logits_head`` (``:173``), the ``auto`` rule
-``_flash_profitable`` (``:148``), ``param_specs`` (``:81``), ``forward``
-(``:200``), ``xent`` (``:272``), ``loss_fn`` (``:280``) and
-``make_train_step`` (``:289``) over data x tensor x sequence parallelism.
+``_flash_profitable`` (``:148``), ``_remat_wrap`` (``:179``),
+``param_specs`` (``:81``), ``forward`` (``:200``), ``xent`` (``:272``),
+``loss_fn`` (``:280``) and ``make_train_step`` (``:289``) over data x
+tensor x sequence parallelism; the KV-cache decode ``init_kv_cache``
+(``:452``), ``decode_step`` (``:462``) and ``generate`` (``:503``); and
+the pipelined LM ``stack_layer_params`` (``:544``),
+``stack_layer_params_interleaved`` (``:561``), ``forward_pipelined``
+(``:585``), ``_embed_microbatches`` (``:619``), ``_pipe_stage_fn``
+(``:632``), ``split_pipeline_params`` (``:666``) and
+``make_train_step_pipelined`` (``:679``) over data x pipe parallelism.
 
 The model is functional, as the reference's: ``forward(params, tokens,
 cfg)`` over a parameter tree ``{"embed", "pos", "ln_f_scale", "layers":
@@ -30,24 +37,28 @@ also takes axis names and resolves them through the mesh.  Under a
 ``convert.lm_params_to_shards`` fills them); under a ``seq_axis`` the
 tokens are this rank's contiguous chunk of the sequence.
 
-Not ported yet: ``remat``, the KV-cache decode and ``generate``, and the
-pipelined forward.  ``remat`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+Not ported yet: the ZeRO-1 update (``shard_optimizer=True``) and wire
+compression of ``make_train_step``, which raise ``NotImplementedError``
+naming their ROADMAP item (Queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from horovod_tpu_torch import config, resilience
 from horovod_tpu_torch.ops.flash_attention import flash_attention
 from horovod_tpu_torch.ops.fusion import fused_pytree_mean
+from horovod_tpu_torch.parallel import pipeline as pp
 from horovod_tpu_torch.parallel import sequence as seq_mod
 from horovod_tpu_torch.parallel import tensor as tp
 from horovod_tpu_torch.topology import Mesh
@@ -81,21 +92,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_route(seq_axis, attention: str, remat: str) -> None:
-    """Raise for a route the reference refuses and for what the port does
-    not run.  Without a sequence axis every route name runs, as in the
-    reference (``:200-260``): ``ring``, ``ulysses`` and any other name
-    compute local attention, ``ring_flash`` the flash kernels.  Under
-    one, the single-device routes (``flash``, ``local``, any other name)
-    raise: the reference never substitutes another algorithm."""
+    """Raise for a route the reference refuses.  Without a sequence axis
+    every route name runs, as in the reference (``:200-260``): ``ring``,
+    ``ulysses`` and any other name compute local attention, ``ring_flash``
+    the flash kernels.  Under one, the single-device routes (``flash``,
+    ``local``, any other name) raise: the reference never substitutes
+    another algorithm."""
     if seq_axis is not None and attention not in SEQUENCE_ROUTES:
         raise ValueError(f"attention={attention!r} is not available with a "
                          f"sequence axis; choose 'ring', 'ring_flash' or "
                          f"'ulysses'")
-    if remat != "none":
-        if remat not in ("dots", "full"):
-            raise ValueError(f"remat={remat!r}: expected 'none', 'dots' or "
-                             f"'full'")
-        raise _not_ported(f"remat={remat!r}", "item 6")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={remat!r}: expected 'none', 'dots' or "
+                         f"'full'")
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -164,9 +173,57 @@ def _flash_profitable(t: int) -> bool:
     return t >= min_t
 
 
-def _logits_head(x, params, dt):
+def _logits_head(x, params, dt, embed=None):
+    """Final rmsnorm + tied-embedding projection (shared by the forward,
+    the decode and the pipelined step); ``embed`` replaces
+    ``params["embed"]`` (``generate`` passes it cast once)."""
     x = _rmsnorm(x, params["ln_f_scale"])
-    return (x @ params["embed"].t().to(dt)).float()
+    w = params["embed"] if embed is None else embed
+    return (x @ w.t().to(dt)).float()
+
+
+# The matmuls whose outputs ``remat="dots"`` saves (``checkpoint_dots``
+# saves every dot_general): ``x @ w`` dispatches to mm (or addmm), the
+# batched einsums of attention to bmm.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(body, remat: str):
+    """Wrap a per-layer block in activation checkpointing per ``remat``
+    (reference ``:179``):
+
+    * ``"none"``: save every intermediate.
+    * ``"dots"``: save matmul outputs only and recompute the elementwise
+      work in the backward (``checkpoint_dots``): a selective checkpoint
+      whose policy saves the outputs of ``aten.mm``/``addmm``/``bmm``.
+    * ``"full"``: save only the layer's input and recompute the whole
+      block in the backward.
+
+    Both recompute the block's forward once in the backward, a flash
+    autograd Function's included: its kernel is no aten op, so under
+    either policy a layer launches the forward kernel twice a step and
+    the dQ and dK/dV kernels once each.  Recomputation repeats the same
+    operations on the same inputs, so no value changes.
+    """
+    if remat == "none":
+        return body
+    if remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+        return functools.partial(checkpoint, body, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=context_fn)
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False,
+                                 preserve_rng_state=False)
+    raise ValueError(f"remat={remat!r}: expected 'none', 'dots' or 'full'")
 
 
 # Megatron sharding of each layer leaf: the dim split over the model axis
@@ -230,19 +287,25 @@ def forward(params: Mapping, tokens: torch.Tensor, cfg: TransformerConfig,
     :func:`_flash_profitable`, else ``ring``).  Under a ``model_axis``
     (the model group) the weights are this rank's shards
     (:func:`param_specs`).  ``segment_ids`` (``[B, T_local]`` integer)
-    packs sequences on every route.
+    packs sequences on every route.  ``remat`` is the per-layer
+    rematerialization policy (:func:`_remat_wrap`).
     """
     _check_route(seq_axis, attention, remat)
     dt = cfg.dtype
     t = tokens.shape[1]
     off = seq_mod.axis_index(seq_axis) * t if seq_axis is not None else 0
     x = (params["embed"][tokens] + params["pos"][off:off + t][None]).to(dt)
-    for layer in params["layers"]:
+
+    def layer_block(x, layer):
         q, k, v, dh = _qkv_proj(x, layer, dt, cfg.head_dim, model_axis)
         o = _attention(q, k, v, seq_axis, attention, segment_ids)
         x = _attn_out(o.reshape(q.shape[0], t, dh), x, layer, dt,
                       model_axis)
-        x = _mlp_block(x, layer, dt, model_axis)
+        return _mlp_block(x, layer, dt, model_axis)
+
+    layer_block = _remat_wrap(layer_block, remat)
+    for layer in params["layers"]:
+        x = layer_block(x, layer)
     return _logits_head(x, params, dt)
 
 
@@ -259,6 +322,28 @@ def loss_fn(params, tokens, labels, cfg: TransformerConfig,
     """Mean next-token cross-entropy over this rank's shard."""
     return xent(forward(params, tokens, cfg, model_axis, seq_axis,
                         attention, segment_ids, remat), labels)
+
+
+@torch.no_grad()
+def _reset_lm(module, layers, generator=None) -> None:
+    """The reference's ``init_params`` scales: normal times ``fan_in **
+    -0.5`` for the dense weights (the whole weight's, also for a shard),
+    0.02 for ``embed`` and ``pos``, RMSNorm scales one; drawn layer by
+    layer, then ``embed`` and ``pos``."""
+    def dense(w, scale):
+        w.normal_(generator=generator)
+        w.mul_(scale)
+
+    d = module.cfg.d_model
+    for layer in layers:
+        layer.ln1_scale.fill_(1.0)
+        layer.ln2_scale.fill_(1.0)
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            fan_in = module.cfg.d_ff if name == "w2" else d
+            dense(getattr(layer, name), fan_in ** -0.5)
+    dense(module.embed, 0.02)
+    dense(module.pos, 0.02)
+    module.ln_f_scale.fill_(1.0)
 
 
 class _Layer(nn.Module):
@@ -308,23 +393,8 @@ class TransformerLM(nn.Module):
                                         for _ in range(cfg.n_layers))
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator=None) -> None:
-        def dense(w, scale):
-            w.normal_(generator=generator)
-            w.mul_(scale)
-
-        d = self.cfg.d_model
-        for layer in self.layers:
-            layer.ln1_scale.fill_(1.0)
-            layer.ln2_scale.fill_(1.0)
-            for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
-                # fan_in of the whole weight, also for a row shard.
-                fan_in = self.cfg.d_ff if name == "w2" else d
-                dense(getattr(layer, name), fan_in ** -0.5)
-        dense(self.embed, 0.02)
-        dense(self.pos, 0.02)
-        self.ln_f_scale.fill_(1.0)
+        _reset_lm(self, self.layers, generator)
 
     def tree(self) -> Dict:
         """The parameter tree :func:`forward` takes (the live parameters,
@@ -386,8 +456,9 @@ def make_train_step(model: TransformerLM, optimizer, mesh: Mesh,
     :class:`horovod_tpu_torch.optim.SGD` over the same order) and the
     step guard, which agrees over every axis, all in place.  The model
     axis needs no mean: Megatron's boundaries already settle it.
-    ``steps_per_call`` steps run per call on the same batch.  The
-    step-guard policy is read here, once.
+    ``remat`` is the per-layer rematerialization policy
+    (:func:`_remat_wrap`).  ``steps_per_call`` steps run per call on the
+    same batch.  The step-guard policy is read here, once.
     """
     from horovod_tpu_torch.models.convert import lm_ordered_parameters
 
@@ -407,7 +478,7 @@ def make_train_step(model: TransformerLM, optimizer, mesh: Mesh,
 
     def one_step(tokens, labels, segment_ids=None):
         loss = loss_fn(model.tree(), tokens, labels, cfg, model_g, seq_g,
-                       attention, segment_ids)
+                       attention, segment_ids, remat)
         grads = torch.autograd.grad(loss, params)
 
         def do_update():
@@ -425,6 +496,401 @@ def make_train_step(model: TransformerLM, optimizer, mesh: Mesh,
         loss = None
         for _ in range(steps_per_call):
             loss = one_step(tokens, labels, *segment_ids)
+        return loss
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Inference: KV-cache decode and greedy generation
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                  model_axis_size: int = 1, device=None) -> List[Dict]:
+    """Per-layer K/V caches of shape ``[B, max_len, H_local, head_dim]`` in
+    ``cfg.dtype`` (``H_local = n_heads / model_axis_size`` under tensor
+    parallelism), zeros on ``device`` (default ``cuda:<local_rank>``; pass
+    ``"cpu"`` for the CPU)."""
+    from horovod_tpu_torch.basics import resolve_device
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.n_heads // model_axis_size, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+def _clamped(i: int, n: int) -> int:
+    """The start ``lax.dynamic_slice`` and ``dynamic_update_slice`` use for
+    a one-row slice at ``i`` of ``n`` rows."""
+    return min(max(i, 0), n - 1)
+
+
+def _decode_step(params, token, cache, pos: int, cfg: TransformerConfig,
+                 model_axis, embed):
+    dt, hd = cfg.dtype, cfg.head_dim
+    x = (params["embed"][token] +
+         params["pos"][_clamped(pos, params["pos"].shape[0])]).to(dt)
+    for layer, c in zip(params["layers"], cache):
+        q, k, v, dh = _qkv_proj(x, layer, dt, hd, model_axis)
+        max_len = c["k"].shape[1]
+        row = _clamped(pos, max_len)
+        # Defensive cast: the cache keeps its dtype whatever a projection
+        # upstream returns (reference :482-485).
+        c["k"][:, row] = k.to(c["k"].dtype)
+        c["v"][:, row] = v.to(c["v"].dtype)
+        # Scores, softmax and the value product in f32 over the full
+        # static cache, masked past ``pos`` (reference :491-497).
+        s = torch.einsum("bhd,bthd->bht", q.float(),
+                         c["k"].float()) * (hd ** -0.5)
+        visible = torch.arange(max_len, device=s.device) <= pos
+        s = s.masked_fill(~visible, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bht,bthd->bhd", p, c["v"].float()).to(dt)
+        x = _attn_out(o.reshape(q.shape[0], dh), x, layer, dt, model_axis)
+        x = _mlp_block(x, layer, dt, model_axis)
+    return _logits_head(x, params, dt, embed), cache
+
+
+def decode_step(params, token, cache, pos, cfg: TransformerConfig,
+                model_axis=None):
+    """One-token decode (reference ``:462``).  ``token``: ``[B]`` integer;
+    ``pos``: the position (an int or a 0-dim integer tensor).
+
+    Returns ``(logits [B, vocab] f32, cache)``.  Attention runs over the
+    full static cache length with a position mask, in f32, so a step
+    costs O(max_len).  The new K/V row is written into ``cache`` in
+    place, and the cache returned is ``cache`` itself (the reference
+    returns a new one): copy it first if the old one is still needed.  A
+    position past the positional table or the cache takes its last row,
+    as ``lax.dynamic_slice`` clamps.  Under ``model_axis`` (the model
+    group) the weights are this rank's Megatron shards and the cache
+    holds this rank's heads.
+    """
+    return _decode_step(params, token, cache, int(pos), cfg, model_axis,
+                        None)
+
+
+def _cast_once(params, dt) -> Dict:
+    """``params`` with every leaf that the decode only reads through a
+    cast to ``dt`` cast once: the layers and ``ln_f_scale``.  ``embed``
+    and ``pos`` stay f32 for the embedding sum."""
+    return dict(params, ln_f_scale=params["ln_f_scale"].to(dt),
+                layers=[{k: w.to(dt) for k, w in layer.items()}
+                        for layer in params["layers"]])
+
+
+def generate(params, prompt, total_len: int, cfg: TransformerConfig,
+             model_axis=None) -> torch.Tensor:
+    """Greedy decode to ``total_len`` tokens, teacher-forcing ``prompt``
+    (reference ``:503``).
+
+    ``prompt``: ``[B, P]`` integer (P >= 1).  Returns ``[B, total_len]`` in
+    the prompt's dtype, whose first P entries are the prompt: its first
+    token, then ``total_len - 1`` decode steps, each step's token the
+    prompt's next one while ``pos + 1 < P`` and the argmax after.  The
+    reference scans the steps in one compiled program, where XLA casts
+    the f32 weights to ``cfg.dtype`` once; this loop casts them once per
+    call too (the same values a cast per step gives), and runs without
+    autograd.
+    """
+    b, p_len = prompt.shape
+    if total_len > cfg.max_seq:
+        raise ValueError(
+            f"total_len={total_len} exceeds the positional table "
+            f"(max_seq={cfg.max_seq})")
+    if p_len > total_len:
+        raise ValueError(
+            f"prompt length {p_len} exceeds total_len={total_len}; the "
+            f"output must contain the whole prompt")
+    n_model = (seq_mod.axis_size(model_axis) if model_axis is not None
+               else 1)
+    cache = init_kv_cache(cfg, b, total_len, n_model, device=prompt.device)
+    toks = [prompt[:, :1]]
+    with torch.no_grad():
+        cast = _cast_once(params, cfg.dtype)
+        embed = params["embed"].to(cfg.dtype)
+        token = prompt[:, 0]
+        for pos in range(total_len - 1):
+            logits, cache = _decode_step(cast, token, cache, pos, cfg,
+                                         model_axis, embed)
+            if pos + 1 < p_len:
+                token = prompt[:, min(pos + 1, p_len - 1)]
+            else:
+                token = torch.argmax(logits, dim=-1).to(prompt.dtype)
+            toks.append(token[:, None])
+    return torch.cat(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: the layer stack over a pipe axis
+# ---------------------------------------------------------------------------
+
+PIPELINE_SCHEDULES = pp.PIPELINE_SCHEDULES
+
+
+def stack_layer_params(params, n_stages: int) -> Dict:
+    """The layer list re-laid for pipelining (reference ``:544``): leaves
+    ``[n_stages, layers_per_stage, ...]``; pipe rank p holds row p."""
+    layers = params["layers"]
+    if len(layers) % n_stages:
+        raise ValueError(f"{len(layers)} layers not divisible into "
+                         f"{n_stages} stages")
+    lps = len(layers) // n_stages
+    return pp.stack_stage_params(
+        [pp.stack_stage_params(layers[s * lps:(s + 1) * lps])
+         for s in range(n_stages)])
+
+
+def stack_layer_params_interleaved(params, n_devices: int,
+                                   virtual: int) -> Dict:
+    """Round-robin (Megatron-interleave) re-layout (reference ``:561``):
+    leaves ``[n_devices·virtual, layers_per_chunk, ...]`` ordered so that
+    pipe rank p's rows ``[p·v, (p+1)·v)`` hold global chunks ``k·P + p``
+    (global row ``j = p·v + k`` holds chunk ``(j % v)·P + j // v``)."""
+    layers = params["layers"]
+    n_chunks = n_devices * virtual
+    if len(layers) % n_chunks:
+        raise ValueError(f"{len(layers)} layers not divisible into "
+                         f"{n_chunks} virtual chunks")
+    lpc = len(layers) // n_chunks
+
+    def chunk(c):
+        return pp.stack_stage_params(layers[c * lpc:(c + 1) * lpc])
+
+    order = [(j % virtual) * n_devices + j // virtual
+             for j in range(n_chunks)]
+    return pp.stack_stage_params([chunk(c) for c in order])
+
+
+def split_pipeline_params(params, n_stages: int, virtual: int = 1) -> Dict:
+    """The parameter tree re-laid for the pipelined step (reference
+    ``:666``): ``{"base": embed/pos/ln_f_scale, "stacked": ...}``, the
+    stacked leaves from :func:`stack_layer_params`, or from
+    :func:`stack_layer_params_interleaved` for ``virtual > 1``
+    (``n_stages`` is then the pipe axis size).
+    :func:`horovod_tpu_torch.models.convert.lm_pipeline_to_rank` cuts a
+    pipe rank's :class:`PipelineLM` out of it."""
+    base = {k: v for k, v in params.items() if k != "layers"}
+    if virtual > 1:
+        return {"base": base,
+                "stacked": stack_layer_params_interleaved(params, n_stages,
+                                                          virtual)}
+    return {"base": base, "stacked": stack_layer_params(params, n_stages)}
+
+
+def _embed_microbatches(base, tokens, cfg: TransformerConfig,
+                        n_microbatches: int) -> torch.Tensor:
+    """The embedding prologue of every schedule: tokens ``[B, T]`` ->
+    activations ``[M, B/M, T, D]`` in the compute dtype."""
+    b, t = tokens.shape
+    if b % n_microbatches:
+        raise ValueError(f"batch {b} not divisible by "
+                         f"{n_microbatches} microbatches")
+    x = (base["embed"][tokens] + base["pos"][None, :t]).to(cfg.dtype)
+    return x.reshape(n_microbatches, b // n_microbatches, t, cfg.d_model)
+
+
+def _pipe_stage_fn(cfg: TransformerConfig):
+    """``stage_fn`` of the pipeline schedules: this rank's stage (leaves
+    ``[1, lps, ...]``) applied layer by layer, local causal attention,
+    the activation cast to the compute dtype after each layer."""
+    dt, hd = cfg.dtype, cfg.head_dim
+
+    def one_layer(x, lp):
+        q, k, v, dh = _qkv_proj(x, lp, dt, hd)
+        bb, tt = q.shape[:2]
+        o = seq_mod.local_attention(q, k, v, causal=True)
+        x = _attn_out(o.reshape(bb, tt, dh), x, lp, dt)
+        x = _mlp_block(x, lp, dt)
+        # Pin the carried activation to the model dtype, so the
+        # microbatch buffers keep one type (reference :643-646).
+        return x.to(dt)
+
+    def stage_fn(stage_params, act):
+        # A local stage dim > 1 means n_stages exceeded the pipe axis
+        # size: running only slice 0 would drop layers, so refuse.
+        lead = {l.shape[0] for l in stage_params.values()}
+        if lead != {1}:
+            raise ValueError(
+                f"each device must hold exactly one stage; got local "
+                f"stage dims {sorted(lead)} — n_stages passed to "
+                f"stack_layer_params must equal the pipe axis size")
+        # unbind, not indexing: one gradient buffer per leaf, not one
+        # per layer.
+        rows = {name: l[0].unbind(0) for name, l in stage_params.items()}
+        for i in range(len(next(iter(rows.values())))):
+            act = one_layer(act, {name: r[i] for name, r in rows.items()})
+        return act
+
+    return stage_fn
+
+
+def forward_pipelined(params, stacked_layers, tokens,
+                      cfg: TransformerConfig, pipe_axis=None,
+                      n_microbatches: int = 2,
+                      virtual: int = 1) -> torch.Tensor:
+    """Forward pass with the layer stack pipelined over ``pipe_axis``
+    (reference ``:585``): the pipe group (None: the default group) or a
+    ``VirtualRank``.
+
+    ``params`` supplies ``embed``/``pos``/``ln_f_scale`` (replicated over
+    the pipe axis); ``stacked_layers`` is this rank's share of
+    :func:`stack_layer_params` (leaves ``[1, lps, ...]``), or of
+    :func:`stack_layer_params_interleaved` for ``virtual > 1`` (leaves
+    ``[v, lpc, ...]``).  The batch is split into ``n_microbatches`` and
+    flows through :func:`~horovod_tpu_torch.parallel.pipeline.
+    pipeline_apply` (or its interleaved form); the embedding and the
+    logits head run on every rank.  Attention is local causal.
+    Differentiable by an outer backward with a process group, or with
+    virtual ranks on the CPU: the gradient reaches every stage's weights
+    and, through stage 0's input, the embedding.
+    """
+    b, t = tokens.shape
+    mb = _embed_microbatches(params, tokens, cfg, n_microbatches)
+    if virtual > 1:
+        y = pp.pipeline_apply_interleaved(_pipe_stage_fn(cfg),
+                                          stacked_layers, mb, pipe_axis,
+                                          virtual)
+    else:
+        y = pp.pipeline_apply(_pipe_stage_fn(cfg), stacked_layers, mb,
+                              pipe_axis)
+    return _logits_head(y.reshape(b, t, cfg.d_model), params, cfg.dtype)
+
+
+class PipelineLM(nn.Module):
+    """Pipe rank ``pipe_index``'s share of the LM, for
+    :func:`make_train_step_pipelined`.
+
+    It holds the base parameters (``embed``, ``pos``, ``ln_f_scale``),
+    replicated over the pipe axis, and its chunks: ``chunks[k]`` is an
+    ``nn.ModuleList`` of the layers of global chunk ``k·P + p`` (or of
+    stage p when ``virtual`` is 1), named ``chunks.<k>.<i>.<leaf>``.
+    :meth:`stacked` gives them in the reference's stacked layout.
+    Parameters are f32, initialised from ``generator`` as
+    :class:`TransformerLM` initialises its layers, on ``device`` (default
+    ``cuda:<local_rank>``).  Weights cross with
+    :func:`horovod_tpu_torch.models.convert.lm_pipeline_to_rank` and
+    :func:`~horovod_tpu_torch.models.convert.lm_rank_to_pipeline`.
+    """
+
+    def __init__(self, cfg: TransformerConfig, n_stages: int,
+                 pipe_index: int, virtual: int = 1,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        from horovod_tpu_torch.basics import resolve_device
+        dev = resolve_device(device)
+        n_chunks = n_stages * virtual
+        if cfg.n_layers % n_chunks:
+            raise ValueError(f"{cfg.n_layers} layers not divisible over "
+                             f"{n_chunks} pipe chunks")
+        self.cfg, self.n_stages = cfg, n_stages
+        self.pipe_index, self.virtual = pipe_index, virtual
+        d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+        lpc = cfg.n_layers // n_chunks
+        with torch.device(dev):
+            self.embed = nn.Parameter(torch.empty(v, d))
+            self.pos = nn.Parameter(torch.empty(cfg.max_seq, d))
+            self.ln_f_scale = nn.Parameter(torch.empty(d))
+            self.chunks = nn.ModuleList(
+                nn.ModuleList(_Layer(d, f, 1) for _ in range(lpc))
+                for _ in range(virtual))
+        _reset_lm(self, [l for chunk in self.chunks for l in chunk],
+                  generator)
+
+    def base(self) -> Dict:
+        """``embed``, ``pos`` and ``ln_f_scale`` (the live parameters)."""
+        return {"embed": self.embed, "pos": self.pos,
+                "ln_f_scale": self.ln_f_scale}
+
+    def stacked(self) -> Dict:
+        """This rank's stacked layer leaves ``[virtual, lpc, ...]`` (a
+        differentiable stack of the live parameters)."""
+        return {name: torch.stack([torch.stack([getattr(l, name)
+                                                for l in chunk])
+                                   for chunk in self.chunks])
+                for name in LAYER_LEAVES}
+
+
+def make_train_step_pipelined(model: PipelineLM, optimizer, mesh=None,
+                              data_axis="data", pipe_axis="pipe",
+                              n_microbatches: int = 2,
+                              schedule: str = "gpipe", virtual: int = 2):
+    """One DP x PP training step (reference ``:679``).
+
+    ``model`` is this rank's :class:`PipelineLM` (pipe rank = its index
+    on the pipe axis), ``optimizer`` an
+    :class:`horovod_tpu_torch.optim.SGD` over
+    :func:`~horovod_tpu_torch.models.convert.lm_pipeline_ordered_parameters`.
+    Axes are names the ``mesh`` resolves (a ``build_mesh(axes=("data",
+    "pipe"), shape=...)`` mesh) or the axes themselves: a process group,
+    a ``VirtualRank`` for the pipe axis, None for no data axis.
+
+    ``schedule``: ``"gpipe"`` (:func:`~horovod_tpu_torch.parallel.
+    pipeline.pipeline_apply` and its reverse schedule), ``"1f1b"``
+    (:func:`~horovod_tpu_torch.parallel.pipeline.pipeline_1f1b`: O(P)
+    saved microbatches), ``"interleaved"`` (``virtual`` round-robin
+    chunks a rank; requires ``n_microbatches % P == 0``) or
+    ``"interleaved_1f1b"`` (also ``n_microbatches >= P``), through
+    :func:`~horovod_tpu_torch.parallel.pipeline.make_pipeline_loss`.
+    Every rank runs the schedule's own backward explicitly and no autograd node
+    exchanges, so virtual ranks on one card take the same path.  The
+    embedding gets its gradient from the head and, through
+    ``d_microbatches``, from stage 0's input, once each.
+
+    Returns ``step(tokens, labels) -> loss``: this data shard's rows
+    ``[B, T]``, the loss averaged over the data axis, the gradients
+    averaged over it with ``fused_pytree_mean`` (stage gradients stay
+    with their pipe rank) and ``optimizer.step``, in place.  The
+    reference's ``shardings`` places JAX arrays on a mesh and has no
+    counterpart: each rank holds its own :class:`PipelineLM`.
+    """
+    from horovod_tpu_torch.models.convert import (
+        lm_pipeline_ordered_parameters)
+
+    cfg = model.cfg
+    pipe = mesh.axis(pipe_axis) if isinstance(pipe_axis, str) else pipe_axis
+    data = mesh.axis(data_axis) if isinstance(data_axis, str) else data_axis
+    n_stages = seq_mod.axis_size(pipe)
+    v_eff = (virtual if schedule in ("interleaved", "interleaved_1f1b")
+             else 1)
+    if cfg.n_layers % (n_stages * v_eff):
+        raise ValueError(f"{cfg.n_layers} layers not divisible over "
+                         f"{n_stages * v_eff} pipe chunks")
+    stage_fn = _pipe_stage_fn(cfg)
+    dt, m = cfg.dtype, n_microbatches
+
+    def head_loss(y, tgt, base):
+        # 1F1B: one microbatch [mb, T, D]; GPipe: every microbatch
+        # [M, mb, T, D] at once, one mean over the rank's batch.
+        return xent(_logits_head(y.reshape(tgt.shape + (cfg.d_model,)),
+                                 base, dt), tgt)
+
+    loss_of = pp.make_pipeline_loss(stage_fn, head_loss, axis_name=pipe,
+                                    schedule=schedule, virtual=v_eff)
+    held = (model.n_stages, model.pipe_index, model.virtual)
+    want = (n_stages, seq_mod.axis_index(pipe), v_eff)
+    if held != want:
+        raise ValueError(f"the model holds (stages, pipe rank, virtual) = "
+                         f"{held}; this step runs {want}")
+    params = [p for _, p in lm_pipeline_ordered_parameters(model)]
+    if list(map(id, params)) != list(map(id, optimizer.params)):
+        raise ValueError("the optimizer must hold the model's parameters in "
+                         "pytree order (convert.lm_pipeline_ordered_"
+                         "parameters)")
+    average = data is not None and seq_mod.axis_size(data) > 1
+
+    def step(tokens, labels):
+        base = model.base()
+        b, t = tokens.shape
+        mb = _embed_microbatches(base, tokens, cfg, m)
+        loss = loss_of(model.stacked(), base, mb,
+                       labels.reshape(m, b // m, t))
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        if average:
+            grads = fused_pytree_mean(list(grads), data)
+            loss = resilience.mean_across(loss, data)
+        optimizer.step(grads)
         return loss
 
     return step

@@ -1,1 +1,2 @@
-"""Parallelism modes of the PyTorch port: data, sequence and tensor."""
+"""Parallelism modes of the PyTorch port: data, sequence, tensor and
+pipeline."""

@@ -18,7 +18,7 @@ receive from rank-1; backward: the reverse shift), and so is the
 all-to-all (backward: the reverse all-to-all).  ``ring_flash_attention``
 is one Function whose backward is a second ring pass, as the reference's
 ``custom_vjp``.  Every exchange with the group goes through
-:func:`_start_shift`, :func:`_all_to_all` and :func:`_all_gather`.
+:func:`_start_shift`, :func:`_all_to_all` and :func:`all_gather`.
 
 :class:`VirtualAxis` runs the ranks of an axis as threads of one process
 on one device (NCCL refuses two ranks on one card).  Its exchange swaps
@@ -220,7 +220,7 @@ def _all_to_all(x, axis, split_dim: int, concat_dim: int):
     return _AllToAll.apply(x, axis, split_dim, concat_dim)
 
 
-def _all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` (no gradient)."""
     n = axis_size(axis)
     if n == 1:
@@ -470,7 +470,7 @@ def ulysses_attention(q, k, v, axis_name=None, causal: bool = True,
     qg, kg, vg = (_all_to_all(x, axis, 2, 1) for x in (q, k, v))
     scale_ = (d ** -0.5) if scale is None else scale
     tg = qg.shape[1]
-    seg_g = (_all_gather(segment_ids, axis, 1)
+    seg_g = (all_gather(segment_ids, axis, 1)
              if segment_ids is not None else None)
     if use_flash is None:
         use_flash = (qg.device.type == "cuda" and tg % 128 == 0 and

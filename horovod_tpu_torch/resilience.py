@@ -52,7 +52,7 @@ def all_finite(loss: torch.Tensor, grads: Sequence[torch.Tensor],
     return flag[0] == 1
 
 
-def _mean_across(t: torch.Tensor, group=None) -> torch.Tensor:
+def mean_across(t: torch.Tensor, group=None) -> torch.Tensor:
     """``pmean``: the mean of ``t`` over the ranks of ``group``."""
     out = t.detach().clone().reshape(1)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
@@ -75,7 +75,7 @@ def apply_step_guard(do_update: Callable[[], None], *, loss: torch.Tensor,
     plus the loss mean, with no check at all.
     """
     policy = guard_policy() if policy is None else policy
-    mean_loss = _mean_across(loss, group)
+    mean_loss = mean_across(loss, group)
     if policy == "off":
         do_update()
         return mean_loss

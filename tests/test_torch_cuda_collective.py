@@ -390,3 +390,22 @@ def test_dp_tp_sp_lm_step_nccl_matches_gloo(tmp_path):
     nccl = chip_smoke.run_parallel_lm_step("nccl", shape, str(tmp_path))
     gloo = chip_smoke.run_parallel_lm_step("gloo", shape, str(tmp_path))
     chip_smoke.compare_parallel_lm_step(nccl, gloo)
+
+
+@pytest.mark.cuda
+def test_dp_pp_lm_step_nccl_matches_gloo(tmp_path):
+    """Two dp x pp steps of every schedule of a small bf16 pipelined LM (4
+    layers, T 512, 2 microbatches; the interleaved schedules with 2 chunks
+    a rank) on NCCL ranks, one card each: a 2x2 (data, pipe) mesh on four
+    cards, 1x2 on two or three, against the same program on gloo ranks on
+    the CPU.  The losses and each leaf's update agree within
+    ``chip_smoke.py``'s phase 11 (c) tolerances, as phase 12 (d) holds
+    them."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    shape = (2, 2) if n >= 4 else (1, 2)
+    nccl = chip_smoke.run_pipeline_lm_step("nccl", shape, str(tmp_path))
+    gloo = chip_smoke.run_pipeline_lm_step("gloo", shape, str(tmp_path))
+    chip_smoke.compare_pipeline_lm_step(nccl, gloo)

@@ -408,17 +408,154 @@ def test_converter_round_trip():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(remat="dots"), "item 6"),
-    (dict(remat="full"), "item 6"),
+    (dict(shard_optimizer=True), "item 8"),
+    (dict(compression="int8"), "item 8"),
 ])
-def test_routes_not_ported_raise(kw, match):
-    """Only remat raises; the sequence and tensor-parallel routes run
-    (their tests are at the end of this file)."""
-    _, tcfg = _cfgs()
-    model = tfm.TransformerLM(tcfg, device="cpu")
-    tokens = torch.zeros((1, T), dtype=torch.long)
+def test_routes_not_ported_raise(port_world, kw, match):
+    """Only ZeRO-1 and wire compression raise, here through the LM
+    benchmark; remat (below), the sequence and tensor-parallel routes (at
+    the end of this file), the decode and the pipelined step run."""
     with pytest.raises(NotImplementedError, match=match):
-        tfm.forward(model.tree(), tokens, tcfg, **kw)
+        benchmark.run_lm_benchmark(d_model=32, n_layers=1, n_heads=2,
+                                   vocab_size=64, seq_len=T, batch_size=1,
+                                   device="cpu", verbose=False, **kw)
+
+
+def _loss_and_grads(tcfg, params, attention, remat):
+    model = _port_model(tcfg, params)
+    tokens, labels = _tokens()
+    loss = tfm.loss_fn(model.tree(), torch.from_numpy(tokens),
+                       torch.from_numpy(labels), tcfg, attention=attention,
+                       remat=remat)
+    named = convert.lm_ordered_parameters(model)
+    return loss.detach(), dict(zip(
+        [n for n, _ in named],
+        torch.autograd.grad(loss, [p for _, p in named])))
+
+
+@pytest.mark.parametrize("attention", ["flash", "local"])
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_changes_no_value(remat, attention):
+    """The same operations on the same inputs, recomputed: the loss and
+    every gradient equal remat="none"'s bit for bit."""
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg)
+    loss0, grads0 = _loss_and_grads(tcfg, params, attention, "none")
+    loss, grads = _loss_and_grads(tcfg, params, attention, remat)
+    assert torch.equal(loss, loss0)
+    for name, g in grads.items():
+        assert torch.equal(g, grads0[name]), name
+
+
+@pytest.mark.parametrize("attention", ["flash", "local"])
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_matches_jax(remat, attention):
+    """The loss and gradients under each policy against the JAX package's
+    ``jax.checkpoint`` of the same policy (1e-5)."""
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg)
+    tokens, labels = _tokens()
+    jloss, jgrads = jax.value_and_grad(jtfm.loss_fn)(
+        _jtree(params), jnp.asarray(tokens), jnp.asarray(labels), jcfg,
+        None, None, attention, None, remat)
+    loss, grads = _loss_and_grads(tcfg, params, attention, remat)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=STEP_TOL,
+                               atol=STEP_TOL)
+    for name, want in _names(jgrads).items():
+        np.testing.assert_allclose(grads[name].numpy(), np.asarray(want),
+                                   rtol=STEP_TOL, atol=STEP_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_reaches_the_train_step(port_world, remat):
+    """make_train_step threads remat into its loss: one step under each
+    policy leaves the parameters and momentum of a step without it, bit
+    for bit."""
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg)
+    tokens, labels = (torch.from_numpy(x) for x in _tokens())
+    out = {}
+    for policy in ("none", remat):
+        model = _port_model(tcfg, params)
+        named = convert.lm_ordered_parameters(model)
+        opt = SGD([p for _, p in named], LR, momentum=0.9,
+                  accumulator_dtype=torch.bfloat16)
+        step = tfm.make_train_step(model, opt, thvd.mesh(),
+                                   attention="local", remat=policy)
+        loss = step(tokens, labels)
+        out[policy] = (loss, [p.detach().clone() for _, p in named],
+                       [t.clone() for t in opt.trace])
+    (l0, p0, t0), (l1, p1, t1) = out["none"], out[remat]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(p0 + t0, p1 + t1))
+
+
+def _count_launches_on_a_fake_card(monkeypatch):
+    """The flash wrappers as if the tensors lay on the card: each launch
+    counts as the real wrapper's does and computes with the plain
+    versions."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    plain_fwd, plain_bwd = fa._fwd_parts_plain, fa._bwd_parts_plain
+
+    def launch_fwd(q, k, v, qseg, kseg, causal, scale):
+        fa.fwd_launches.add()
+        b, _, h, _ = q.shape
+        o, m, l = plain_fwd(fa._fold(q), fa._fold(k), fa._fold(v), qseg,
+                            kseg, causal, scale)
+        return fa._unfold(o, b, h), m[:, 0], l[:, 0]
+
+    def launch_bwd(counter, pick):
+        def launch(q, k, v, o, do, m, l, qseg, kseg, causal, scale):
+            counter.add()
+            b, _, h, _ = q.shape
+            g = [fa._unfold(x, b, h) for x in plain_bwd(
+                *(fa._fold(x) for x in (q, k, v, o, do)), m, l, qseg, kseg,
+                causal, scale)]
+            return pick(g)
+        return launch
+
+    monkeypatch.setattr(fa, "_route", lambda x: "cuda")
+    monkeypatch.setattr(fa, "_launch_fwd", launch_fwd)
+    monkeypatch.setattr(fa, "_launch_dq",
+                        launch_bwd(fa.dq_launches, lambda g: g[0]))
+    monkeypatch.setattr(fa, "_launch_dkv",
+                        launch_bwd(fa.dkv_launches, lambda g: (g[1], g[2])))
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    for c in counters:
+        c.reset()
+    return counters
+
+
+@pytest.mark.parametrize("remat,fwd_per_layer", [("none", 1), ("dots", 2),
+                                                 ("full", 2)])
+def test_remat_flash_launch_plan(monkeypatch, remat, fwd_per_layer):
+    """On the card's route a forward and backward under "dots" or "full"
+    recomputes each layer's forward, the flash Function's with it (its
+    kernel is no aten op a policy could save): 2 forward launches a layer,
+    1 dQ and 1 dK/dV, against 1/1/1 without remat.  The values stay those
+    of the plain versions."""
+    counters = _count_launches_on_a_fake_card(monkeypatch)
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg)
+    loss, grads = _loss_and_grads(tcfg, params, "flash", remat)
+    n = tcfg.n_layers
+    assert [c.count for c in counters] == [fwd_per_layer * n, n, n]
+    monkeypatch.undo()
+    loss0, grads0 = _loss_and_grads(tcfg, params, "flash", "none")
+    assert torch.equal(loss, loss0)
+    assert all(torch.equal(g, grads0[k]) for k, g in grads.items())
+
+
+def test_lm_benchmark_runs_with_remat_dots(port_world):
+    """run_lm_benchmark(remat="dots") end to end on the CPU, as the
+    reference's ``tests/test_models.py:65`` runs it."""
+    res = benchmark.run_lm_benchmark(
+        d_model=32, n_layers=2, n_heads=2, vocab_size=64, seq_len=64,
+        batch_size=2, attention="local", remat="dots", num_warmup_batches=1,
+        num_batches_per_iter=2, num_iters=2, device="cpu", verbose=False)
+    assert res["remat"] == "dots" and np.isfinite(res["loss"])
+    assert len(res["step_losses"]) == 4
 
 
 @pytest.mark.parametrize("kw,err", [
