@@ -78,10 +78,23 @@ any failure ends the run with a traceback and a non-zero exit:
    on the same batch and weights, with ms/step and peak memory; (d) with
    2 or more cards, two dp x pp steps of every schedule of a small LM
    over NCCL against gloo on the CPU, else one line saying why it did not
-   run.
+   run;
+13. ZeRO-1 and the wire codecs: (a) the LM of record through
+   ``make_train_step(shard_optimizer=True)`` on the NCCL group of size 1
+   under ``none``, ``bf16``, ``int8`` and ``powersgd:4``, 2 warmup and 12
+   timed steps each: ``none``'s losses equal to phase 7's bit for bit,
+   every codec's within the reference's bound of ``none``'s, the
+   reduce-scatters, all-gathers and all-to-alls a step and the logical
+   wire bytes a step as the bucket plan reckons them (int8 0.25 of
+   ``none``'s, bf16 0.5), the flash launches, ms/step, tok/s, peak
+   memory and optimizer-state bytes beside phase 7's; (b) with 2 or more
+   cards, two ZeRO steps of a small LM under ``none`` and ``int8`` over
+   NCCL against gloo on the CPU, and the two-level reduce-scatter and
+   ``cross_level_psum`` on a (dcn, ici) mesh against the flat
+   collectives, else one line saying why it did not run.
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
-(b) and, for the forward kernel, 12 (a).  It prints one JSON line of
+(b), 13 (a) and, for the forward kernel, 12 (a).  It prints one JSON line of
 kernel numbers and, last, one JSON line naming the device.  With no GPU
 it exits non-zero and prints no result.
 """
@@ -227,6 +240,28 @@ PP_STEP_LM = dict(SP_STEP_LM, n_layers=4)
 PP_STEP_BATCH = 2
 PP_STEP_MICROBATCHES = 2
 PP_STEP_VIRTUAL = 2
+# Phase 13 (a): the LM of record through make_train_step(
+# shard_optimizer=True) on the card's one-rank NCCL group under each wire
+# codec, phase 7's warmup and ZERO_TIMED_STEPS timed steps.  At one rank
+# the reduce-scatter and all-gather are copies, the mean a multiply by
+# 1.0 and the flat-bucket sgd phase 7's arithmetic: under "none" the
+# first LM_TIMED_STEPS timed losses must equal phase 7's bit for bit.
+# Every codec's losses within ZERO_LOSS_BOUND (a, b: b + a * |none's|) of
+# none's from the third timed step on (the reference's own bound,
+# tests/test_compression.py:448-461); int8's logical wire bytes a step
+# INT8_WIRE_RATIO (value, tolerance) of none's, bf16's 0.5, powersgd's
+# what the plan reckons.
+ZERO_CODECS = ("none", "bf16", "int8", "powersgd:4")
+ZERO_TIMED_STEPS = 12
+ZERO_LOSS_BOUND = (0.05, 1e-3)
+INT8_WIRE_RATIO = (0.25, 0.01)
+# Phase 13 (b) and tests/test_torch_cuda_collective.py: two ZeRO steps of
+# the small bf16 LM of phase 11 (c) under none and int8 on NCCL ranks
+# against gloo ranks on the CPU (held as phase 11 (c); int8's leaves with
+# room for the codec's own noise: compare_zero_step), and on a 2x2
+# ("dcn", "ici") mesh the two-level reduce-scatter and cross_level_psum
+# against the flat collectives, on values where every sum is exact.
+ZERO_STEP_CODECS = ("none", "int8")
 # Phase 9 runs phase 4's step (same seed, batch and SGD) through
 # hvd.DistributedOptimizer, which at size 1 adds no hook and no
 # collective, after broadcast_optimizer_state's zero-gradient fill (which
@@ -2007,6 +2042,329 @@ def phase_pipeline_processes(smi: str) -> None:
           flush=True)
 
 
+def _zero_plan(codec: str):
+    """The LM of record's reduce-scatter plan at one rank under ``codec``
+    (meta tensors: no memory), the logical wire bytes a step that plan
+    reckons, and the collectives a step launches: (reduce-scatters,
+    all-gathers, all-to-alls)."""
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import compression as C
+    from horovod_tpu_torch.ops import fusion
+
+    cfg = tfm.TransformerConfig(
+        **{k: v for k, v in LM.items() if k not in ("seq_len",
+                                                    "batch_size")},
+        max_seq=LM["seq_len"])
+    model = tfm.TransformerLM(cfg, device="meta")
+    leaves = [p for _, p in convert.lm_ordered_parameters(model)]
+    c = C.resolve_codec(codec)
+    plan = fusion.make_reduce_scatter_plan(leaves, 1, codec=c)
+    nb = len(plan.buckets)
+    padded = [plan.padded_size(b) for b in range(nb)]
+    if c.name == "none":
+        wire, calls = 8 * sum(padded), (nb, nb, 0)
+    elif c.name == "bf16":
+        wire, calls = 4 * sum(padded), (nb, nb, 0)
+    elif c.name == "int8":
+        wire, calls = 2 * sum(padded) + 16 * nb, (0, 3 * nb, nb)
+    else:
+        low = set(plan.lowrank)
+        rs = sum(2 * padded[b] if b not in low else
+                 sum(plan.bucket_leaf_shape(b)) * c.rank * 4
+                 for b in range(nb))
+        wire, calls = rs + 2 * sum(padded), (nb - len(low), nb, 0)
+    return plan, wire, calls
+
+
+def phase_zero(smi: str, lm7: dict) -> list:
+    """Phase 13 (a): the LM of record's ZeRO-1 step under every codec.
+    Returns the flash launches of its runs."""
+    from horovod_tpu_torch.benchmark import run_lm_benchmark
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+
+    flash = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    colls = (fusion.reduce_scatter_calls, fusion.all_gather_calls,
+             fusion.all_to_all_calls)
+    steps = LM_WARMUP_STEPS + ZERO_TIMED_STEPS
+    path = [0, 0, 0]
+    rows = {}
+    for codec in ZERO_CODECS:
+        plan, wire_want, calls_want = _zero_plan(codec)
+        torch.cuda.empty_cache()
+        for c in flash + colls:
+            c.reset()
+        res = run_lm_benchmark(
+            **LM, attention="flash", remat="none", momentum_dtype="bfloat16",
+            num_warmup_batches=LM_WARMUP_STEPS, num_batches_per_iter=1,
+            num_iters=ZERO_TIMED_STEPS, shard_optimizer=True,
+            compression=codec, verbose=False)
+        launched = [c.count for c in flash]
+        calls = [c.count for c in colls]
+        path = [a + x for a, x in zip(path, launched)]
+        n = LM["n_layers"] * steps
+        check(launched == [n, n, n], f"phase 13 {codec} flash launches "
+              f"{launched}; expected {n} each ({steps} steps)")
+        check(calls == [k * steps for k in calls_want],
+              f"phase 13 {codec} (reduce-scatter, all-gather, all-to-all) "
+              f"calls {calls}; the plan's {len(plan.buckets)} buckets give "
+              f"{calls_want} a step over {steps} steps")
+        losses = res["step_losses"]
+        for i, loss in enumerate(losses):
+            check(loss == loss and abs(loss) != float("inf"),
+                  f"phase 13 {codec} step {i} loss is not finite: {loss}")
+        check(res["wire_bytes_per_step"] == wire_want,
+              f"phase 13 {codec} wire bytes a step "
+              f"{res['wire_bytes_per_step']} != the plan's {wire_want}")
+        rows[codec] = res
+        print(f"phase 13 (a) LM d{LM['d_model']}/L{LM['n_layers']}/"
+              f"H{LM['n_heads']} T {LM['seq_len']} B {LM['batch_size']} "
+              f"flash ZeRO-1 compression={codec}: "
+              f"{res['tok_sec_per_chip']:,.0f} +-{res['tok_sec_conf']:,.0f} "
+              f"tok/s, {res['ms_per_step']:.2f} ms/step, peak "
+              f"{res['max_memory_allocated']} bytes (phase 7: "
+              f"{lm7['tok_sec_per_chip']:,.0f} tok/s, "
+              f"{lm7['ms_per_step']:.2f} ms/step, peak "
+              f"{lm7['max_memory_allocated']} bytes) on {smi}; per step "
+              f"{calls[0] // steps} reduce-scatters, {calls[1] // steps} "
+              f"all-gathers, {calls[2] // steps} all-to-alls over the "
+              f"plan's {len(plan.buckets)} buckets ({len(plan.lowrank)} "
+              f"low-rank); flash launches {launched} = 10 a step each; "
+              f"optimizer state {res['optimizer_state_bytes']} bytes a "
+              f"rank; wire {res['wire_bytes_per_step']:.0f} bytes a step; "
+              f"timed losses {losses[0]:.6f} -> {losses[-1]:.6f}",
+              flush=True)
+        del res
+    none = rows["none"]["step_losses"]
+    equal = none[:LM_TIMED_STEPS] == lm7["step_losses"]
+    check(equal, f"phase 13 none's losses {none[:LM_TIMED_STEPS]} are not "
+          f"phase 7's {lm7['step_losses']} bit for bit")
+    a, b = ZERO_LOSS_BOUND
+    base_wire = rows["none"]["wire_bytes_per_step"]
+    summary = {}
+    for codec, res in rows.items():
+        worst = max(abs(x - y) - (a * abs(x) + b) for x, y in
+                    zip(none[2:], res["step_losses"][2:]))
+        check(worst <= 0, f"phase 13 {codec} losses "
+              f"{res['step_losses']} leave none's {none} by {worst:.3g} "
+              f"beyond {a}|none| + {b}")
+        ratio = res["wire_bytes_per_step"] / base_wire
+        if codec == "int8":
+            check(abs(ratio - INT8_WIRE_RATIO[0]) <= INT8_WIRE_RATIO[1],
+                  f"phase 13 int8 wire ratio {ratio}")
+        if codec == "bf16":
+            check(ratio == 0.5, f"phase 13 bf16 wire ratio {ratio}")
+        summary[codec] = {
+            "ms_per_step": res["ms_per_step"],
+            "tok_sec_per_chip": res["tok_sec_per_chip"],
+            "max_memory_allocated": res["max_memory_allocated"],
+            "optimizer_state_bytes": res["optimizer_state_bytes"],
+            "wire_bytes_per_step": res["wire_bytes_per_step"],
+            "wire_ratio": ratio,
+            "loss_first_last": [res["step_losses"][0],
+                                res["step_losses"][-1]]}
+    print(f"phase 13 (a): none's first {LM_TIMED_STEPS} timed losses equal "
+          f"phase 7's bit for bit: {equal}; every codec within "
+          f"{a}|none| + {b} from the third timed step; " +
+          json.dumps(summary), flush=True)
+    torch.cuda.empty_cache()
+    return path
+
+
+def _zero_step_worker(rank, size, addr, backend, shape, out_dir):
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import compression as C
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.optim import SGD
+    from horovod_tpu_torch.topology import build_mesh
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    hvd.init(device=None if backend == "nccl" else "cpu")
+    try:
+        dev = hvd.mesh().device
+        cfg = tfm.TransformerConfig(**SP_STEP_LM, dtype=torch.bfloat16)
+        tree = _small_lm_tree(cfg, 13)
+        t = cfg.max_seq
+        toks = np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (SP_STEP_BATCH * size, t + 1))
+        rows = slice(rank * SP_STEP_BATCH, (rank + 1) * SP_STEP_BATCH)
+        tokens = torch.from_numpy(toks[rows, :-1].copy()).to(dev)
+        labels = torch.from_numpy(toks[rows, 1:].copy()).to(dev)
+        out = {"init": tree}
+        for codec in ZERO_STEP_CODECS:
+            model = tfm.TransformerLM(cfg, device=dev)
+            model.load_state_dict(convert.lm_params_to_torch(tree))
+            opt = SGD([p for _, p in convert.lm_ordered_parameters(model)],
+                      0.1, momentum=0.9, accumulator_dtype=torch.bfloat16)
+            step = tfm.make_train_step(model, opt, hvd.mesh(),
+                                       attention="flash",
+                                       shard_optimizer=True,
+                                       compression=codec)
+            losses = [float(step(tokens, labels)) for _ in range(2)]
+            out[codec] = {"losses": losses,
+                          "params": convert.lm_state_dict_to_params(
+                              {k: v.float().cpu() for k, v in
+                               model.state_dict().items()})}
+        # Two levels on a (dcn, ici) mesh, on a 2^-3 grid (exact sums).
+        mesh = build_mesh(axes=("dcn", "ici"), shape=shape)
+        ici, dcn = mesh.axis("ici"), mesh.axis("dcn")
+        g = np.random.default_rng(15 + rank)
+        leaves = [torch.from_numpy(np.round(g.standard_normal(s) * 8) / 8)
+                  .float().to(dev) for s in ((33, 7), (129,), (5,))]
+        shards, plan = fusion.fused_hierarchical_reduce_scatter(
+            leaves, ici, dcn, threshold=256)
+        hier = fusion.fused_all_gather(shards, plan, ici)
+        flat = fusion.fused_pytree_mean(leaves)
+        out["hier"] = [h.cpu() for h in hier]
+        out["hier_equal_flat"] = all(torch.equal(h, f)
+                                     for h, f in zip(hier, flat))
+        x = leaves[1]
+        want = x.clone()
+        dist.all_reduce(want, group=dcn)
+        # int8's code step: the shared scale, absmax over dcn / 127.
+        step = x.abs().max().float()
+        dist.all_reduce(step, op=dist.ReduceOp.MAX, group=dcn)
+        out["cross_int8_step"] = float(step) / 127
+        out["cross"] = {spec: C.cross_level_psum(x, dcn, spec).cpu()
+                        for spec in ("none", "bf16", "fp16", "int8")}
+        out["cross_flat"] = want.cpu()
+        torch.save(out, f"{out_dir}/zero_{backend}{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def run_zero_step(backend: str, shape, out_dir: str) -> list:
+    """Phase 13 (b)'s program on ``prod(shape)`` ranks over ``backend``
+    (NCCL: one card a rank; gloo: the CPU)."""
+    import math
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    size = math.prod(shape)
+    mp.start_processes(_zero_step_worker,
+                       args=(size, addr, backend, tuple(shape), out_dir),
+                       nprocs=size, start_method="spawn")
+    return [torch.load(f"{out_dir}/zero_{backend}{r}.pt", weights_only=False)
+            for r in range(size)]
+
+
+def _leaf_updates(out: dict, codec: str) -> dict:
+    """Each leaf's update ``params - init`` of one rank's run of
+    ``codec`` in phase 13 (b), by dotted name."""
+    import numpy as np
+
+    init, params = out["init"], out[codec]["params"]
+    names = [(key, init[key], params[key])
+             for key in ("embed", "pos", "ln_f_scale")]
+    for i, layer in enumerate(params["layers"]):
+        names += [(f"layers.{i}.{key}", init["layers"][i][key], w)
+                  for key, w in layer.items()]
+    return {name: w - np.asarray(w0, np.float32) for name, w0, w in names}
+
+
+def compare_zero_step(nccl: list, gloo: list) -> dict:
+    """Per codec, the worst loss difference (relative) and the worst
+    leaf's update difference ``||du_nccl - du_gloo|| / ||du_gloo||`` over
+    every rank, held as phase 11 (c).  Under int8 a leaf's update also
+    carries the codec's quantization noise, which the two backends'
+    slightly different gradients realize differently: a leaf of small
+    gradients in a bucket of large ones reads 0.3 of its update between
+    int8 and none on the same ranks.  So an int8 leaf may differ by
+    SP_STEP_UPDATE_TOL plus twice that leaf's own int8-against-none
+    difference on the gloo ranks (two realizations of the noise); a
+    misrouted shard would read O(1) on the large leaves.  The two-level
+    collectives equal to the flat ones on every backend, NCCL's equal to
+    gloo's, and cross_level_psum's none to the flat sum, bitwise (int8
+    within one code step a rank)."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    out = {}
+    for codec in ZERO_STEP_CODECS:
+        worst_loss, worst_update = 0.0, None
+        for a, b in zip(nccl, gloo):
+            for x, y in zip(a[codec]["losses"], b[codec]["losses"]):
+                worst_loss = max(worst_loss, abs(x - y) / abs(y))
+            ua, ub = _leaf_updates(a, codec), _leaf_updates(b, codec)
+            noise = ({k: rel(v, u) for (k, v), u in zip(
+                ub.items(), _leaf_updates(b, "none").values())}
+                if codec != "none" else {k: 0.0 for k in ub})
+            for name in ub:
+                err = rel(ua[name], ub[name])
+                limit = SP_STEP_UPDATE_TOL + 2 * noise[name]
+                if (worst_update is None
+                        or err - limit > worst_update[1] - worst_update[2]):
+                    worst_update = (name, err, limit)
+        check(worst_loss <= SP_STEP_LOSS_RTOL, f"ZeRO LM step {codec} "
+              f"losses nccl vs gloo: {worst_loss:.3g} > {SP_STEP_LOSS_RTOL}")
+        check(worst_update[1] <= worst_update[2], f"ZeRO LM step {codec} "
+              f"updates nccl vs gloo (leaf, difference, limit): "
+              f"{worst_update}")
+        out[codec] = {"loss_rel": worst_loss,
+                      "update_leaf": worst_update[0],
+                      "update_rel": worst_update[1],
+                      "update_limit": worst_update[2]}
+    for a, b in zip(nccl, gloo):
+        check(a["hier_equal_flat"] and b["hier_equal_flat"],
+              "two-level reduce-scatter is not the flat mean")
+        check(all(torch.equal(x, y) for x, y in zip(a["hier"], b["hier"])),
+              "two-level reduce-scatter: NCCL differs from gloo")
+        check(torch.equal(a["cross"]["none"], a["cross_flat"]),
+              "cross_level_psum none is not the flat sum")
+        for spec, got in a["cross"].items():
+            # int8: a quotient x / scale that lies within rounding of a
+            # half may take the other code on the card than on the CPU:
+            # at most one code step for each of the dcn ranks.
+            diff = float((got - b["cross"][spec]).abs().max())
+            tol = (len(nccl) * a["cross_int8_step"] if spec == "int8"
+                   else 0.0)
+            check(diff <= tol, f"cross_level_psum {spec}: NCCL differs "
+                  f"from gloo by {diff} > {tol}")
+            out[f"cross_{spec}_max_diff"] = max(
+                out.get(f"cross_{spec}_max_diff", 0.0), diff)
+    out["two_level"] = "equal to the flat collectives"
+    return out
+
+
+def phase_zero_processes(smi: str) -> None:
+    """Phase 13 (b): the ZeRO step and the two-level collectives across
+    NCCL processes, where the host has the cards for it."""
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 13 (b) did not run: {n} CUDA device here, and the "
+              f"ZeRO step across NCCL processes needs one card a rank (2 "
+              f"for a 1x2 (dcn, ici) mesh, 4 for 2x2; NCCL refuses two "
+              f"ranks on one card)", flush=True)
+        return
+    shape = (2, 2) if n >= 4 else (1, 2)
+    with tempfile.TemporaryDirectory() as out:
+        nccl = run_zero_step("nccl", shape, out)
+        gloo = run_zero_step("gloo", shape, out)
+    res = compare_zero_step(nccl, gloo)
+    print(f"phase 13 (b): two ZeRO steps of a small bf16 LM under "
+          f"{ZERO_STEP_CODECS} and the two-level collectives on a {shape} "
+          f"(dcn, ici) mesh over NCCL ({n} cards: {smi}) against gloo on "
+          f"the CPU: " + json.dumps(res), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2030,10 +2388,13 @@ def main() -> int:
     remat = phase_remat(smi, lm_summary)
     phase_pipeline(smi)
     phase_pipeline_processes(smi)
+    zero = phase_zero(smi, lm_summary)
+    phase_zero_processes(smi)
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
-    for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat):
+    for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
+                           zero):
         check(all(count), f"{row['name']} did not launch on every path: "
-              f"phase 7, 11 (a), 11 (b), 12 (b) {count}")
+              f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a) {count}")
         row["launches"] = sum(count)
     flash_rows[0]["launches"] += decode[0]
     hvd.shutdown()

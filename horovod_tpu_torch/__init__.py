@@ -5,7 +5,8 @@ topology state over ``torch.distributed`` (NCCL on the GPU, gloo on the
 CPU), the ``hvd.*`` collectives with their async handles, process sets
 and ``join`` on a name-negotiating control plane,
 ``DistributedOptimizer`` and the state broadcasts, the callbacks, the
-data-parallel mesh, fused gradient averaging, the step guard,
+data-parallel mesh, fused gradient averaging, the ZeRO-1 sharded update
+and its wire codecs, the step guard,
 ResNet v1.5, the transformer LM with its flash-attention kernels, and
 the synthetic training benchmarks.  The package imports ``torch`` and
 never JAX or any module of ``horovod_tpu``.
@@ -89,6 +90,7 @@ from horovod_tpu_torch.ops.fusion import (  # noqa: F401
     fused_psum,
     fused_pytree_mean,
 )
+from horovod_tpu_torch.ops.compression import resolve_codec  # noqa: F401
 from horovod_tpu_torch.parallel.data import (  # noqa: F401
     Compression,
     DistributedGradientTape,
@@ -97,6 +99,10 @@ from horovod_tpu_torch.parallel.data import (  # noqa: F401
     broadcast_parameters,
     broadcast_variables,
     make_training_step,
+)
+from horovod_tpu_torch.parallel.zero import (  # noqa: F401
+    reshard_state,
+    sharded_optimizer,
 )
 from horovod_tpu_torch import callbacks  # noqa: F401
 from horovod_tpu_torch.callbacks import (  # noqa: F401

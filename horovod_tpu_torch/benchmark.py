@@ -15,8 +15,11 @@ the host clock.
 The transformer LM's harness is the counterpart of ``lm_train_flops``
 (``:428``) and ``run_lm_benchmark`` (``:443``), with the same protocol in
 tokens per second; ``run_decode_benchmark`` (``:595``) times greedy
-KV-cache decoding.  ``python -m horovod_tpu_torch.benchmark [--model lm]``
-prints a device-time breakdown of either step.
+KV-cache decoding; ``run_compression_benchmark`` (``:793``) A/Bs a wire
+codec on the LM's ZeRO lane.  ``python -m horovod_tpu_torch.benchmark
+[--model lm]`` prints a device-time breakdown of either step;
+``--shard-optimizer`` runs the LM benchmark with the ZeRO-1 update and
+``--compression CODEC`` the codec A/B.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from horovod_tpu_torch.models.transformer import (TransformerConfig,
                                                   TransformerLM, generate)
 from horovod_tpu_torch.models.transformer import (
     make_train_step as make_lm_train_step)
+from horovod_tpu_torch.ops import fusion
 from horovod_tpu_torch.ops.fusion import fused_pytree_mean
 from horovod_tpu_torch.optim import SGD
 from horovod_tpu_torch.topology import Mesh, data_axis, mesh_size
@@ -397,8 +401,15 @@ def run_lm_benchmark(d_model: int = 2048, n_layers: int = 8,
     steps, tok/s as mean +- 1.96 sigma over rounds (CUDA events on the
     GPU), ms/step, MFU from the analytic :func:`lm_train_flops` against
     the card's peak, and peak device memory.  ``batch_size`` is per rank.
-    ZeRO-1 (``shard_optimizer``) and wire compression are not ported
-    (ROADMAP Queue 1 item 8)."""
+
+    ``shard_optimizer=True`` runs the ZeRO-1 sharded update over the
+    mesh's data group (the whole world unless ``mesh`` says otherwise)
+    and ``compression`` its wire codec (``"none"``, ``"bf16"``,
+    ``"fp16"``, ``"int8"``, ``"powersgd[:rank]"``).  The result also
+    reports this rank's optimizer-state bytes (the momentum, and the
+    codec's residuals and factors) and the logical wire bytes a step
+    puts on the wire (``fusion.collective_bytes`` over the timed steps).
+    """
     st = make_lm_bench_state(d_model, n_layers, n_heads, d_ff, vocab_size,
                              seq_len, batch_size, learning_rate,
                              momentum_dtype, mesh, device)
@@ -409,13 +420,16 @@ def run_lm_benchmark(d_model: int = 2048, n_layers: int = 8,
         st.model, st.optimizer, st.mesh, st.axis, attention=attention,
         remat=remat, shard_optimizer=shard_optimizer,
         compression=compression)
+    if shard_optimizer:
+        step.init()
     flops_per_step = lm_train_flops(cfg, global_bs)
     if verbose:
+        comp_s = f" compression={compression}" if compression else ""
         print(f"LM: d_model={d_model} n_layers={n_layers} d_ff={cfg.d_ff} "
               f"vocab={vocab_size} T={seq_len} batch={global_bs} "
               f"attention={attention} remat={remat} "
-              f"momentum={momentum_dtype} ranks={n_chips} on {dev}",
-              flush=True)
+              f"momentum={momentum_dtype} shard_optimizer={shard_optimizer}"
+              f"{comp_s} ranks={n_chips} on {dev}", flush=True)
         print(f"Analytic {flops_per_step / 1e12:.2f} TFLOP/step "
               f"({flops_per_step / (global_bs * seq_len) / 1e6:.1f} "
               f"MFLOP/token)", flush=True)
@@ -428,12 +442,18 @@ def run_lm_benchmark(d_model: int = 2048, n_layers: int = 8,
 
     rounds = _Rounds(dev)
     losses = []
+    wire0 = fusion.collective_bytes.total()
     rounds.mark()
     for _ in range(num_iters):
         for _ in range(num_batches_per_iter):
             losses.append(step(st.tokens, st.labels))
         rounds.mark()
     secs = rounds.seconds()
+    timed_steps = num_iters * num_batches_per_iter
+    wire_per_step = ((fusion.collective_bytes.total() - wire0)
+                     / max(timed_steps, 1))
+    state_bytes = (step.sharded.state.nbytes() if shard_optimizer else sum(
+        t.numel() * t.element_size() for t in st.optimizer.trace))
     step_losses = [float(x) for x in losses]
     tokens_per_round = global_bs * seq_len * num_batches_per_iter
     tok_secs = [tokens_per_round / dt for dt in secs]
@@ -459,6 +479,11 @@ def run_lm_benchmark(d_model: int = 2048, n_layers: int = 8,
         "mfu": tflops_per_chip / peak if peak else None,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                  if on_gpu else None),
+        "shard_optimizer": shard_optimizer,
+        "compression": (step.optimizer.codec.name if shard_optimizer
+                        else "none"),
+        "optimizer_state_bytes": state_bytes,
+        "wire_bytes_per_step": wire_per_step,
         "step_losses": step_losses,
         "loss": step_losses[-1] if step_losses else None,
     }
@@ -470,6 +495,70 @@ def run_lm_benchmark(d_model: int = 2048, n_layers: int = 8,
         print(f"{result['tok_sec_per_chip']:,.0f} tok/sec/chip "
               f"+-{result['tok_sec_conf']:,.0f} ({ms_per_step:.2f} "
               f"ms/step){mfu_s}", flush=True)
+    return result
+
+
+def run_compression_benchmark(codec: str = "int8", verbose: bool = True,
+                              **lm_kwargs) -> dict:
+    """Gradient-compression A/B on the LM's ZeRO lane (reference
+    ``:793``): :func:`run_lm_benchmark` twice from the same seeds, with
+    the uncompressed wire and with ``codec``, and the loss at equal steps
+    beside the ratio of the logical wire bytes of the reduce-scatter and
+    all-gather (``fusion.collective_bytes``, counted per run).  Prints one
+    ``BENCH`` JSON line (``{"metric": "compression_wire_ratio", ...}``)
+    and returns the same dict."""
+    import json
+
+    from horovod_tpu_torch.ops import compression as compression_mod
+
+    name = compression_mod.resolve_codec(codec).name
+    if name == "none":
+        raise ValueError(
+            "--compression needs a real codec (bf16, fp16, int8, "
+            "powersgd[:rank]); the lane already compares against 'none'")
+    # The codec rides the ZeRO reduce-scatter wire.
+    lm_kwargs["shard_optimizer"] = True
+
+    def run(spec, label):
+        before = {k: fusion.collective_bytes.total(kind=k, codec=label)
+                  for k in ("reduce_scatter", "all_gather")}
+        res = run_lm_benchmark(compression=spec, verbose=verbose,
+                               **lm_kwargs)
+        return res, sum(fusion.collective_bytes.total(kind=k, codec=label)
+                        - b for k, b in before.items())
+
+    base, bytes_none = run("none", "none")
+    comp, bytes_codec = run(codec, name)
+    ratio = (bytes_none / bytes_codec) if bytes_codec else float("inf")
+    loss_delta_pct = (abs(comp["loss"] - base["loss"])
+                      / max(abs(base["loss"]), 1e-12) * 100.0)
+    # Acceptance floors: int8 packs 4 f32 bytes into about 1 wire byte
+    # (less the per-bucket qparams), the casts halve them.
+    target = {"int8": 3.0, "bf16": 1.9, "fp16": 1.9}.get(name)
+    result = {
+        "metric": "compression_wire_ratio",
+        "codec": name,
+        "value": round(ratio, 3),
+        "target_ratio": target,
+        "wire_bytes_none": int(bytes_none),
+        "wire_bytes_codec": int(bytes_codec),
+        "loss_none": round(base["loss"], 6),
+        "loss_codec": round(comp["loss"], 6),
+        "loss_delta_pct": round(loss_delta_pct, 4),
+        "loss_target_pct": 1.0,
+        "n_chips": base["n_chips"],
+        "d_model": base["d_model"],
+        "n_layers": base["n_layers"],
+        "tok_sec_per_chip_none": round(base["tok_sec_per_chip"], 1),
+        "tok_sec_per_chip_codec": round(comp["tok_sec_per_chip"], 1),
+    }
+    if verbose:
+        tgt = f" (target >= {target}x)" if target else ""
+        print(f"Compression {name}: wire bytes {int(bytes_none):,} -> "
+              f"{int(bytes_codec):,} ({ratio:.2f}x{tgt}); loss "
+              f"{base['loss']:.5f} -> {comp['loss']:.5f} "
+              f"({loss_delta_pct:.3f}% delta, target < 1%)", flush=True)
+    print("BENCH " + json.dumps(result), flush=True)
     return result
 
 
@@ -648,16 +737,21 @@ LM_OF_RECORD = dict(d_model=3072, n_layers=10, n_heads=24, d_ff=12288,
 
 
 def run_lm_profile(batch_size: int = 4, steps: int = 5, device=None,
-                   top: int = 15) -> dict:
+                   top: int = 15, shard_optimizer: bool = False,
+                   compression: Optional[str] = None) -> dict:
     """Trace ``steps`` flash-attention training steps of the LM benchmark
-    of record (:data:`LM_OF_RECORD`, :func:`run_lm_benchmark`'s recipe);
-    the flash kernels are their own category.  Needs a CUDA device."""
+    of record (:data:`LM_OF_RECORD`, :func:`run_lm_benchmark`'s recipe,
+    the ZeRO-1 update and its codec as there); the flash kernels are
+    their own category.  Needs a CUDA device."""
     st = make_lm_bench_state(**LM_OF_RECORD, batch_size=batch_size,
                              device=device)
     step = make_lm_train_step(st.model, st.optimizer, st.mesh, st.axis,
-                              attention="flash")
+                              attention="flash",
+                              shard_optimizer=shard_optimizer,
+                              compression=compression)
     out = {"model": "lm", **LM_OF_RECORD, "batch_size": batch_size,
-           "attention": "flash"}
+           "attention": "flash", "shard_optimizer": shard_optimizer,
+           "compression": compression}
     out.update(_trace_steps(lambda: step(st.tokens, st.labels),
                             st.mesh.device, steps, top))
     return out
@@ -702,7 +796,26 @@ if __name__ == "__main__":
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--stem", default="s2d_fused")
     ap.add_argument("--input-dtype", default="bfloat16")
+    ap.add_argument("--shard-optimizer", action="store_true",
+                    help="run the LM benchmark (not a profile) with the "
+                         "ZeRO-1 sharded update over every rank: tok/s, "
+                         "peak memory, optimizer-state and wire bytes")
+    ap.add_argument("--compression", default=None, metavar="CODEC",
+                    help="A/B the LM's ZeRO lane with gradient codec CODEC "
+                         "(bf16, fp16, int8, powersgd[:rank]) against the "
+                         "uncompressed wire; prints a BENCH JSON row with "
+                         "the wire-byte ratio and the loss delta")
     args = ap.parse_args()
+    if args.shard_optimizer or args.compression:
+        lm_kwargs = dict(batch_size=args.batch_size or 8, verbose=True)
+        if args.compression:
+            run_compression_benchmark(args.compression, **lm_kwargs)
+        else:
+            res = run_lm_benchmark(shard_optimizer=True, **lm_kwargs)
+            res.pop("step_losses")
+            print(json.dumps(res, indent=1), flush=True)
+        basics.shutdown()
+        raise SystemExit(0)
     if args.model == "lm":
         res = run_lm_profile(batch_size=args.batch_size or 4)
     elif args.model == "decode":

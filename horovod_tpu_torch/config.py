@@ -8,8 +8,12 @@ a knob the port adds for itself takes the ``HVD_TORCH_`` prefix.
 
 from __future__ import annotations
 
+import logging
 import os
+import re
 from typing import Any, Dict, NamedTuple, Optional
+
+log = logging.getLogger(__name__)
 
 
 class EnvVar(NamedTuple):
@@ -46,6 +50,13 @@ _var("HOROVOD_TOPOLOGY", "str", "",
      "host:slots,... map exported by the launcher; drives hvd.topology()")
 _var("HOROVOD_FUSION_THRESHOLD", "int", 64 * 1024 * 1024,
      "Gradient fusion bucket limit in bytes (binary size suffixes accepted)")
+_var("HOROVOD_MAX_BUCKET_BYTES", "int", 32 * 1024 * 1024,
+     "Cap above which reduce-scatter buckets are chunked (binary size "
+     "suffixes accepted); 0 disables chunking")
+_var("HOROVOD_COMPRESSION", "str", "none",
+     "Gradient wire codec: none|bf16|fp16|int8|powersgd[:rank]")
+_var("HOROVOD_TRANSPORT_CODECS", "str", "",
+     "Per-link-level codec overrides, e.g. cross:fp16,local:none")
 _var("HOROVOD_STEP_GUARD", "str", "off",
      "NaN/Inf step-guard policy: off|skip|rollback|abort")
 _var("HOROVOD_FLASH_AUTO_MIN_T", "int", 1024,
@@ -129,3 +140,54 @@ def stall_shutdown_seconds() -> float:
 
 def cache_capacity() -> int:
     return env_int("HOROVOD_CACHE_CAPACITY")
+
+
+_SIZE_SUFFIXES = {
+    "": 1, "b": 1,
+    "k": 1024, "kb": 1024, "kib": 1024,
+    "m": 1024 ** 2, "mb": 1024 ** 2, "mib": 1024 ** 2,
+    "g": 1024 ** 3, "gb": 1024 ** 3, "gib": 1024 ** 3,
+}
+
+
+def parse_size_bytes(value: str) -> Optional[int]:
+    """``"64mb"`` / ``"32MiB"`` / ``"67108864"`` -> bytes, or None when the
+    string is not a size.  Multipliers are binary (64 MB == 2**26)."""
+    m = re.fullmatch(r"\s*(\d+(?:\.\d+)?)\s*([a-zA-Z]*)\s*", str(value))
+    if not m:
+        return None
+    mult = _SIZE_SUFFIXES.get(m.group(2).lower())
+    if mult is None:
+        return None
+    return int(float(m.group(1)) * mult)
+
+
+_warned_bad_cap = False
+
+
+def max_bucket_bytes() -> int:
+    """``HOROVOD_MAX_BUCKET_BYTES``: the cap above which a reduce-scatter
+    bucket is chunked (default 32 MiB; ``0`` disables chunking).  An
+    unparseable value falls back to the default with one warning: a typo
+    in an environment variable must not fail a step."""
+    global _warned_bad_cap
+    default = REGISTRY["HOROVOD_MAX_BUCKET_BYTES"].default
+    v = env_raw("HOROVOD_MAX_BUCKET_BYTES")
+    if not v:
+        return default
+    parsed = parse_size_bytes(v)
+    if parsed is None:
+        if not _warned_bad_cap:
+            _warned_bad_cap = True
+            log.warning(
+                "HOROVOD_MAX_BUCKET_BYTES=%r is not a byte size (expected "
+                "e.g. 33554432, 32mb or 16MiB); using the default %d bytes",
+                v, default)
+        return default
+    return parsed
+
+
+def compression() -> str:
+    """``HOROVOD_COMPRESSION``: the gradient wire codec's name, stripped
+    (``""`` when unset)."""
+    return (os.environ.get("HOROVOD_COMPRESSION") or "").strip()

@@ -9,11 +9,13 @@ neither framework's other half.  The transformer LM's pytree crosses
 with ``lm_params_to_torch`` and ``lm_state_dict_to_params``, and as
 Megatron shards with ``lm_params_to_shards`` and ``lm_shards_to_params``,
 and as a pipe rank's ``PipelineLM`` with ``lm_pipeline_to_rank`` and
-``lm_rank_to_pipeline``.
+``lm_rank_to_pipeline``.  A ZeRO-1 optimizer state crosses with
+``zero_state_to_torch`` and ``zero_state_to_arrays``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -252,3 +254,87 @@ def lm_rank_to_pipeline(state_dict: Mapping[str, torch.Tensor], pipe_axis,
         stacked[leaf] = cpu(all_gather(rows.contiguous(), pipe_axis, 0))
     return {"base": {k: cpu(state_dict[k]) for k in _BASE_LEAVES},
             "stacked": stacked}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharded state (horovod_tpu/parallel/zero.py's global layout).
+# ---------------------------------------------------------------------------
+
+def zero_state_to_torch(fields: Mapping, like, wire=None):
+    """A ZeRO-1 state of the JAX package carried into the port: ``like``
+    (a ``ZeroShardedState`` of the same plan, freshly ``init``-ed) with
+    this rank's shard of each array.
+
+    ``fields`` maps each parameter-shaped field of the optimizer's state
+    (``"trace"``; ``"mu"`` and ``"nu"``) to its list of FULL padded
+    bucket vectors (the global arrays of the reference's state), and may
+    hold Adam's ``"count"``.  ``wire`` is the codec state in the
+    reference's global layout, ``(rs, ag, factors)`` per bucket, None
+    where it keeps nothing; the factors are PowerSGD's (the reference's
+    draw, which the port's generator cannot reproduce)."""
+    from horovod_tpu_torch.ops.compression import CodecState, local_state
+
+    plan, index = like.plan, like.index
+
+    def tensor(a, like_t):
+        return _f32(a).to(like_t.device, like_t.dtype)
+
+    inner = like.inner
+    replace = {}
+    for name in inner._fields:
+        if name not in fields:
+            continue
+        cur = getattr(inner, name)
+        if torch.is_tensor(cur):
+            replace[name] = tensor(fields[name], cur).reshape(cur.shape)
+        else:
+            replace[name] = [
+                plan.shard_slice(b, tensor(a, c).reshape(-1), index).clone()
+                for b, (a, c) in enumerate(zip(fields[name], cur))]
+    out = dataclasses.replace(like, inner=inner._replace(**replace))
+    if wire is not None:
+        dev = next((t.device for t in _tensors_of(like.wire)), None)
+        rs, ag, factors = (
+            [None if a is None else _f32(a).to(dev) for a in group]
+            for group in wire)
+        out = dataclasses.replace(out, wire=local_state(
+            CodecState(rs, ag, factors), plan, index))
+    return out
+
+
+def _tensors_of(codec_state) -> List[torch.Tensor]:
+    if codec_state is None:
+        return []
+    return [t for t in codec_state.rs + codec_state.ag
+            + codec_state.factors if t is not None]
+
+
+def zero_state_to_arrays(state) -> Tuple[Dict, object]:
+    """The inverse of :func:`zero_state_to_torch`: every rank's shards
+    gathered over the state's group into the reference's global layout,
+    as numpy f32.  Returns ``(fields, wire)``: ``fields`` maps each field
+    of the optimizer's state to its full bucket vectors (a scalar field
+    as an array), ``wire`` is ``(rs, ag, factors)`` or None.  Collective:
+    every rank of the group calls it."""
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.compression import gather_state
+
+    def cpu(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    fields = {}
+    for name in state.inner._fields:
+        cur = getattr(state.inner, name)
+        if cur is None:
+            continue
+        if torch.is_tensor(cur):
+            fields[name] = cpu(cur)
+            continue
+        fields[name] = [cpu(full) for full in fusion.wait_all(
+            [fusion.start_all_gather(s, state.group) for s in cur])]
+    wire = None
+    if state.wire is not None:
+        full = gather_state(state.wire, state.plan, state.group)
+        wire = tuple([None if t is None else cpu(t) for t in group]
+                     for group in (full.rs, full.ag, full.factors))
+    return fields, wire

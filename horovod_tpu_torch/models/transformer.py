@@ -36,10 +36,9 @@ also takes axis names and resolves them through the mesh.  Under a
 (:func:`param_specs`; ``TransformerLM(model_shards=...)`` allocates them,
 ``convert.lm_params_to_shards`` fills them); under a ``seq_axis`` the
 tokens are this rank's contiguous chunk of the sequence.
-
-Not ported yet: the ZeRO-1 update (``shard_optimizer=True``) and wire
-compression of ``make_train_step``, which raise ``NotImplementedError``
-naming their ROADMAP item (Queue 1 item 8).
+``make_train_step(shard_optimizer=True)`` runs the ZeRO-1 update of pure
+data parallelism (:mod:`horovod_tpu_torch.parallel.zero`), with
+``compression`` as its wire codec.
 """
 
 from __future__ import annotations
@@ -83,12 +82,6 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to horovod_tpu_torch yet (ROADMAP.md "
-        f"Queue 1 {item})")
 
 
 def _check_route(seq_axis, attention: str, remat: str) -> None:
@@ -459,14 +452,35 @@ def make_train_step(model: TransformerLM, optimizer, mesh: Mesh,
     ``remat`` is the per-layer rematerialization policy
     (:func:`_remat_wrap`).  ``steps_per_call`` steps run per call on the
     same batch.  The step-guard policy is read here, once.
+
+    ``shard_optimizer=True`` runs the ZeRO-1 sharded update over the
+    data axis instead of the mean and ``optimizer.step``: a
+    ``ShardedOptimizer`` around ``optimizer.transform`` (its functional
+    :func:`~horovod_tpu_torch.optim.sgd`), the updates added to the
+    parameters.  Pure data parallelism only.  ``step.init()`` builds the
+    sharded state (the first step does if it was not called),
+    ``step.sharded.state`` holds it and ``step.optimizer`` is the
+    ``ShardedOptimizer``.  ``compression`` is the wire codec (a name, a
+    codec, or None for ``HOROVOD_COMPRESSION``); a codec other than none
+    rides the ZeRO wire and needs ``shard_optimizer=True``.
     """
     from horovod_tpu_torch.models.convert import lm_ordered_parameters
+    from horovod_tpu_torch.ops import compression as compression_mod
+    from horovod_tpu_torch.parallel import zero
 
     _check_route(seq_axis, attention, remat)
+    codec = compression_mod.resolve_codec(compression)
     if shard_optimizer:
-        raise _not_ported("shard_optimizer=True (ZeRO-1)", "item 8")
-    if compression not in (None, "none"):
-        raise _not_ported(f"compression={compression!r}", "item 8")
+        if model_axis or seq_axis:
+            raise NotImplementedError(
+                "shard_optimizer=True composes with pure data parallelism "
+                "only (ZeRO-1 slices replicated params); got "
+                f"model_axis={model_axis!r}, seq_axis={seq_axis!r}")
+    elif not isinstance(codec, compression_mod.NoneCodec):
+        raise NotImplementedError(
+            f"compression={codec.name!r} rides the ZeRO reduce-scatter "
+            f"wire; pass shard_optimizer=True (the plain path's fused "
+            f"pmean has no per-bucket wire to compress)")
     model_g, seq_g, grad_g, agree_g = _step_groups(mesh, data_axis,
                                                    model_axis, seq_axis)
     params = [p for _, p in lm_ordered_parameters(model)]
@@ -475,18 +489,24 @@ def make_train_step(model: TransformerLM, optimizer, mesh: Mesh,
                          "pytree order (convert.lm_ordered_parameters)")
     policy = resilience.guard_policy()
     cfg = model.cfg
+    sharded = (zero.ShardedUpdate(zero.sharded_optimizer(
+        optimizer.transform, grad_g, compression=codec), params)
+        if shard_optimizer else None)
+
+    def update(grads):
+        if sharded is None:
+            optimizer.step(fused_pytree_mean(list(grads), grad_g))
+        else:
+            # ZeRO-1: the mean happens on the reduce-scattered shard.
+            sharded.update(grads)
 
     def one_step(tokens, labels, segment_ids=None):
         loss = loss_fn(model.tree(), tokens, labels, cfg, model_g, seq_g,
                        attention, segment_ids, remat)
         grads = torch.autograd.grad(loss, params)
-
-        def do_update():
-            optimizer.step(fused_pytree_mean(list(grads), grad_g))
-
         return resilience.apply_step_guard(
-            do_update, loss=loss.detach(), grads=grads, group=grad_g,
-            agree_group=agree_g, policy=policy)
+            lambda: update(grads), loss=loss.detach(), grads=grads,
+            group=grad_g, agree_group=agree_g, policy=policy)
 
     def step(tokens, labels, *segment_ids):
         if len(segment_ids) != int(packed):
@@ -498,6 +518,10 @@ def make_train_step(model: TransformerLM, optimizer, mesh: Mesh,
             loss = one_step(tokens, labels, *segment_ids)
         return loss
 
+    if sharded is not None:
+        step.init = sharded.init
+        step.optimizer = sharded.optimizer
+        step.sharded = sharded
     return step
 
 

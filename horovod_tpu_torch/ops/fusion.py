@@ -1,57 +1,105 @@
-"""Tensor fusion for the gradient all-reduce.
+"""Tensor fusion for the gradient all-reduce and the sharded update.
 
 Counterpart of ``horovod_tpu/ops/fusion.py`` (``parse_size_bytes``
-``:93``, ``fusion_threshold_bytes`` ``:106``, ``max_bucket_bytes`` ``:137``,
-``_bucket_leaves`` ``:191``,
-``fused_psum`` ``:280``, ``fused_pytree_mean`` ``:327``).  Leaves are
-grouped by dtype into buckets up to the threshold; each bucket is
-flattened into one buffer, reduced with ONE ``dist.all_reduce`` and split
-back.  The bucketing walk is the reference's, leaf for leaf, so the same
-leaf list gives the same buckets in both packages.
+``:93`` and ``max_bucket_bytes`` ``:137``, both in the port's
+``config``; ``fusion_threshold_bytes`` ``:106``,
+``record_collective_bytes`` ``:158``, ``_bucket_leaves`` ``:191``,
+``fused_psum`` ``:280``, ``fused_pytree_mean`` ``:327``; fusion v2:
+``ReduceScatterPlan`` ``:343``, ``_chunk_spans`` ``:467``,
+``make_reduce_scatter_plan`` ``:487``, ``fused_reduce_scatter`` ``:546``,
+``fused_hierarchical_reduce_scatter`` ``:583``, ``fused_all_gather``
+``:627``).  Leaves are grouped by dtype into buckets up to the threshold;
+each bucket is flattened into one buffer, reduced with ONE
+``dist.all_reduce`` and split back.  The bucketing walk is the
+reference's, leaf for leaf, so the same leaf list gives the same buckets
+in both packages.
+
+Fusion v2 is the sharded-update wire (ZeRO-1): the same walk, each
+bucket cut into chunks of at most ``HOROVOD_MAX_BUCKET_BYTES``, padded
+to a multiple of the group size and reduce-scattered, so a rank keeps
+its 1/N shard of every bucket; :func:`fused_all_gather` puts the buckets
+back together.  On NCCL the pair is ``reduce_scatter_tensor`` and
+``all_gather_into_tensor``; on gloo the reduce-scatter is an all-reduce
+and this rank's block.  Every bucket's collective is issued before the
+first is waited on.  The mean is a SUM, then a multiply by ``1/N`` in
+the shard's dtype, as the reference computes it.
+
+The counters: ``allreduce_calls``, ``reduce_scatter_calls``,
+``all_gather_calls`` and ``all_to_all_calls`` count collectives launched
+(the wire codecs' too); ``collective_bytes``
+the logical payload bytes a rank puts on the wire, by kind, codec and
+level (the reference counts them once per trace, the port once per
+call).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
-import re
-from typing import List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import config
+from horovod_tpu_torch.config import (max_bucket_bytes,  # noqa: F401
+                                      parse_size_bytes)
 from horovod_tpu_torch.ops._build import CallCounter
 
 log = logging.getLogger(__name__)
 
-# Reference default: 64 MB (the JAX package's fusion.py).
+# Reference defaults: 64 MB threshold, 32 MB reduce-scatter chunk cap.
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
-
-_SIZE_SUFFIXES = {
-    "": 1, "b": 1,
-    "k": 1024, "kb": 1024, "kib": 1024,
-    "m": 1024 ** 2, "mb": 1024 ** 2, "mib": 1024 ** 2,
-    "g": 1024 ** 3, "gb": 1024 ** 3, "gib": 1024 ** 3,
-}
+DEFAULT_MAX_BUCKET_BYTES = 32 * 1024 * 1024
 
 # One count per bucket all-reduce (start_bucket), whoever asked for it, so
 # a run can show that the gradient mean went through the collective
-# library.
+# library; and one per bucket reduce-scatter and all-gather.
 allreduce_calls = CallCounter("fusion.all_reduce")
+reduce_scatter_calls = CallCounter("fusion.reduce_scatter")
+all_gather_calls = CallCounter("fusion.all_gather")
+all_to_all_calls = CallCounter("fusion.all_to_all")
+
+
+class WireBytes:
+    """Logical payload bytes a rank put on the wire, keyed by ``(kind,
+    codec, level)``; ``level`` is ``"ici"``/``"dcn"`` for a leg of a
+    two-level collective, else None."""
+
+    def __init__(self):
+        self.bytes: Dict[Tuple[str, str, Optional[str]], int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, kind: str, codec: str, nbytes: int,
+            level: Optional[str] = None) -> None:
+        key = (kind, codec, level)
+        with self._lock:
+            self.bytes[key] = self.bytes.get(key, 0) + int(nbytes)
+
+    def total(self, kind=None, codec=None, level=None) -> int:
+        """The sum over the keys that match every name given."""
+        return sum(v for (k, c, lv), v in self.bytes.items()
+                   if kind in (None, k) and codec in (None, c)
+                   and level in (None, lv))
+
+    def reset(self) -> None:
+        with self._lock:
+            self.bytes.clear()
+
+
+collective_bytes = WireBytes()
+
+
+def record_collective_bytes(kind: str, codec: str, nbytes: int,
+                            level: Optional[str] = None) -> None:
+    """Count ``nbytes`` of logical wire payload for one collective call
+    (per rank), labelled by the wire codec that produced them: the
+    none/int8 ratio of two runs' counts is the wire compression ratio."""
+    if nbytes:
+        collective_bytes.add(kind, codec, nbytes, level)
 
 _warned_bad_threshold = False
-
-
-def parse_size_bytes(value: str) -> Optional[int]:
-    """``"64mb"`` / ``"32MiB"`` / ``"67108864"`` -> bytes, or None when the
-    string is not a size.  Multipliers are binary (64 MB == 2**26)."""
-    m = re.fullmatch(r"\s*(\d+(?:\.\d+)?)\s*([a-zA-Z]*)\s*", str(value))
-    if not m:
-        return None
-    mult = _SIZE_SUFFIXES.get(m.group(2).lower())
-    if mult is None:
-        return None
-    return int(float(m.group(1)) * mult)
 
 
 def fusion_threshold_bytes() -> int:
@@ -164,6 +212,8 @@ def fused_psum(tensors: Sequence[torch.Tensor], group=None,
         return []
     threshold = fusion_threshold_bytes() if threshold is None else threshold
     n = dist.get_world_size(group)
+    record_collective_bytes("psum", "none", sum(
+        t.numel() * t.element_size() for t in tensors))
     started = [(bucket, start_bucket(
         [tensors[i] for i in bucket], group, n, mean=mean,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor))
@@ -187,3 +237,324 @@ def fused_pytree_mean(tree, group=None, threshold: Optional[int] = None):
                              threshold=threshold)
         return dict(zip(keys, reduced))
     return fused_psum(tree, group, mean=True, threshold=threshold)
+
+
+# ---------------------------------------------------------------------------
+# Fusion v2: the reduce-scatter / all-gather pair (the sharded-update wire).
+# ---------------------------------------------------------------------------
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a numpy-style name (:func:`dtype_name`'s
+    inverse)."""
+    return getattr(torch, name)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceScatterPlan:
+    """One fusion walk over a fixed leaf list, frozen, with each bucket's
+    padding to a multiple of ``axis_size``.
+
+    A bucket is a tuple of spans ``(leaf, start, stop)``, element ranges
+    of the flattened leaf, so one large leaf (or bucket) can be chunked
+    across several buckets (``HOROVOD_MAX_BUCKET_BYTES``).  ``lowrank``
+    lists the buckets a wire codec claimed as whole-leaf low-rank buckets
+    (:mod:`horovod_tpu_torch.ops.compression`); those are never chunked.
+    ``dtypes`` holds numpy-style names, so a plan equals the reference's
+    field for field.
+    """
+    buckets: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[str, ...]
+    axis_size: int
+    lowrank: Tuple[int, ...] = ()
+
+    # -- geometry -----------------------------------------------------------
+    def leaf_size(self, i: int) -> int:
+        n = 1
+        for d in self.shapes[i]:
+            n *= d
+        return n
+
+    def bucket_size(self, b: int) -> int:
+        """Unpadded element count of bucket ``b``."""
+        return sum(stop - start for _, start, stop in self.buckets[b])
+
+    def padded_size(self, b: int) -> int:
+        """Bucket size rounded up to a multiple of ``axis_size``."""
+        n, a = self.bucket_size(b), self.axis_size
+        return -(-n // a) * a if n else a  # an empty bucket still scatters
+
+    def shard_size(self, b: int) -> int:
+        return self.padded_size(b) // self.axis_size
+
+    def pad_elems(self, b: int) -> int:
+        return self.padded_size(b) - self.bucket_size(b)
+
+    def bucket_dtype(self, b: int) -> torch.dtype:
+        return torch_dtype(self.dtypes[self.buckets[b][0][0]])
+
+    def bucket_leaf_shape(self, b: int) -> Optional[Tuple[int, ...]]:
+        """The leaf's shape when bucket ``b`` is exactly one WHOLE leaf
+        (the low-rank codec needs the 2-D geometry back), else None."""
+        spans = self.buckets[b]
+        if len(spans) != 1:
+            return None
+        i, start, stop = spans[0]
+        if start != 0 or stop != self.leaf_size(i):
+            return None
+        return self.shapes[i]
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.shapes)
+
+    def total_pad_bytes(self) -> int:
+        return sum(self.pad_elems(b) * self.bucket_dtype(b).itemsize
+                   for b in range(len(self.buckets)))
+
+    def total_padded_bytes(self) -> int:
+        """Per-rank logical payload of one reduce-scatter (or all-gather)
+        pass over every bucket, on a wire in each bucket's dtype."""
+        return sum(self.padded_size(b) * self.bucket_dtype(b).itemsize
+                   for b in range(len(self.buckets)))
+
+    # -- flat buffers -------------------------------------------------------
+    def concat(self, leaves) -> List[torch.Tensor]:
+        """Leaves -> one padded 1-D buffer per bucket."""
+        if len(leaves) != self.n_leaves:
+            raise ValueError(f"plan describes {self.n_leaves} leaves, got "
+                             f"{len(leaves)}")
+        flats = []
+        for b, spans in enumerate(self.buckets):
+            parts = []
+            for i, start, stop in spans:
+                flat_leaf = leaves[i].reshape(-1)
+                parts.append(flat_leaf if stop - start == self.leaf_size(i)
+                             else flat_leaf[start:stop])
+            pad = self.pad_elems(b)
+            if pad or not parts:
+                dev = leaves[spans[0][0]].device if spans else None
+                parts.append(torch.zeros(
+                    pad if parts else self.padded_size(b),
+                    dtype=self.bucket_dtype(b), device=dev))
+            flats.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+        return flats
+
+    def split(self, flats) -> List[torch.Tensor]:
+        """Padded per-bucket 1-D buffers -> leaves in ORIGINAL order."""
+        if len(flats) != len(self.buckets):
+            raise ValueError(f"plan has {len(self.buckets)} buckets, got "
+                             f"{len(flats)} buffers")
+        pieces: List[List[Tuple[int, torch.Tensor]]] = [
+            [] for _ in range(self.n_leaves)]
+        for b, spans in enumerate(self.buckets):
+            parts = flats[b][:self.bucket_size(b)].split(
+                [stop - start for _, start, stop in spans])
+            for (i, start, _), part in zip(spans, parts):
+                pieces[i].append((start, part))
+        out = []
+        for i, segs in enumerate(pieces):
+            segs = [part for _, part in sorted(segs, key=lambda t: t[0])]
+            flat = segs[0] if len(segs) == 1 else torch.cat(segs)
+            out.append(flat.view(self.shapes[i]))
+        return out
+
+    def shard_slice(self, b: int, flat: torch.Tensor,
+                    index: int) -> torch.Tensor:
+        """Shard ``index`` of bucket ``b``'s full padded buffer."""
+        s = self.shard_size(b)
+        return flat[index * s:(index + 1) * s]
+
+
+def _chunk_spans(spans, itemsize: int, cap: int):
+    """Split one bucket's span list into chunks of at most ``cap`` bytes
+    (element-granular: a span larger than the cap is cut mid-leaf)."""
+    cap_elems = max(1, cap // itemsize)
+    chunks, cur, cur_elems = [], [], 0
+    for leaf, start, stop in spans:
+        pos = start
+        while pos < stop:
+            take = min(stop - pos, cap_elems - cur_elems)
+            cur.append((leaf, pos, pos + take))
+            pos += take
+            cur_elems += take
+            if cur_elems == cap_elems:
+                chunks.append(cur)
+                cur, cur_elems = [], 0
+    if cur:
+        chunks.append(cur)
+    return chunks or [list(spans)]
+
+
+def make_reduce_scatter_plan(leaves, axis_size: int,
+                             threshold: Optional[int] = None, codec=None,
+                             cap: Optional[int] = None) -> ReduceScatterPlan:
+    """Run the fusion walk over ``leaves`` (tensors, meta tensors too) and
+    freeze it with each bucket's padding for an ``axis_size``-way
+    reduce-scatter.  Buckets above ``cap`` bytes (default
+    ``HOROVOD_MAX_BUCKET_BYTES``, 32 MiB; 0 disables) are chunked.
+    ``codec`` may claim whole leaves as low-rank buckets through its
+    ``solo_leaf(shape, dtype)``; they come last, in leaf order, and are
+    listed in ``plan.lowrank``."""
+    leaves = list(leaves)
+    threshold = fusion_threshold_bytes() if threshold is None else threshold
+    cap = max_bucket_bytes() if cap is None else cap
+    solo = [i for i, leaf in enumerate(leaves)
+            if codec is not None
+            and codec.solo_leaf(tuple(int(d) for d in leaf.shape),
+                                leaf.dtype)]
+    rest_idx = [i for i in range(len(leaves)) if i not in solo]
+    walk = _bucket_leaves([leaves[i] for i in rest_idx], threshold)
+    span_buckets = [[(rest_idx[j], 0, leaves[rest_idx[j]].numel())
+                     for j in bucket] for bucket in walk]
+    if cap:
+        out_buckets = []
+        for spans in span_buckets:
+            itemsize = leaves[spans[0][0]].element_size()
+            nbytes = sum((stop - start) * itemsize
+                         for _, start, stop in spans)
+            if nbytes > cap:
+                out_buckets.extend(_chunk_spans(spans, itemsize, cap))
+            else:
+                out_buckets.append(spans)
+        span_buckets = out_buckets
+    lowrank = tuple(range(len(span_buckets), len(span_buckets) + len(solo)))
+    for i in solo:
+        span_buckets.append([(i, 0, leaves[i].numel())])
+    return ReduceScatterPlan(
+        buckets=tuple(tuple(b) for b in span_buckets),
+        shapes=tuple(tuple(int(d) for d in leaf.shape) for leaf in leaves),
+        dtypes=tuple(dtype_name(leaf.dtype) for leaf in leaves),
+        axis_size=int(axis_size), lowrank=lowrank)
+
+
+def _is_nccl(group) -> bool:
+    return dist.get_backend(group) == "nccl"
+
+
+def start_reduce_scatter(flat: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    """Start the reduce-scatter of one padded bucket: returns ``(work,
+    shard)``, the shard valid once ``work`` (None when nothing was sent)
+    is waited on.  ``flat`` is never written."""
+    n, pos = dist.get_world_size(group), dist.get_rank(group)
+    k = flat.numel() // n
+    if not flat.numel():
+        return None, flat[:0]
+    reduce_scatter_calls.add()
+    if _is_nccl(group):
+        out = flat.new_empty(k)
+        return dist.reduce_scatter_tensor(out, flat, op=op, group=group,
+                                          async_op=True), out
+    # gloo's reduce-scatter is missing from some torch releases: the sum
+    # of the whole buffer, then this rank's block.
+    buf = flat.clone()
+    return (dist.all_reduce(buf, op=op, group=group, async_op=True),
+            buf[pos * k:(pos + 1) * k])
+
+
+def start_all_gather(shard: torch.Tensor, group):
+    """Start the all-gather of one shard: returns ``(work, full)``,
+    ``full`` the group's shards in rank order."""
+    n = dist.get_world_size(group)
+    out = shard.new_empty(n * shard.numel())
+    if not out.numel():
+        return None, out
+    all_gather_calls.add()
+    if _is_nccl(group):
+        return dist.all_gather_into_tensor(out, shard.contiguous(),
+                                           group=group, async_op=True), out
+    return dist.all_gather(list(out.chunk(n)), shard.contiguous(),
+                           group=group, async_op=True), out
+
+
+def wait_all(started) -> list:
+    """Wait on each ``(work, result)`` in order; returns the results."""
+    out = []
+    for work, result in started:
+        if work is not None:
+            work.wait()
+        out.append(result)
+    return out
+
+
+def scale(t: torch.Tensor, factor: float) -> torch.Tensor:
+    """``t * factor`` in ``t``'s dtype, the factor rounded to it first
+    (the reference's ``shard * jnp.asarray(factor, shard.dtype)``)."""
+    return _times(t, factor, _same)
+
+
+def fused_reduce_scatter(tensors: Sequence[torch.Tensor], group=None,
+                         mean: bool = True, threshold: Optional[int] = None,
+                         plan: Optional[ReduceScatterPlan] = None,
+                         axis_size: Optional[int] = None):
+    """Reduce-scatter a list of tensors over ``group`` with bucketed
+    fusion: every bucket is flattened, padded to a multiple of the group
+    size and reduce-scattered, so this rank keeps its shard of each.
+    Returns ``(shards, plan)``; :func:`fused_all_gather` is the inverse.
+    ``mean=True`` multiplies each shard by ``1/N`` after the sum."""
+    tensors = list(tensors)
+    if plan is None:
+        n = dist.get_world_size(group) if axis_size is None else axis_size
+        plan = make_reduce_scatter_plan(tensors, n, threshold)
+    if not tensors:
+        return [], plan
+    record_collective_bytes("reduce_scatter", "none",
+                            plan.total_padded_bytes())
+    shards = wait_all([start_reduce_scatter(flat, group)
+                       for flat in plan.concat(tensors)])
+    if mean:
+        shards = [scale(s, 1.0 / plan.axis_size) for s in shards]
+    return shards, plan
+
+
+def fused_hierarchical_reduce_scatter(
+        tensors: Sequence[torch.Tensor], ici_group, dcn_group,
+        mean: bool = True, threshold: Optional[int] = None,
+        plan: Optional[ReduceScatterPlan] = None,
+        axis_size: Optional[int] = None):
+    """Two-level reduce-scatter: over ``ici_group`` (the ranks of this
+    host), then an all-reduce of each 1/ici shard over ``dcn_group`` (this
+    rank's peers on the other hosts), so the inter-host leg carries
+    1/ici of every bucket's bytes.  The plan is over the ici size only:
+    the shards are ici-sharded and replicated over dcn, and feed
+    :func:`fused_all_gather` over ``ici_group``.  ``mean=True`` folds
+    both levels into one ``1/(ici*dcn)`` multiply on the shard."""
+    tensors = list(tensors)
+    ici = dist.get_world_size(ici_group) if axis_size is None else axis_size
+    dcn = dist.get_world_size(dcn_group)
+    if plan is None:
+        plan = make_reduce_scatter_plan(tensors, ici, threshold)
+    if not tensors:
+        return [], plan
+    record_collective_bytes("hier_reduce_scatter", "none",
+                            plan.total_padded_bytes(), level="ici")
+    record_collective_bytes("hier_reduce_scatter", "none",
+                            plan.total_padded_bytes() // max(ici, 1),
+                            level="dcn")
+    shards = wait_all([start_reduce_scatter(flat, ici_group)
+                       for flat in plan.concat(tensors)])
+    started = []
+    for s in shards:
+        work = None
+        if s.numel():
+            allreduce_calls.add()
+            work = dist.all_reduce(s, group=dcn_group, async_op=True)
+        started.append((work, s))
+    shards = wait_all(started)
+    if mean:
+        shards = [scale(s, 1.0 / (plan.axis_size * dcn)) for s in shards]
+    return shards, plan
+
+
+def fused_all_gather(shards: Sequence[torch.Tensor],
+                     plan: ReduceScatterPlan, group=None):
+    """Inverse of :func:`fused_reduce_scatter`: all-gather every bucket's
+    shards back to the full padded buffer, strip the padding and split
+    into tensors in the ORIGINAL leaf order."""
+    shards = list(shards)
+    if len(shards) != len(plan.buckets):
+        raise ValueError(f"plan has {len(plan.buckets)} buckets, got "
+                         f"{len(shards)} shards")
+    record_collective_bytes("all_gather", "none", plan.total_padded_bytes())
+    return plan.split(wait_all([start_all_gather(s, group)
+                                for s in shards]))

@@ -20,12 +20,21 @@ with no gradient on this rank goes out as zeros and, unless it is
 frozen, receives the average, so the replicas stay equal where the
 reference's runtime would wait for a tensor that this rank never
 submits.
+
+``make_training_step`` (reference ``:256-490``) runs the replicated
+update, the ZeRO-1 sharded update (``shard_optimizer=True``) or, for a
+stateful wire codec, the compressed replicated update.  The per-leaf
+paths (``DistributedOptimizer``, ``DistributedGradientTape``) take the
+per-tensor casts; a stateful codec there warns once and falls back to
+none (``:45-75``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+import logging
 import threading
 from typing import Callable, Optional
 
@@ -33,56 +42,48 @@ import torch
 
 from horovod_tpu_torch import basics, resilience
 from horovod_tpu_torch.ops import collective
+from horovod_tpu_torch.ops import compression as compression_mod
+from horovod_tpu_torch.ops import fusion
 from horovod_tpu_torch.ops.collective import Average
+from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.fusion import (_bucket_leaves, fused_psum,
                                           fusion_threshold_bytes)
 from horovod_tpu_torch.topology import data_axis
 
-
-class Compression:
-    """Wire compression for gradients (reference torch binding
-    ``:38-60``): cast before the all-reduce, cast back after."""
-
-    class none:
-        @staticmethod
-        def compress(t):
-            return t, None
-
-        @staticmethod
-        def decompress(t, ctx):
-            return t
-
-    class fp16:
-        @staticmethod
-        def compress(t):
-            if t.dtype in (torch.float32, torch.float64):
-                return t.half(), t.dtype
-            return t, None
-
-        @staticmethod
-        def decompress(t, ctx):
-            return t if ctx is None else t.to(ctx)
+log = logging.getLogger(__name__)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to horovod_tpu_torch yet (ROADMAP.md "
-        f"Queue 1 item 8)")
+_warned_stateful_per_leaf = False
 
 
 def _compression(compression):
-    """The Compression class for ``compression``: a class passes through,
-    ``"none"``/``"fp16"`` name one; the stateful codecs (``"int8"``,
-    ``"powersgd[:r]"``) are not ported."""
-    if not isinstance(compression, str):
+    """The per-tensor :class:`Compressor` for a ``compression=`` of a
+    per-leaf path (reference ``data.py:45-75``): a Compressor class
+    passes through; a codec or a name maps to its cast twin, the default
+    forms consulting ``HOROVOD_COMPRESSION``.  The stateful codecs
+    (``int8``, ``powersgd``) need the bucketed reduce-scatter wire: here
+    they warn once and fall back to no compression."""
+    global _warned_stateful_per_leaf
+    if (isinstance(compression, type)
+            and issubclass(compression, compression_mod.Compressor)
+            and compression is not compression_mod.NoneCompressor):
         return compression
-    spec = compression.strip().lower()
-    if spec in ("", "none", "fp16"):
-        return getattr(Compression, spec or "none")
-    if spec == "int8" or spec.startswith("powersgd"):
-        raise _not_ported(f"compression={compression!r}")
-    raise ValueError(f"unknown compression {compression!r}: expected "
-                     f"'none' or 'fp16'")
+    codec = compression_mod.resolve_codec(
+        None if (isinstance(compression, type)
+                 and issubclass(compression, compression_mod.NoneCompressor))
+        else compression)
+    legacy = compression_mod.as_legacy(codec)
+    if legacy is None:
+        if not _warned_stateful_per_leaf:
+            _warned_stateful_per_leaf = True
+            log.warning(
+                "compression codec %r needs the bucketed reduce-scatter "
+                "wire and does not apply to per-leaf allreduce; falling "
+                "back to uncompressed here (use shard_optimizer=True / "
+                "sharded_update=True, or make_training_step's stateful-"
+                "codec path)", codec.name)
+        return compression_mod.NoneCompressor
+    return legacy
 
 
 # ---------------------------------------------------------------------------
@@ -358,28 +359,55 @@ def DistributedGradientTape(grad_fn: Callable, *,
 
 
 def make_training_step(loss_fn: Callable, model: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer, mesh=None,
-                       axis_name=None, compression=Compression.none,
+                       optimizer, mesh=None, axis_name=None,
+                       compression=Compression.none,
                        shard_optimizer: bool = False):
-    """The replicated-update recipe (reference ``data.py:256``).
+    """The data-parallel training step (reference ``data.py:256``).
 
     ``loss_fn(model, batch) -> scalar loss`` on this rank's shard.  The
     returned ``step(batch) -> mean loss`` takes the gradients of every
-    parameter that requires one, averages them with the fused all-reduce
-    over ``axis_name`` (default: the mesh's group; in the gradients' own
-    dtype, as the reference's SPMD step, where ``DistributedOptimizer``
-    follows the eager plane's numpy promotion), applies
-    ``optimizer.step()`` and runs the step guard (``HOROVOD_STEP_GUARD``,
-    read here once), all in place.  ZeRO (``shard_optimizer=True``) and
-    the stateful codecs are not ported.
+    parameter that requires one, averages them over ``axis_name``
+    (default: the mesh's group), updates the parameters in place and
+    runs the step guard (``HOROVOD_STEP_GUARD``, read here once).
+
+    * Plain: the fused all-reduce, in the gradients' own dtype as the
+      reference's SPMD step (``DistributedOptimizer`` follows the eager
+      plane's numpy promotion), through ``compression``'s per-tensor
+      cast, then ``optimizer.step()`` (a ``torch.optim`` optimizer).
+    * ``shard_optimizer=True``: the ZeRO-1 update
+      (:mod:`horovod_tpu_torch.parallel.zero`) with ``compression`` as
+      its wire codec; ``optimizer`` is a functional
+      :func:`horovod_tpu_torch.optim.sgd` or ``adam``.  ``step.init()``
+      builds the sharded state (the first step does if it was not
+      called); ``step.sharded.state`` holds it, ``step.optimizer`` is
+      the ``ShardedOptimizer``.
+    * A stateful codec (``int8``, ``powersgd``) without
+      ``shard_optimizer``: the gradients ride the codec's
+      reduce-scatter/all-gather pair with error feedback, then
+      ``optimizer.step()``; ``step.init()`` must run first (it builds
+      the bucket plan and the codec state, ``step.wire.plan`` and
+      ``step.wire.state``).
     """
-    if shard_optimizer:
-        raise _not_ported("shard_optimizer=True (ZeRO-1)")
-    compression = _compression(compression)
     group = axis_name if axis_name is not None else data_axis(
         mesh if mesh is not None else basics.mesh())
     params = [p for p in model.parameters() if p.requires_grad]
     policy = resilience.guard_policy()
+    if shard_optimizer:
+        return _make_sharded_training_step(loss_fn, model, params,
+                                           optimizer, group, compression,
+                                           policy)
+    try:
+        codec = compression_mod.resolve_codec(
+            None if (isinstance(compression, type) and issubclass(
+                compression, compression_mod.NoneCompressor))
+            else compression)
+    except TypeError:
+        codec = None   # a custom Compressor: the per-leaf path below
+    if codec is not None and codec.stateful:
+        return _make_compressed_training_step(loss_fn, model, params,
+                                              optimizer, group, codec,
+                                              policy)
+    compression = _compression(compression)
 
     def step(batch):
         loss = loss_fn(model, batch)
@@ -398,4 +426,83 @@ def make_training_step(loss_fn: Callable, model: torch.nn.Module,
             do_update, loss=loss.detach(), grads=grads, group=group,
             policy=policy)
 
+    return step
+
+
+def _make_sharded_training_step(loss_fn, model, params, optimizer, group,
+                                compression, policy):
+    """The ZeRO-1 variant of :func:`make_training_step`."""
+    from horovod_tpu_torch.parallel import zero
+    zopt = zero.sharded_optimizer(optimizer, group, compression=compression)
+    sharded = zero.ShardedUpdate(zopt, params)
+
+    def step(batch):
+        loss = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, params)
+        return resilience.apply_step_guard(
+            lambda: sharded.update(grads), loss=loss.detach(), grads=grads,
+            group=group, policy=policy)
+
+    step.init = sharded.init
+    step.optimizer = zopt
+    step.sharded = sharded
+    return step
+
+
+def _drop_residuals(opt_state):
+    """Every error-feedback residual inside an optimizer state zeroed: a
+    ``ZeroShardedState``'s codec state or a bare ``CodecState``, the
+    state of the compressed replicated step (reference ``data.py:391``,
+    the payload of the chaos layer's ``residual_drop``)."""
+    from horovod_tpu_torch.parallel import zero
+    if isinstance(opt_state, compression_mod.CodecState):
+        return compression_mod.zero_residuals(opt_state)
+    if zero.is_zero_state(opt_state) and opt_state.wire is not None:
+        return dataclasses.replace(
+            opt_state, wire=compression_mod.zero_residuals(opt_state.wire))
+    return opt_state
+
+
+def _make_compressed_training_step(loss_fn, model, params, optimizer, group,
+                                   codec, policy):
+    """The stateful-codec (int8, powersgd) variant of
+    :func:`make_training_step` on the replicated-update path: the
+    gradients ride :func:`~horovod_tpu_torch.ops.compression.
+    compressed_allreduce`, the bucket plan and the rank's error-feedback
+    residuals in ``step.wire``."""
+    import types
+    wire = types.SimpleNamespace(plan=None, state=None)
+
+    def init(tree=None):
+        leaves = params if tree is None else list(tree)
+        wire.plan = fusion.make_reduce_scatter_plan(
+            leaves, torch.distributed.get_world_size(group), codec=codec)
+        wire.state = codec.init_state(wire.plan, leaves[0].device)
+        return wire.state
+
+    def do_update(grads):
+        mean, wire.state = compression_mod.compressed_allreduce(
+            list(grads), group, codec, plan=wire.plan, state=wire.state,
+            mean=True)
+        for p, g in zip(params, mean):
+            p.grad = g
+        optimizer.step()
+        for p in params:
+            p.grad = None
+
+    def step(batch):
+        if wire.plan is None:
+            raise RuntimeError(
+                "call step.init(params) before the first step: the "
+                "compressed wire's bucket plan is derived from the "
+                "parameter tree at init")
+        loss = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, params)
+        return resilience.apply_step_guard(
+            lambda: do_update(grads), loss=loss.detach(), grads=grads,
+            group=group, policy=policy)
+
+    step.init = init
+    step.codec = codec
+    step.wire = wire
     return step

@@ -1,6 +1,7 @@
 """Meshes: named axes as process groups, plus a device.
 
-Counterpart of ``horovod_tpu/topology.py``: ``build_mesh`` (``:24``),
+Counterpart of ``horovod_tpu/topology.py``: ``build_mesh`` (``:24``, with
+the ``("dcn", "ici")`` shape derived from the topology),
 ``data_axis`` (``:92``) and ``mesh_size`` (``:98``).  On the TPU a mesh
 axis names the devices a ``psum`` spans; here one process drives one
 device, so an axis is a ``torch.distributed`` process group and the mesh
@@ -113,7 +114,9 @@ def build_mesh(group: Optional[dist.ProcessGroup] = None, device=None, *,
     Without ``axes``: one data axis over ``group`` (default: every rank).
     With ``axes`` and ``shape``: the grid over every rank of the world
     (``prod(shape)`` must be the world size), one group per slice of each
-    axis and of each set of axes; ``group`` is then the data axis's
+    axis and of each set of axes (``axes=("dcn", "ici")`` without a shape
+    takes hosts x ranks per host from ``hvd.topology()``, reference
+    ``:36-53``); ``group`` is then the data axis's
     (``"data"`` if the mesh has it, else the last axis, as the reference's
     ``data_axis``).  Call it on the main thread of every rank in the same
     order as any other group creation (``hvd.add_process_set``): creating
@@ -130,9 +133,22 @@ def build_mesh(group: Optional[dist.ProcessGroup] = None, device=None, *,
                     groups={("data",): group})
     axes = tuple(axes)
     if shape is None:
-        if len(axes) != 1:
+        n = dist.get_world_size()
+        if axes == ("dcn", "ici"):
+            # The two-level shape from the topology: dcn = hosts, ici =
+            # ranks per host; one host degenerates to (1, n).
+            topo = basics.topology()
+            dcn = max(topo.num_hosts, 1)
+            if n % dcn != 0:
+                raise ValueError(
+                    f"cannot derive ('dcn', 'ici') mesh shape: {n} ranks "
+                    f"do not divide evenly over {dcn} hosts "
+                    f"({topo.hosts}); pass shape= explicitly")
+            shape = (dcn, n // dcn)
+        elif len(axes) != 1:
             raise ValueError(f"shape required for multi-axis mesh {axes}")
-        shape = (dist.get_world_size(),)
+        else:
+            shape = (n,)
     shape = tuple(int(n) for n in shape)
     if len(shape) != len(axes) or len(set(axes)) != len(axes):
         raise ValueError(f"mesh axes {axes} and shape {shape} must pair "

@@ -3,8 +3,9 @@ the device and dtype of its input and returns the size-1 result, the
 control plane answers names submitted in reversed orders and ``join``,
 ``DistributedOptimizer`` trains a small ResNet on ``cuda:0`` exactly as
 the optimizer it wraps, and two ranks on two cards pair names by name
-and join with uneven batches.  Every test here carries the ``cuda`` marker and
-skips without a CUDA device.  This file imports torch and the port only,
+and join with uneven batches, and across cards the parallel LM steps
+(dp x tp x sp, dp x pp, ZeRO-1) match gloo.  Every test here carries the
+``cuda`` marker and skips without a CUDA device.  This file imports torch and the port only,
 so it runs on a GPU host without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda_collective.py -m cuda
@@ -409,3 +410,22 @@ def test_dp_pp_lm_step_nccl_matches_gloo(tmp_path):
     nccl = chip_smoke.run_pipeline_lm_step("nccl", shape, str(tmp_path))
     gloo = chip_smoke.run_pipeline_lm_step("gloo", shape, str(tmp_path))
     chip_smoke.compare_pipeline_lm_step(nccl, gloo)
+
+
+@pytest.mark.cuda
+def test_zero_lm_step_and_two_level_collectives_nccl_match_gloo(tmp_path):
+    """Two ZeRO-1 steps of a small bf16 LM (flash attention, head_dim 64,
+    T 512) under the none and int8 codecs on NCCL ranks, one card each,
+    against the same program on gloo ranks on the CPU, held within
+    ``chip_smoke.py``'s phase 11 (c) tolerances; and on a 2x2 (dcn, ici)
+    mesh (1x2 on two or three cards) the two-level reduce-scatter equal to
+    the flat mean and ``cross_level_psum`` to the flat sum, on values
+    where every sum is exact, NCCL equal to gloo (``-k zero``)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    shape = (2, 2) if n >= 4 else (1, 2)
+    nccl = chip_smoke.run_zero_step("nccl", shape, str(tmp_path))
+    gloo = chip_smoke.run_zero_step("gloo", shape, str(tmp_path))
+    print(chip_smoke.compare_zero_step(nccl, gloo))

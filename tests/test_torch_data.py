@@ -482,11 +482,55 @@ def test_compression_fp16_matches_reference(dtype):
                                 dict(compression="int8"),
                                 dict(compression="powersgd:2")])
 def test_make_training_step_options_not_ported_raise(world1, kw):
+    """The options run now, and raise as the reference's do when misused:
+    the sharded update needs a functional optimizer (a ``torch.optim``
+    one steps in place), and a stateful codec's step needs ``step.init``
+    first (the reference's ``RuntimeError``)."""
     m = _linear()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        thvd.make_training_step(lambda mod, b: mod(b).sum(), m,
-                                torch.optim.SGD(m.parameters(), lr=0.1),
-                                **kw)
+    if kw.get("shard_optimizer"):
+        with pytest.raises(TypeError, match="optim.sgd or "
+                                            "horovod_tpu_torch.optim.adam"):
+            thvd.make_training_step(lambda mod, b: mod(b).sum(), m,
+                                    torch.optim.SGD(m.parameters(), lr=0.1),
+                                    **kw)
+        return
+    step = thvd.make_training_step(lambda mod, b: mod(b).sum(), m,
+                                   torch.optim.SGD(m.parameters(), lr=0.1),
+                                   **kw)
+    with pytest.raises(RuntimeError, match="call step.init"):
+        step(torch.ones(2, 4))
+
+
+@pytest.mark.parametrize("env", [None, "int8"])
+@pytest.mark.parametrize("compression", ["none", "bf16", "fp16", "int8",
+                                         "powersgd:2", "default"])
+def test_per_leaf_compression_matches_jax(monkeypatch, caplog, env,
+                                          compression):
+    """The per-leaf paths' Compressor for each ``compression=`` form, as
+    the reference's ``_legacy_compression``: the casts map to their
+    Compressor, a stateful codec (also one named by HOROVOD_COMPRESSION
+    under the default form) falls back to none with one warning."""
+    if env is None:
+        monkeypatch.delenv("HOROVOD_COMPRESSION", raising=False)
+    else:
+        monkeypatch.setenv("HOROVOD_COMPRESSION", env)
+    monkeypatch.setattr(tdata, "_warned_stateful_per_leaf", False)
+    monkeypatch.setattr(jdata, "_warned_stateful_per_leaf", False)
+    t_arg = tdata.Compression.none if compression == "default" else \
+        compression
+    j_arg = jdata.Compression.none if compression == "default" else \
+        compression
+    with caplog.at_level("WARNING", logger="horovod_tpu_torch"):
+        got = tdata._compression(t_arg)
+        tdata._compression(t_arg)
+    want = jdata._legacy_compression(j_arg)
+    assert got.__name__ == want.__name__
+    warned = [r for r in caplog.records
+              if r.name == "horovod_tpu_torch.parallel.data"]
+    assert len(warned) == (got.__name__ == "NoneCompressor"
+                           and (compression in ("int8", "powersgd:2")
+                                or (compression == "default"
+                                    and env == "int8")))
 
 
 def test_make_training_step_size1_matches_jax_one_device(world1):

@@ -197,3 +197,226 @@ def test_size1_bucket_arithmetic_matches_jax(jax_world, dtype, route):
         np.testing.assert_array_equal(
             g.float().numpy(),
             np.asarray(np.asarray(w).astype(_JNP[dtype]), np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Fusion v2: the reduce-scatter plan, its chunking, the pair on 4 ranks.
+# ---------------------------------------------------------------------------
+
+def _plan_fields(plan):
+    return (plan.buckets, plan.shapes, plan.dtypes, plan.axis_size,
+            plan.lowrank, [plan.padded_size(b)
+                           for b in range(len(plan.buckets))],
+            plan.total_padded_bytes(), plan.total_pad_bytes())
+
+
+@pytest.mark.parametrize("axis_size", [1, 3, 4])
+@pytest.mark.parametrize("cap", [0, 40, 1000, None])
+@pytest.mark.parametrize("threshold", [0, 64, 1000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reduce_scatter_plan_matches_jax(seed, threshold, cap, axis_size):
+    """Buckets as spans, chunks, padding and geometry equal the
+    reference's field for field (``cap=None``: the 32 MiB default)."""
+    specs = _leaf_specs(seed)
+    jl = [jnp.zeros(shape, _JNP[dt]) for shape, dt in specs]
+    tl = [torch.empty(shape, dtype=_TORCH[dt], device="meta")
+          for shape, dt in specs]
+    want = jfusion.make_reduce_scatter_plan(jl, axis_size, threshold,
+                                            cap=cap)
+    got = tfusion.make_reduce_scatter_plan(tl, axis_size, threshold,
+                                           cap=cap)
+    assert _plan_fields(got) == _plan_fields(want)
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_reduce_scatter_plan_with_lowrank_codec_matches_jax(rank):
+    """PowerSGD claims its 2-D float leaves as whole, never chunked
+    buckets at the end of the plan."""
+    from horovod_tpu.ops import compression as jc
+    from horovod_tpu_torch.ops import compression as tc
+    specs = [((16, 8), "float32"), ((37,), "float32"), ((6, 9), "float32"),
+             ((4, 4), "int32"), ((40, 3), "bfloat16"), ((64, 64), "float32")]
+    jl = [jnp.zeros(shape, _JNP[dt]) for shape, dt in specs]
+    tl = [torch.empty(shape, dtype=_TORCH[dt], device="meta")
+          for shape, dt in specs]
+    spec = f"powersgd:{rank}"
+    want = jfusion.make_reduce_scatter_plan(
+        jl, 4, 256, codec=jc.parse_codec(spec), cap=512)
+    got = tfusion.make_reduce_scatter_plan(
+        tl, 4, 256, codec=tc.parse_codec(spec), cap=512)
+    assert _plan_fields(got) == _plan_fields(want)
+    assert got.lowrank and all(got.bucket_leaf_shape(b) is not None
+                               for b in got.lowrank)
+
+
+def test_lm_of_record_plan_matches_jax():
+    """The benchmark of record's 1.23e9 f32 parameters at the default
+    threshold (64 MiB) and cap (32 MiB): the reference's plan, 193
+    buckets, each w1 and w2 (151 MB) cut into 5 chunks."""
+    from horovod_tpu.models import transformer as jtfm
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    kw = dict(vocab_size=32768, d_model=3072, n_heads=24, n_layers=10,
+              d_ff=12288, max_seq=2048)
+    abstract = jax.tree_util.tree_leaves(jtfm.init_abstract(
+        jtfm.TransformerConfig(**kw)))
+    model = tfm.TransformerLM(tfm.TransformerConfig(**kw), device="meta")
+    tl = [p for _, p in convert.lm_ordered_parameters(model)]
+    want = jfusion.make_reduce_scatter_plan(abstract, 1)
+    got = tfusion.make_reduce_scatter_plan(tl, 1)
+    assert _plan_fields(got) == _plan_fields(want)
+    mlp = [i for i, t in enumerate(tl)
+           if tuple(t.shape) in ((3072, 12288), (12288, 3072))]
+    chunks = [sum(1 for bucket in got.buckets for i, _, _ in bucket if i == w)
+              for w in mlp]
+    assert chunks == [5] * 20
+    assert len(got.buckets) == 193
+
+
+@pytest.mark.parametrize("value", [None, "0", "16MiB", "1048576", "1.5k",
+                                   "garbage"])
+def test_max_bucket_bytes_matches_jax(monkeypatch, value):
+    if value is None:
+        monkeypatch.delenv("HOROVOD_MAX_BUCKET_BYTES", raising=False)
+    else:
+        monkeypatch.setenv("HOROVOD_MAX_BUCKET_BYTES", value)
+    assert tfusion.max_bucket_bytes() == jfusion.max_bucket_bytes()
+    assert tfusion.DEFAULT_MAX_BUCKET_BYTES == jfusion.DEFAULT_MAX_BUCKET_BYTES
+
+
+def test_bad_max_bucket_bytes_warns_once(monkeypatch, caplog):
+    from horovod_tpu_torch import config
+    monkeypatch.setattr(config, "_warned_bad_cap", False)
+    monkeypatch.setenv("HOROVOD_MAX_BUCKET_BYTES", "lots")
+    with caplog.at_level("WARNING", logger="horovod_tpu_torch.config"):
+        assert tfusion.max_bucket_bytes() == 32 << 20
+        assert tfusion.max_bucket_bytes() == 32 << 20
+    assert sum("HOROVOD_MAX_BUCKET_BYTES='lots'" in r.message
+               for r in caplog.records) == 1
+
+
+RS_SHAPES = [(6, 5), (37,), (5,), (3, 3, 2), (101,)]
+
+RS_JOB = r'''
+import os, sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import fusion
+
+out = sys.argv[1]
+hvd.init(device="cpu")
+r = hvd.rank()
+x = dict(np.load(os.path.join(out, "inputs.npz")))
+leaves = [torch.from_numpy(x[f"leaf{i}"][r]) for i in range(%(n)d)]
+res = {}
+for cap in (0, 64):
+    plan = fusion.make_reduce_scatter_plan(leaves, 4, 128, cap=cap)
+    for mean in (False, True):
+        fusion.reduce_scatter_calls.reset()
+        fusion.all_gather_calls.reset()
+        fusion.collective_bytes.reset()
+        shards, plan = fusion.fused_reduce_scatter(leaves, mean=mean,
+                                                   plan=plan)
+        full = fusion.fused_all_gather(shards, plan)
+        key = f"{cap}/{mean}"
+        for b, s in enumerate(shards):
+            res[f"{key}/shard{b}"] = s.numpy()
+        for i, f in enumerate(full):
+            res[f"{key}/leaf{i}"] = f.numpy()
+        res[f"{key}/calls"] = np.array([fusion.reduce_scatter_calls.count,
+                                        fusion.all_gather_calls.count,
+                                        len(plan.buckets)])
+        res[f"{key}/bytes"] = np.array([
+            fusion.collective_bytes.total(kind="reduce_scatter"),
+            fusion.collective_bytes.total(kind="all_gather"),
+            plan.total_padded_bytes()])
+# The round trip: every rank's shard of the same buffers, gathered back.
+same = [torch.from_numpy(x[f"leaf{i}"][0]) for i in range(%(n)d)]
+plan = fusion.make_reduce_scatter_plan(same, 4, 64, cap=48)
+own = [plan.shard_slice(b, f, r) for b, f in enumerate(plan.concat(same))]
+for i, f in enumerate(fusion.fused_all_gather(own, plan)):
+    res[f"trip/leaf{i}"] = f.numpy()
+np.savez(os.path.join(out, f"rank{r}.npz"), **res)
+hvd.shutdown()
+'''
+
+
+def _rs_inputs():
+    rng = np.random.default_rng(21)
+    # On a 2^-3 grid: four ranks' f32 sum is exact in any order (gloo and
+    # XLA add the ranks in different orders).
+    return {f"leaf{i}": (np.round(rng.standard_normal((4,) + s) * 8) / 8
+                         ).astype(np.float32)
+            for i, s in enumerate(RS_SHAPES)}
+
+
+def _jax_rs(x, cap, mean):
+    mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+    proto = [jax.ShapeDtypeStruct(s, jnp.float32) for s in RS_SHAPES]
+    plan = jfusion.make_reduce_scatter_plan(proto, 4, 128, cap=cap)
+
+    def fn(*ts):
+        shards, _ = jfusion.fused_reduce_scatter(list(ts), "data", mean=mean,
+                                                 plan=plan)
+        return tuple(shards), tuple(jfusion.fused_all_gather(shards, plan,
+                                                             "data"))
+
+    nb = len(plan.buckets)
+    f = jax.jit(jax.shard_map(
+        fn, mesh=mesh, in_specs=tuple(P("data") for _ in RS_SHAPES),
+        out_specs=(tuple(P("data") for _ in range(nb)),
+                   tuple(P() for _ in RS_SHAPES)), check_vma=False))
+    shards, full = f(*[jnp.asarray(x[f"leaf{i}"].reshape((-1,) + s[1:]))
+                       for i, s in enumerate(RS_SHAPES)])
+    return plan, [np.asarray(a) for a in shards], [np.asarray(a)
+                                                   for a in full]
+
+
+@pytest.fixture(scope="module")
+def rs_results(tmp_path_factory):
+    from torch_support import start_port_job
+    out = tmp_path_factory.mktemp("rs")
+    x = _rs_inputs()
+    np.savez(out / "inputs.npz", **x)
+    finish = start_port_job(RS_JOB % dict(n=len(RS_SHAPES)), str(out),
+                            np_=4, timeout=300, env={"OMP_NUM_THREADS": "1"})
+    want = {(cap, mean): _jax_rs(x, cap, mean) for cap in (0, 64)
+            for mean in (False, True)}
+    ranks, _ = finish()
+    return x, ranks, want
+
+
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("cap", [0, 64])
+def test_four_rank_reduce_scatter_matches_jax(rs_results, cap, mean):
+    """Each rank's shards are its slice of the reference's, bitwise; the
+    all-gather gives the sum (or the mean, a multiply by 1/4 in f32)
+    bitwise; one reduce-scatter and one all-gather a bucket; the logical
+    bytes are the plan's padded bytes each way."""
+    x, ranks, want = rs_results
+    plan, shards, full = want[(cap, mean)]
+    key = f"{cap}/{mean}"
+    for r, got in enumerate(ranks):
+        for b, s in enumerate(shards):
+            k = plan.shard_size(b)
+            np.testing.assert_array_equal(got[f"{key}/shard{b}"],
+                                          s[r * k:(r + 1) * k])
+        for i, f in enumerate(full):
+            np.testing.assert_array_equal(got[f"{key}/leaf{i}"], f)
+            total = x[f"leaf{i}"].sum(0)
+            np.testing.assert_array_equal(
+                got[f"{key}/leaf{i}"],
+                total * np.float32(0.25) if mean else total)
+        calls, gathers, nb = got[f"{key}/calls"]
+        assert calls == gathers == nb == len(plan.buckets)
+        rs, ag, padded = got[f"{key}/bytes"]
+        assert rs == ag == padded == plan.total_padded_bytes()
+
+
+def test_four_rank_all_gather_round_trips_bitwise(rs_results):
+    x, ranks, _ = rs_results
+    for got in ranks:
+        for i in range(len(RS_SHAPES)):
+            np.testing.assert_array_equal(got[f"trip/leaf{i}"],
+                                          x[f"leaf{i}"][0])

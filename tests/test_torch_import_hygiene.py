@@ -24,6 +24,10 @@ def _forbidden(module: str) -> bool:
 
 def test_import_leaves_jax_and_reference_out_of_sys_modules():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.benchmark\n"
+            "import horovod_tpu_torch.ops.compression, "
+            "horovod_tpu_torch.parallel.zero, "
+            "horovod_tpu_torch.parallel.hierarchical, "
+            "horovod_tpu_torch.models.convert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"

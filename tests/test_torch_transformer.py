@@ -408,17 +408,44 @@ def test_converter_round_trip():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(shard_optimizer=True), "item 8"),
-    (dict(compression="int8"), "item 8"),
+    (dict(compression="int8"), "rides the ZeRO reduce-scatter wire"),
+    (dict(compression="fp16"), "rides the ZeRO reduce-scatter wire"),
 ])
 def test_routes_not_ported_raise(port_world, kw, match):
-    """Only ZeRO-1 and wire compression raise, here through the LM
-    benchmark; remat (below), the sequence and tensor-parallel routes (at
-    the end of this file), the decode and the pipelined step run."""
+    """Every route runs (ZeRO-1 and its codecs too: see
+    ``test_run_lm_benchmark_sharded_under_every_codec``); what raises is
+    what the reference refuses: a codec without the ZeRO wire."""
     with pytest.raises(NotImplementedError, match=match):
         benchmark.run_lm_benchmark(d_model=32, n_layers=1, n_heads=2,
                                    vocab_size=64, seq_len=T, batch_size=1,
                                    device="cpu", verbose=False, **kw)
+
+
+@pytest.mark.parametrize("codec", ["none", "bf16", "fp16", "int8",
+                                   "powersgd:2"])
+def test_run_lm_benchmark_sharded_under_every_codec(port_world, codec):
+    """The LM benchmark's ZeRO lane at one rank: under ``none`` the plain
+    step's losses bit for bit (the scatter is the identity, the mean a
+    multiply by 1.0, the flat-bucket sgd the same arithmetic); every
+    codec's losses finite and within the reference's bound
+    (``tests/test_compression.py``) from step 3 on; the state and wire
+    bytes reported."""
+    kw = dict(d_model=32, n_layers=2, n_heads=2, vocab_size=64, seq_len=T,
+              batch_size=2, num_warmup_batches=1, num_batches_per_iter=1,
+              num_iters=5, device="cpu", verbose=False)
+    plain = benchmark.run_lm_benchmark(**kw)
+    res = benchmark.run_lm_benchmark(shard_optimizer=True,
+                                     compression=codec, **kw)
+    assert res["shard_optimizer"] and res["compression"] == codec.split(
+        ":")[0]
+    got, want = res["step_losses"], plain["step_losses"]
+    if codec == "none":
+        assert got == want
+        assert res["optimizer_state_bytes"] == plain["optimizer_state_bytes"]
+    assert all(np.isfinite(got))
+    for a, b in zip(want[2:], got[2:]):
+        assert abs(a - b) <= 0.05 * abs(a) + 1e-3
+    assert res["wire_bytes_per_step"] > 0
 
 
 def _loss_and_grads(tcfg, params, attention, remat):
@@ -594,11 +621,23 @@ def test_no_sequence_axis_routes_match_jax(attention):
 @pytest.mark.parametrize("kw", [dict(shard_optimizer=True),
                                 dict(compression="int8")])
 def test_train_step_options_not_ported_raise(port_world, kw):
+    """ZeRO-1 with a model axis, and a codec without ZeRO-1: the
+    reference's ``NotImplementedError``s word for word
+    (``tests/test_torch_zero.py`` holds them to the reference's)."""
     _, tcfg = _cfgs()
     model = tfm.TransformerLM(tcfg, device="cpu")
     opt = SGD([p for _, p in convert.lm_ordered_parameters(model)], LR,
               0.9)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    if kw.get("shard_optimizer"):
+        from horovod_tpu_torch.topology import build_mesh
+        mesh = build_mesh(axes=("data", "model"), shape=(1, 1))
+        with pytest.raises(NotImplementedError,
+                           match="composes with pure data parallelism"):
+            tfm.make_train_step(model, opt, mesh, model_axis="model", **kw)
+        step = tfm.make_train_step(model, opt, thvd.mesh(), **kw)
+        assert step.init() is step.sharded.state and opt.state is None
+        return
+    with pytest.raises(NotImplementedError, match="rides the ZeRO"):
         tfm.make_train_step(model, opt, thvd.mesh(), **kw)
 
 
