@@ -93,8 +93,34 @@ any failure ends the run with a traceback and a non-zero exit:
    ``cross_level_psum`` on a (dcn, ici) mesh against the flat
    collectives, else one line saying why it did not run.
 
+14. expert parallelism, the resilience ladder and checkpoints: (a) at 4
+   virtual ranks, one expert a rank (the LM of record's MLP, d 3072, d_ff
+   12288, f32 params, bf16 compute), 8192 tokens a rank, ``moe_layer``
+   top-1 (capacity factor 1.25) and top-2 (2.5) and ``moe_layer_ragged``
+   (1.25), forward and backward, held row by row to a one-process
+   oracle with no exchange and, at a small width, to the same call on
+   CPU threads, with ms per call, the tokens that reached no expert and
+   the peak memory (the router skewed so that expert 0 overflows); (b)
+   phase 7's model and batch under
+   ``StepGuard(policy="rollback", snapshot_interval=1)`` for 8 steps,
+   clean and with a NaN gradient at step 5 (a hook on the embedding's
+   gradient): the rollback to step 4, the parameters and momentum equal
+   to the snapshot bit for bit, the following losses equal to the clean
+   run's from step 4 bit for bit, ms/step with the guard and the time
+   of a stage; (c) in the clean run a ``save_async`` overlapping two
+   steps and a ``save`` at step 4, restored into a fresh model and
+   optimizer whose next three losses equal the clean run's bit for bit,
+   with the bytes and the seconds; (d) a small LM on the card preempted
+   at step 3 in a subprocess (exit 75, a checkpoint), resumed in a
+   second to the final loss of an uninterrupted third bit for bit; (e)
+   with 2 or more cards, ``alltoall_ragged`` (with drops),
+   ``moe_layer_ragged`` and a reducescatter whose shape is bad on one
+   rank over NCCL against gloo on the CPU, else one line saying why it
+   did not run.
+
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
-(b), 13 (a) and, for the forward kernel, 12 (a).  It prints one JSON line of
+(b), 13 (a), 14 (b, c) and, for the forward kernel, 12 (a).  It prints
+one JSON line of
 kernel numbers and, last, one JSON line naming the device.  With no GPU
 it exits non-zero and prints no result.
 """
@@ -262,6 +288,53 @@ INT8_WIRE_RATIO = (0.25, 0.01)
 # ("dcn", "ici") mesh the two-level reduce-scatter and cross_level_psum
 # against the flat collectives, on values where every sum is exact.
 ZERO_STEP_CODECS = ("none", "int8")
+# Phase 14 (a): MoE at the LM of record's FFN width on 4 virtual ranks
+# (threads on the one card: NCCL refuses two ranks on one card), one
+# expert a rank, the LM's MLP (w1 [3072, 12288], tanh GELU, w2 [12288,
+# 3072]; f32 params, bf16 compute), T_local = batch 4 x T 2048 tokens, a
+# [3072, 4] router whose column 0 has MOE_ROUTER_SKEW times the others'
+# scale, so expert 0 draws more tokens than its capacity and the drop
+# path runs at full width: (label, layer, router, capacity factor), the
+# defaults of examples/jax_moe.py:68.  Each held row by row (phase 6's
+# limit) to a one-process oracle that routes by code of its own (torch's
+# softmax, argmax and cumsum) and runs every expert on the tokens with no
+# dispatch, buffers or exchange; its gradients leaf by leaf within
+# MOE_GRAD_TOL (||a - b|| / ||b||: the experts' bf16 matmuls see other row
+# batches); at MOE_SMALL width the card's answers held to the same call on
+# CPU threads; and the port's routers on the card held to the CPU's bit
+# for bit on rank 0's first MOE_ROUTE_TOKENS tokens at full width.
+MOE_RANKS = 4
+MOE_VARIANTS = (("moe_layer top1", "dense", "top1", 1.25),
+                ("moe_layer top2", "dense", "top2", 2.5),
+                ("moe_layer_ragged", "ragged", "top1", 1.25))
+MOE_ROUTER_SKEW = 2.0
+MOE_SMALL = dict(d=64, h=256, t=256)
+MOE_GRAD_TOL = 2 ** -6
+MOE_ROUTE_TOKENS = 2048
+MOE_TIMED_RUNS = 2
+# Phase 14 (e) and tests/test_torch_cuda_collective.py: on NCCL ranks
+# against gloo ranks, alltoall_ragged with MOE_A2A_ROWS rows a rank and a
+# capacity of MOE_A2A_CAP (bit for bit), and an f32 moe_layer_ragged at
+# overflow within MOE_F32_TOL.
+MOE_A2A_ROWS, MOE_A2A_CAP = 14, 6
+MOE_F32_TOL = 1e-4
+# Phase 14 (b), (c): phase 7's model and batch under StepGuard(rollback,
+# snapshot_interval=1) for GUARD_STEPS steps: a clean run (a save_async at
+# ASYNC_STEP overlapping the next two steps, a save at CKPT_STEP), a run
+# with a NaN gradient at GUARD_NAN_STEP (a hook on the embedding's
+# gradient: the LM step's mean is fused_pytree_mean, no eager collective,
+# so the nan fault kind has no site there; that run's step has no in-step
+# guard, so the NaN update lands for the StepGuard to repair), and a
+# fresh model restored
+# from CKPT_STEP for the steps after it.  Losses bit for bit.
+GUARD_STEPS = 8
+GUARD_NAN_STEP = 5
+CKPT_STEP = 4
+ASYNC_STEP = 1
+# Phase 14 (d): a small LM on the card (phase 11 (c)'s), preempted at
+# PREEMPT_AT of PREEMPT_STEPS steps in a subprocess, resumed in another.
+PREEMPT_STEPS = 6
+PREEMPT_AT = 3
 # Phase 9 runs phase 4's step (same seed, batch and SGD) through
 # hvd.DistributedOptimizer, which at size 1 adds no hook and no
 # collective, after broadcast_optimizer_state's zero-gradient fill (which
@@ -2365,6 +2438,659 @@ def phase_zero_processes(smi: str) -> None:
           f"the CPU: " + json.dumps(res), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: expert parallelism, the resilience ladder and checkpoints
+# ---------------------------------------------------------------------------
+
+def _moe_expert(p, tok):
+    """One rank's expert: the LM's MLP, f32 params, bf16 compute."""
+    import torch.nn.functional as F
+
+    h = F.gelu(tok.to(torch.bfloat16) @ p["w1"].to(torch.bfloat16),
+               approximate="tanh")
+    return (h @ p["w2"].to(torch.bfloat16)).float()
+
+
+def _moe_inputs(d, h, t, device, seed, n=MOE_RANKS):
+    """x [S, t, d] bf16, router [d, S], w1 [S, d, h], w2 [S, h, d] (f32),
+    the cotangent ct [S, t, d] f32, drawn on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    router = draw(d, n, scale=d ** -0.5)
+    router[:, 0] *= MOE_ROUTER_SKEW
+    return {"x": draw(n, t, d).to(torch.bfloat16), "router": router,
+            "w1": draw(n, d, h, scale=d ** -0.5),
+            "w2": draw(n, h, d, scale=h ** -0.5), "ct": draw(n, t, d)}
+
+
+def _moe_leaves(inp):
+    """Per rank: its tokens, its copy of the router, its expert."""
+    return [{"x": inp["x"][r].clone().requires_grad_(),
+             "router": inp["router"].clone().requires_grad_(),
+             "w1": inp["w1"][r].clone().requires_grad_(),
+             "w2": inp["w2"][r].clone().requires_grad_()}
+            for r in range(MOE_RANKS)]
+
+
+def _moe_grads(ys, leaves, ct):
+    """The gradients of sum_r (y_r * ct_r) for every rank's leaves, one
+    backward over every rank's output; the router's summed over ranks."""
+    loss = sum((y.float() * ct[r]).sum() for r, y in enumerate(ys))
+    keys = ("x", "router", "w1", "w2")
+    flat = torch.autograd.grad(loss, [lv[k] for lv in leaves for k in keys])
+    g = {k: torch.stack(flat[i::len(keys)]) for i, k in enumerate(keys)}
+    g["router"] = g["router"].sum(0)
+    return g
+
+
+def _moe_layer_run(variant, inp):
+    """One forward and backward of ``variant`` on MOE_RANKS virtual ranks
+    on the inputs' device: (y [S, t, d], gradients, share dropped)."""
+    from horovod_tpu_torch.parallel import expert as ep
+    from horovod_tpu_torch.parallel import sequence as sq
+
+    _, layer, router, cf = variant
+    leaves = _moe_leaves(inp)
+
+    def rank(ax):
+        lv = leaves[ax.index]
+        p = {"w1": lv["w1"], "w2": lv["w2"]}
+        if layer == "dense":
+            return ep.moe_layer(lv["x"], lv["router"], _moe_expert, p, ax,
+                                cf, router=router)
+        return ep.moe_layer_ragged(lv["x"], lv["router"], _moe_expert, p,
+                                   ax, cf)
+
+    ys = sq.VirtualAxis(MOE_RANKS).run(rank)
+    grads = _moe_grads(ys, leaves, inp["ct"])
+    y = torch.stack([v.detach() for v in ys])
+    dropped = (y.float().abs().sum(-1) == 0).float().mean().item()
+    return y, grads, dropped
+
+
+def _plain_routes(logits, router: str, capacity: int):
+    """Routing written out with torch's own softmax, argmax and cumsum:
+    for each choice (one for top-1, two for top-2), each token's expert
+    [t], gate [t] and whether it found room in the expert's dense buffer
+    of ``capacity`` slots (every first choice queues before any second)."""
+    import torch.nn.functional as F
+
+    probs = torch.softmax(logits, dim=-1)
+    e = probs.shape[-1]
+    i1 = probs.argmax(-1)
+    p1 = probs.gather(1, i1[:, None])[:, 0]
+    oh1 = F.one_hot(i1, e)
+    pos1 = (oh1.cumsum(0) * oh1).sum(-1) - 1
+    if router == "top1":
+        return [(i1, p1, pos1 < capacity)]
+    masked = probs * (1.0 - oh1.float())
+    i2 = masked.argmax(-1)
+    p2 = masked.gather(1, i2[:, None])[:, 0]
+    oh2 = F.one_hot(i2, e)
+    pos2 = ((oh2.cumsum(0) + oh1.sum(0)) * oh2).sum(-1) - 1
+    denom = p1 + p2 + 1e-9
+    return [(i1, p1 / denom, pos1 < capacity),
+            (i2, p2 / denom, pos2 < capacity)]
+
+
+def _moe_oracle(variant, inp):
+    """The same layer in one process with no dispatch, buffers or
+    exchange, and with routing of its own (:func:`_plain_routes`, not the
+    port's): each token's output is its kept choices' gate-weighted
+    experts' outputs; the ragged layer's buffer of S·capacity rows is
+    granted to source ranks in rank order.  Returns (y, gradients, share
+    of the routed choices that capacity dropped)."""
+    _, layer, router, cf = variant
+    n = MOE_RANKS
+    leaves = _moe_leaves(inp)
+    t = inp["x"].shape[1]
+    capacity = max(int(cf * t / n), 1)
+    logits = [lv["x"].float() @ lv["router"] for lv in leaves]
+    experts = [{"w1": lv["w1"], "w2": lv["w2"]} for lv in leaves]
+    ys = []
+    if layer == "dense":
+        kept = 0.0
+        for r, lv in enumerate(leaves):
+            outs = [_moe_expert(experts[e], lv["x"]) for e in range(n)]
+            y = 0.0
+            for idx, gate, room in _plain_routes(logits[r], router,
+                                                 capacity):
+                kept += room.sum().item()
+                for e in range(n):
+                    w = torch.where(room & (idx == e), gate, 0.0)
+                    y = y + w[:, None] * outs[e]
+            ys.append(y)
+        choices = n * t * (1 if router == "top1" else 2)
+        return (torch.stack([y.detach() for y in ys]),
+                _moe_grads(ys, leaves, inp["ct"]), 1 - kept / choices)
+    routes = [_plain_routes(lg, "top1", capacity)[0] for lg in logits]
+    dest = torch.stack([idx for idx, _, _ in routes])          # [S, t]
+    buf = n * capacity
+    kept = torch.zeros_like(dest, dtype=torch.bool)
+    for j in range(n):
+        mine = dest == j
+        order = torch.cumsum(mine.reshape(-1).long(), 0).reshape(dest.shape)
+        kept |= mine & (order <= buf)
+    for r, lv in enumerate(leaves):
+        gate = routes[r][1]
+        out = torch.zeros_like(lv["x"])
+        for e in range(n):
+            rows = kept[r] & (dest[r] == e)
+            out = out + torch.where(rows[:, None], _moe_expert(
+                experts[e], lv["x"]).to(lv["x"].dtype), 0.0)
+        ys.append(out * gate[:, None].to(lv["x"].dtype))
+    return (torch.stack([y.detach() for y in ys]),
+            _moe_grads(ys, leaves, inp["ct"]),
+            1 - kept.float().mean().item())
+
+
+def _routing_on_card_is_cpus(inp) -> None:
+    """The port's routers on the card against the same calls on the CPU,
+    bit for bit, on rank 0's logits at full width (the first
+    MOE_ROUTE_TOKENS tokens): the CPU's are held to JAX's in the tests,
+    and the card runs the same f32 arithmetic."""
+    from horovod_tpu_torch.parallel import expert as ep
+
+    x = inp["x"][0][:MOE_ROUTE_TOKENS]
+    logits = ep._matmul(x, inp["router"])
+    for route, cf in ((ep.top1_routing, 1.25), (ep.top2_routing, 2.5)):
+        capacity = max(int(cf * MOE_ROUTE_TOKENS / MOE_RANKS), 1)
+        got = route(logits, capacity)
+        want = route(logits.cpu(), capacity)
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        check(same, f"phase 14 (a) {route.__name__} on the card is not "
+              f"the CPU's bit for bit")
+
+
+def _grad_rel(a, b) -> dict:
+    return {k: ((a[k].float() - b[k].float()).norm()
+                / b[k].float().norm()).item() for k in b}
+
+
+def _phase_moe(smi: str) -> None:
+    """Phase 14 (a)."""
+    d, f = LM["d_model"], LM["d_ff"]
+    t = LM["batch_size"] * LM["seq_len"]
+    small = {k: v.cpu() for k, v in _moe_inputs(
+        MOE_SMALL["d"], MOE_SMALL["h"], MOE_SMALL["t"], "cpu", 41).items()}
+    for variant in MOE_VARIANTS:
+        label = variant[0]
+        # The card against CPU threads at a small width.
+        gpu_small = _moe_layer_run(variant, {k: v.cuda()
+                                             for k, v in small.items()})
+        cpu_small = _moe_layer_run(variant, small)
+        ratio = _row_ratio(gpu_small[0].cpu(), cpu_small[0])
+        rel = _grad_rel({k: v.cpu() for k, v in gpu_small[1].items()},
+                        cpu_small[1])
+        check(ratio <= 1 and max(rel.values()) <= MOE_GRAD_TOL,
+              f"phase 14 (a) {label} at d{MOE_SMALL['d']}: the card against "
+              f"CPU threads, row ratio {ratio:.3g}, gradients {rel}")
+        # Full width: against the one-process oracle, then timed.
+        inp = _moe_inputs(d, f, t, "cuda", 42)
+        if variant is MOE_VARIANTS[0]:
+            _routing_on_card_is_cpus(inp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        y, grads, dropped = _moe_layer_run(variant, inp)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        y_ref, g_ref, dropped_choices = _moe_oracle(variant, inp)
+        row = _row_ratio(y, y_ref)
+        grel = _grad_rel(grads, g_ref)
+        check(row <= 1, f"phase 14 (a) {label}: worst row at {row:.3g} of "
+              f"phase 6's limit against the oracle")
+        check(max(grel.values()) <= MOE_GRAD_TOL, f"phase 14 (a) {label}: "
+              f"gradients {grel} against the oracle beyond {MOE_GRAD_TOL}")
+        check(torch.isfinite(y).all().item(), f"phase 14 (a) {label}: y")
+        del y, grads, y_ref, g_ref
+        ms = _wall_ms(lambda: _moe_layer_run(variant, inp), "cuda",
+                      MOE_TIMED_RUNS)
+        print(f"phase 14 (a) {label} capacity factor {variant[3]} at "
+              f"{MOE_RANKS} virtual ranks, T_local {t}, D {d}, d_ff {f}: "
+              f"{ms:.2f} ms per call (forward and backward, every rank) "
+              f"on {smi}; routed choices dropped at capacity "
+              f"{dropped_choices:.4f}, tokens that reached no expert "
+              f"{dropped:.4f}; peak "
+              f"{peak} bytes; against the oracle worst row {row:.4f} of "
+              f"the limit, gradients {json.dumps(grel)}; at d"
+              f"{MOE_SMALL['d']} the card against CPU threads: row "
+              f"{ratio:.4f}, gradients {json.dumps(rel)}", flush=True)
+        del inp
+        torch.cuda.empty_cache()
+
+
+class _LMRun:
+    """Phase 7's model, optimizer and batch, with a step built under the
+    in-step guard ``policy``, and the state that a guard and a checkpoint
+    take."""
+
+    def __init__(self, policy: str = "rollback"):
+        import os
+
+        from horovod_tpu_torch.benchmark import (make_lm_bench_state,
+                                                 make_lm_train_step)
+        from horovod_tpu_torch.models.convert import lm_ordered_parameters
+
+        torch.cuda.empty_cache()
+        self.st = make_lm_bench_state(**LM, momentum_dtype="bfloat16")
+        self.named = lm_ordered_parameters(self.st.model)
+        self.params = [p for _, p in self.named]
+        old = os.environ.get("HOROVOD_STEP_GUARD")
+        os.environ["HOROVOD_STEP_GUARD"] = policy
+        try:
+            self.step = make_lm_train_step(
+                self.st.model, self.st.optimizer, self.st.mesh, self.st.axis,
+                attention="flash", remat="none")
+        finally:
+            if old is None:
+                os.environ.pop("HOROVOD_STEP_GUARD")
+            else:
+                os.environ["HOROVOD_STEP_GUARD"] = old
+
+    @property
+    def trace(self):
+        return self.st.optimizer.trace
+
+    def state(self, step: int) -> dict:
+        return {"params": dict(self.named), "trace": self.trace,
+                "step": step}
+
+    def run(self) -> float:
+        return float(self.step(self.st.tokens, self.st.labels))
+
+
+def _equal_snapshot(guard, run) -> list:
+    """For each parameter, then each trace buffer: equal to the guard's
+    committed host snapshot, bit for bit."""
+    views = guard.lkg._committed[2].views
+    leaves = run.params + list(run.trace)
+    return [torch.equal(p, v.to(p.device)) for p, v in zip(leaves, views)]
+
+
+def _phase_guard_and_checkpoint(smi: str, lm7: dict) -> list:
+    """Phase 14 (b) and (c); returns the flash launches of their runs."""
+    import os
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim import SGDState
+    from horovod_tpu_torch.resilience import GuardEvent, StepGuard
+
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    for c in counters:
+        c.reset()
+    tmp = tempfile.mkdtemp(prefix="hvd_phase14_")
+    try:
+        # The clean run, guarded, with the two saves.
+        run = _LMRun()
+        guard = StepGuard(policy="rollback", snapshot_interval=1)
+        clean, ms, stage, async_ms = [], [], [], []
+        save_s = async_s = None
+        for t in range(GUARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = run.run()
+            _, _, ev = guard.after_step(run.params, run.trace, t, loss)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            check(ev == GuardEvent("ok", t), f"phase 14 (b) clean step {t}: "
+                  f"{ev}")
+            clean.append(loss)
+            stage.append(guard.lkg.last_stage_seconds * 1e3)
+            if ASYNC_STEP < t <= ASYNC_STEP + 2:
+                async_ms.append(dt)
+            elif t not in (ASYNC_STEP, CKPT_STEP):
+                ms.append(dt)
+            if t == ASYNC_STEP:
+                t1 = time.perf_counter()
+                checkpoint.save_async(os.path.join(tmp, "async"),
+                                      run.state(t + 1), step=t + 1)
+                async_s = time.perf_counter() - t1
+            if t == ASYNC_STEP + 2:
+                check(checkpoint.wait_for_async_save() is not None,
+                      "phase 14 (c) the async save failed")
+                async_write = checkpoint.last_async_write_seconds
+                shutil.rmtree(os.path.join(tmp, "async"))
+            if t == CKPT_STEP:
+                t1 = time.perf_counter()
+                path = checkpoint.save(os.path.join(tmp, "ckpt"),
+                                       run.state(t + 1), step=t + 1)
+                save_s = time.perf_counter() - t1
+                check(path is not None, "phase 14 (c) the save failed")
+                nbytes = os.path.getsize(os.path.join(
+                    path, checkpoint.STATE_FILE))
+        for loss in clean:
+            check(loss == loss and abs(loss) != float("inf"),
+                  f"phase 14 (b) clean losses {clean}")
+        timed = lm7.get("step_losses", [])[:GUARD_STEPS - LM_WARMUP_STEPS]
+        check(clean[LM_WARMUP_STEPS:LM_WARMUP_STEPS + len(timed)] == timed,
+              f"phase 14 (b) the guarded clean losses {clean} are not "
+              f"phase 7's {timed} bit for bit")
+        del run, guard
+        # The faulted run: a NaN gradient at GUARD_NAN_STEP.  Its step
+        # has no in-step guard, so the NaN update lands and the loss stays
+        # finite: only the StepGuard's stage can find the state bad, and
+        # only its restore can bring it back.
+        run = _LMRun(policy="off")
+        guard = StepGuard(policy="rollback", snapshot_interval=1)
+        poison = [False]
+        hook = run.params[0].register_hook(
+            lambda g: torch.full_like(g, float("nan")) if poison[0] else g)
+        faulted, events = [], []
+        for t in range(GUARD_STEPS):
+            poison[0] = t == GUARD_NAN_STEP
+            loss = run.run()
+            if t == GUARD_NAN_STEP:
+                bad = not torch.isfinite(run.params[0]).all().item()
+                differ = [not e for e in _equal_snapshot(guard, run)]
+                check(bad and differ[0] and differ[len(run.params)],
+                      f"phase 14 (b) the NaN update did not land: the "
+                      f"embedding finite {not bad}, differs from the "
+                      f"snapshot {differ[0]}, its trace "
+                      f"{differ[len(run.params)]}")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, _, ev = guard.after_step(run.params, run.trace, t, loss)
+            torch.cuda.synchronize()
+            guard_ms = (time.perf_counter() - t1) * 1e3
+            faulted.append(loss)
+            events.append(ev)
+            if t == GUARD_NAN_STEP:
+                rollback_ms = guard_ms
+                check(ev == GuardEvent("rollback", GUARD_NAN_STEP - 1),
+                      f"phase 14 (b) step {t}: {ev}, not a rollback to "
+                      f"step {GUARD_NAN_STEP - 1}")
+                check(all(_equal_snapshot(guard, run)),
+                      "phase 14 (b) the rolled-back parameters and "
+                      "trace are not the step-4 snapshot bit for bit")
+        hook.remove()
+        # The poisoned step's loss is the clean one (its forward ran before
+        # the update); after the rollback the run repeats clean's from the
+        # step after the snapshot.
+        check(faulted[:GUARD_NAN_STEP + 1] == clean[:GUARD_NAN_STEP + 1]
+              and faulted[GUARD_NAN_STEP + 1:]
+              == clean[GUARD_NAN_STEP:GUARD_STEPS - 1],
+              f"phase 14 (b) after the rollback the losses {faulted} are "
+              f"not the clean run's from step {GUARD_NAN_STEP - 1} on, "
+              f"{clean}, bit for bit")
+        del run, guard
+        # A fresh model restored from the save, for the steps after it.
+        run = _LMRun()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = checkpoint.restore(os.path.join(tmp, "ckpt"),
+                                  run.state(0))
+        with torch.no_grad():
+            for name, p in run.named:
+                p.copy_(back["params"][name])
+        run.st.optimizer.state = SGDState(list(back["trace"]))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(back["step"] == CKPT_STEP + 1, f"phase 14 (c) restored step "
+              f"{back['step']}")
+        resumed = [run.run() for _ in range(3)]
+        check(resumed == clean[CKPT_STEP + 1:CKPT_STEP + 4],
+              f"phase 14 (c) the restored run's losses {resumed} are not "
+              f"the uninterrupted run's {clean[CKPT_STEP + 1:]} bit for bit")
+        del run, back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launched = [c.count for c in counters]
+    print(f"phase 14 (b) LM d{LM['d_model']}/L{LM['n_layers']} under "
+          f"StepGuard(rollback, snapshot_interval=1) on {smi}: "
+          f"{statistics.median(ms):.2f} ms/step with the guard (phase 7: "
+          f"{lm7.get('ms_per_step', float('nan')):.2f}), a stage "
+          f"{statistics.median(stage):.2f} ms (median of {len(stage)}); "
+          f"NaN gradient (embedding hook) at step {GUARD_NAN_STEP}, "
+          f"applied by a step with no in-step guard (the embedding went "
+          f"non-finite) -> {events[GUARD_NAN_STEP]} in {rollback_ms:.2f} "
+          f"ms (the verdict and the host snapshot written into the live "
+          f"tensors); parameters and trace equal the "
+          f"step-{GUARD_NAN_STEP - 1} snapshot bit for bit; losses after "
+          f"it equal the clean run's from step {GUARD_NAN_STEP - 1}: "
+          f"{faulted}", flush=True)
+    print(f"phase 14 (c) checkpoint of the LM of record's state on {smi}: "
+          f"{nbytes} bytes written; save {save_s:.3f} s, save_async "
+          f"{async_s:.3f} s blocking (write {async_write:.3f} s on its "
+          f"thread), restore {restore_s:.3f} s; ms/step while the async "
+          f"write ran {[round(v, 2) for v in async_ms]}; three restored "
+          f"steps' losses {resumed} equal the uninterrupted run's bit for "
+          f"bit; flash launches {launched}", flush=True)
+    return launched
+
+
+def _preempt_worker(ckpt_dir: str, mode: str) -> None:
+    """Phase 14 (d)'s training program: the small bf16 LM of phase 11
+    (c) for PREEMPT_STEPS steps; ``preempt`` asks for a preemption at
+    PREEMPT_AT (a save, then exit 75), ``resume`` restores first; prints
+    the final loss's bits."""
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, resilience
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.optim import SGD, SGDState
+
+    hvd.init()
+    cfg = tfm.TransformerConfig(**SP_STEP_LM, dtype=torch.bfloat16)
+    model = tfm.TransformerLM(cfg, device="cuda")
+    model.load_state_dict(convert.lm_params_to_torch(_small_lm_tree(cfg,
+                                                                    21)))
+    named = convert.lm_ordered_parameters(model)
+    opt = SGD([p for _, p in named], 0.1, momentum=0.9,
+              accumulator_dtype=torch.bfloat16)
+    step = tfm.make_train_step(model, opt, hvd.mesh(), attention="flash")
+    toks = np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (SP_STEP_BATCH, cfg.max_seq + 1))
+    tokens = torch.from_numpy(toks[:, :-1].copy()).cuda()
+    labels = torch.from_numpy(toks[:, 1:].copy()).cuda()
+    start = 0
+    if mode == "resume":
+        back = checkpoint.restore(ckpt_dir, {"params": dict(named),
+                                             "trace": opt.trace, "step": 0})
+        with torch.no_grad():
+            for name, p in named:
+                p.copy_(back["params"][name])
+        opt.state = SGDState(list(back["trace"]))
+        start = back["step"]
+    loss = None
+    for t in range(start, PREEMPT_STEPS):
+        loss = float(step(tokens, labels))
+        if mode == "preempt" and t + 1 == PREEMPT_AT:
+            resilience.request_preemption()
+        resilience.maybe_save_and_exit(
+            ckpt_dir, {"params": dict(named), "trace": opt.trace,
+                       "step": t + 1}, t + 1)
+    print(f"final loss {loss.hex()} after step {PREEMPT_STEPS}", flush=True)
+    hvd.shutdown()
+
+
+def _phase_preemption(smi: str) -> None:
+    """Phase 14 (d): preempted in one subprocess, resumed in another, the
+    final loss held to an uninterrupted run's (a third) bit for bit."""
+    import os
+    import tempfile
+
+    from horovod_tpu_torch import checkpoint
+
+    script = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory(prefix="hvd_preempt_") as tmp:
+        def run(mode):
+            return subprocess.run(
+                [sys.executable, script, "--preempt-worker", tmp, mode],
+                capture_output=True, text=True, timeout=300)
+
+        first = run("preempt")
+        check(first.returncode == 75, f"phase 14 (d) the preempted run "
+              f"exited {first.returncode}, not 75: {first.stderr[-2000:]}")
+        saved = checkpoint.latest_step(tmp)
+        check(saved == PREEMPT_AT, f"phase 14 (d) left step {saved}")
+        second = run("resume")
+        whole = run("whole")
+        for res in (second, whole):
+            check(res.returncode == 0, f"phase 14 (d) rc {res.returncode}: "
+                  f"{res.stderr[-2000:]}")
+        final = [ln for ln in second.stdout.splitlines()
+                 if ln.startswith("final")]
+        want = [ln for ln in whole.stdout.splitlines()
+                if ln.startswith("final")]
+        check(final and final == want, f"phase 14 (d) resumed {final}, "
+              f"uninterrupted {want}")
+    print(f"phase 14 (d) preemption on {smi}: rc 75 at step {PREEMPT_AT} "
+          f"with checkpoint step {saved}; the resumed run's {final[0]} "
+          f"equals the uninterrupted run's bit for bit", flush=True)
+
+
+def phase_moe_and_resilience(smi: str, lm7: dict) -> list:
+    """Phase 14 (a)-(d); returns the flash launches of (b) and (c)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _phase_moe(smi)
+    launched = _phase_guard_and_checkpoint(smi, lm7)
+    _phase_preemption(smi)
+    return launched
+
+
+def _moe_process_worker(rank, size, addr, backend, out_dir):
+    """Phase 14 (e)'s program on one rank of ``size``: the ragged
+    all-to-all (payloads naming sender, destination and row; a capacity
+    that drops rows; the gradient), an f32 ``moe_layer_ragged`` forward
+    and backward at overflow, and a reducescatter whose shape is bad on
+    one rank."""
+    import os
+
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.parallel import expert as ep
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    hvd.init(device=None if backend == "nccl" else "cpu")
+    try:
+        dev = hvd.mesh().device
+        out = {}
+        splits, rows = _ragged_payload(size)
+        x = torch.from_numpy(rows[rank]).to(dev).requires_grad_()
+        o, recv = C.alltoall_ragged(x, torch.from_numpy(splits[rank]),
+                                    MOE_A2A_CAP, None)
+        gx, = torch.autograd.grad((o ** 2).sum(), x)
+        out["a2a"] = [o.detach().cpu(), recv.cpu(), gx.cpu()]
+        inp = _moe_inputs(32, 64, 64, "cpu", 52, n=size)
+        lv = {k: (inp[k][rank] if k != "router" else inp[k]).clone().to(
+            dev).float().requires_grad_() for k in ("x", "router", "w1",
+                                                   "w2")}
+        y = ep.moe_layer_ragged(
+            lv["x"], lv["router"],
+            lambda p, tok: torch.tanh(tok @ p["w1"]) @ p["w2"],
+            {"w1": lv["w1"], "w2": lv["w2"]}, None, 0.75)
+        grads = torch.autograd.grad(
+            (y * inp["ct"][rank].to(dev)).sum(), list(lv.values()))
+        out["moe"] = [y.detach().cpu()] + [g.cpu() for g in grads]
+        t0 = time.perf_counter()
+        try:
+            hvd.reducescatter(torch.ones(2 * size + (rank > 0), device=dev),
+                              name="phase14.bad.rs")
+            out["bad"] = "no error"
+        except RuntimeError as e:
+            out["bad"] = str(e)
+        out["bad_seconds"] = time.perf_counter() - t0
+        torch.save(out, f"{out_dir}/moe_{backend}{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def _ragged_payload(size: int):
+    """Per rank: splits [size] and rows [MOE_A2A_ROWS, 3], row i of the
+    block for d carrying (sender, d, i); rows past sum(splits) junk."""
+    import numpy as np
+
+    g = np.random.default_rng(51)
+    splits = g.integers(0, 4, size=(size, size)).astype(np.int64)
+    rows = np.full((size, MOE_A2A_ROWS, 3), -777.0, np.float32)
+    for s in range(size):
+        k = 0
+        for d in range(size):
+            for i in range(splits[s, d]):
+                rows[s, k] = (s, d, i)
+                k += 1
+    return splits, rows
+
+
+def run_moe_processes(backend: str, size: int, out_dir: str) -> list:
+    """Phase 14 (e)'s program on ``size`` ranks over ``backend`` (NCCL:
+    one card a rank; gloo: the CPU)."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    mp.start_processes(_moe_process_worker,
+                       args=(size, addr, backend, out_dir), nprocs=size,
+                       start_method="spawn")
+    return [torch.load(f"{out_dir}/moe_{backend}{r}.pt", weights_only=False)
+            for r in range(size)]
+
+
+def compare_moe_processes(nccl: list, gloo: list) -> dict:
+    """NCCL's answers against gloo's: the ragged exchange and its gradient
+    bit for bit, the f32 MoE layer and its gradients within MOE_F32_TOL
+    (||a - b|| / ||b||), the bad reducescatter failing every rank with the
+    coordinator's words within 10 s."""
+    size = len(nccl)
+    words = (f"Mismatched reducescatter tensor shapes for tensor "
+             f"phase14.bad.rs.")
+    worst = 0.0
+    for r, (a, b) in enumerate(zip(nccl, gloo)):
+        for x, y in zip(a["a2a"], b["a2a"]):
+            check(torch.equal(x, y), f"phase 14 (e) rank {r}: the ragged "
+                  f"all-to-all over NCCL differs from gloo's")
+        for x, y in zip(a["moe"], b["moe"]):
+            rel = ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+        for res in (a, b):
+            check(res["bad"] == words and res["bad_seconds"] < 10,
+                  f"phase 14 (e) rank {r}: the bad reducescatter gave "
+                  f"{res['bad']!r} after {res['bad_seconds']:.1f} s")
+    check(worst <= MOE_F32_TOL, f"phase 14 (e) moe_layer_ragged over NCCL "
+          f"{worst:.3g} from gloo's")
+    return {"ranks": size, "moe_worst_rel": worst,
+            "bad_seconds": max(r["bad_seconds"] for r in nccl)}
+
+
+def phase_moe_processes(smi: str) -> None:
+    """Phase 14 (e): across NCCL processes, where the host has the cards
+    for it."""
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 14 (e) did not run: {n} CUDA device here, and the "
+              f"ragged exchange and the coordinator's shape check across "
+              f"NCCL processes need one card a rank (NCCL refuses two ranks "
+              f"on one card)", flush=True)
+        return
+    size = min(n, 4)
+    with tempfile.TemporaryDirectory() as out:
+        nccl = run_moe_processes("nccl", size, out)
+        gloo = run_moe_processes("gloo", size, out)
+    print(f"phase 14 (e): alltoall_ragged (capacity {MOE_A2A_CAP}, with "
+          f"drops), moe_layer_ragged (f32, overflow) and a bad "
+          f"reducescatter over NCCL on {size} cards ({smi}) against gloo "
+          f"on the CPU: " + json.dumps(compare_moe_processes(nccl, gloo)),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2390,11 +3116,14 @@ def main() -> int:
     phase_pipeline_processes(smi)
     zero = phase_zero(smi, lm_summary)
     phase_zero_processes(smi)
+    guard = phase_moe_and_resilience(smi, lm_summary)
+    phase_moe_processes(smi)
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
-                           zero):
+                           zero, guard):
         check(all(count), f"{row['name']} did not launch on every path: "
-              f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a) {count}")
+              f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a), 14 (b, c) "
+              f"{count}")
         row["launches"] = sum(count)
     flash_rows[0]["launches"] += decode[0]
     hvd.shutdown()
@@ -2407,4 +3136,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--preempt-worker"]:
+        _preempt_worker(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

@@ -6,10 +6,12 @@ CPU), the ``hvd.*`` collectives with their async handles, process sets
 and ``join`` on a name-negotiating control plane,
 ``DistributedOptimizer`` and the state broadcasts, the callbacks, the
 data-parallel mesh, fused gradient averaging, the ZeRO-1 sharded update
-and its wire codecs, the step guard,
-ResNet v1.5, the transformer LM with its flash-attention kernels, and
-the synthetic training benchmarks.  The package imports ``torch`` and
-never JAX or any module of ``horovod_tpu``.
+and its wire codecs, expert parallelism (``parallel.expert``),
+checkpoints (``hvd.checkpoint``), the step guard and its host-side
+ladder (``hvd.StepGuard``, last-known-good, the divergence sentinel,
+preemption), ResNet v1.5, the transformer LM with its flash-attention
+kernels, and the synthetic training benchmarks.  The package imports
+``torch`` and never JAX or any module of ``horovod_tpu``.
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -72,6 +74,7 @@ from horovod_tpu_torch.ops.collective import (  # noqa: F401
     allreduce_async,
     allreduce_async_,
     alltoall,
+    alltoall_ragged,
     barrier,
     broadcast,
     broadcast_,
@@ -114,6 +117,12 @@ from horovod_tpu_torch.callbacks import (  # noqa: F401
     scaled_lr,
     warmup_schedule,
 )
-from horovod_tpu_torch.resilience import apply_step_guard  # noqa: F401
+from horovod_tpu_torch import checkpoint  # noqa: F401
+from horovod_tpu_torch import resilience  # noqa: F401
+from horovod_tpu_torch.resilience import (  # noqa: F401
+    StepGuard,
+    apply_step_guard,
+    report_progress,
+)
 
 __version__ = "0.1.0"

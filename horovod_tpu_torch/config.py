@@ -59,6 +59,14 @@ _var("HOROVOD_TRANSPORT_CODECS", "str", "",
      "Per-link-level codec overrides, e.g. cross:fp16,local:none")
 _var("HOROVOD_STEP_GUARD", "str", "off",
      "NaN/Inf step-guard policy: off|skip|rollback|abort")
+_var("HOROVOD_LKG_INTERVAL", "int", 1,
+     "StepGuard: stage a last-known-good snapshot every N validated steps")
+_var("HOROVOD_SENTINEL_INTERVAL", "int", 0,
+     "StepGuard: compare replica digests every N steps; 0 disables")
+_var("HOROVOD_GUARD_NAN_BURST", "int", 1,
+     "StepGuard: consecutive bad steps before a rollback fires")
+_var("HOROVOD_FAULT_SPEC", "str", "",
+     "Value-fault rules for the eager collectives (nan, corrupt[:N])")
 _var("HOROVOD_FLASH_AUTO_MIN_T", "int", 1024,
      "attention='auto' picks the flash kernel from this sequence length up")
 _var("HOROVOD_CYCLE_TIME", "float", 1.0,

@@ -10,7 +10,8 @@ with ``lm_params_to_torch`` and ``lm_state_dict_to_params``, and as
 Megatron shards with ``lm_params_to_shards`` and ``lm_shards_to_params``,
 and as a pipe rank's ``PipelineLM`` with ``lm_pipeline_to_rank`` and
 ``lm_rank_to_pipeline``.  A ZeRO-1 optimizer state crosses with
-``zero_state_to_torch`` and ``zero_state_to_arrays``.
+``zero_state_to_torch`` and ``zero_state_to_arrays``, and the MoE
+example's parameters with ``moe_params_to_torch``.
 """
 
 from __future__ import annotations
@@ -338,3 +339,21 @@ def zero_state_to_arrays(state) -> Tuple[Dict, object]:
         wire = tuple([None if t is None else cpu(t) for t in group]
                      for group in (full.rs, full.ag, full.factors))
     return fields, wire
+
+
+def moe_params_to_torch(params: Mapping, rank=None) -> Dict:
+    """The MoE example's numpy parameters (``examples/jax_moe.py``:
+    ``router [D, E]``, ``w1 [E, D, H]``, ``w2 [E, H, D]``, each expert's
+    slice sharded over the expert axis) -> the port's: ``router`` and
+    every other replicated leaf as a tensor, ``experts`` a list of
+    ``{"w1": [D, H], "w2": [H, D]}`` by expert (dense layout: tokens
+    times weight, as the reference).  ``rank`` keeps that expert alone:
+    the parameters a rank of the expert axis holds."""
+    out = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in
+           params.items() if k not in ("w1", "w2")}
+    w1, w2 = np.asarray(params["w1"]), np.asarray(params["w2"])
+    experts = [{"w1": torch.from_numpy(np.array(w1[e], np.float32)),
+                "w2": torch.from_numpy(np.array(w2[e], np.float32))}
+               for e in range(w1.shape[0])]
+    out["experts"] = experts if rank is None else experts[rank]
+    return out

@@ -34,13 +34,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from horovod_tpu_torch import basics
+from horovod_tpu_torch import basics, faults
 from horovod_tpu_torch.native.data_plane import (  # noqa: F401
     calls, divide, scaled)
 from horovod_tpu_torch.native.message import OpType
 from horovod_tpu_torch.native.tensor_queue import (  # noqa: F401
     DUPLICATE_NAME_ERROR_FMT, TensorEntry)
 from horovod_tpu_torch.ops.fusion import dtype_name
+# The SPMD plane's ragged all-to-all (reference ``collective.py:916``) is
+# not negotiated by name: it lives with the other exchanges of an axis.
+from horovod_tpu_torch.parallel.sequence import alltoall_ragged  # noqa: F401
 
 
 class ReduceOp:
@@ -306,6 +309,15 @@ basics.on_shutdown(_reset)
 # The ops: each builds its entries and the function that finishes them
 # ---------------------------------------------------------------------------
 
+def _local_checks() -> bool:
+    """Shape and root checks run here only in a job of one process, as
+    the reference checks only where it has no runtime; in a larger job
+    the op is submitted and the coordinator answers every rank with the
+    same error in the same cycle (``native/controller.py``), so a bad
+    input on one rank never leaves its peers waiting on a name."""
+    return basics.size() == 1
+
+
 def _back(r: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The result in the caller's dtype (float64 -> int truncates toward
     zero, as the torch binding's cast) and on the caller's device."""
@@ -334,9 +346,15 @@ def _allreduce_entry(tensor, op, name, prescale, set_id) -> TensorEntry:
                        arg=op.code, set_id=set_id)
 
 
-def _allreduce_result(raw, tensor, op, postscale, n) -> torch.Tensor:
+def _poisoned(site: str, r: torch.Tensor, name: str) -> torch.Tensor:
+    """The result through the fault hook (``HOROVOD_FAULT_SPEC``'s value
+    kinds); itself when no spec is set."""
+    return faults.corrupt_output(site, r, name, basics.rank())
+
+
+def _allreduce_result(raw, tensor, op, postscale, n, name) -> torch.Tensor:
     r = divide(raw, n) if op is Average else raw
-    return _back(scaled(r, postscale), tensor)
+    return _poisoned("allreduce", _back(scaled(r, postscale), tensor), name)
 
 
 def _allreduces(tensors, names, op, prescale, postscale, set_id, n,
@@ -346,8 +364,8 @@ def _allreduces(tensors, names, op, prescale, postscale, set_id, n,
     entries = [_allreduce_entry(t, op, nm, prescale, set_id)
                for t, nm in zip(tensors, names)]
     return _submit(entries, "allreduce", lambda raws: pick([
-        _allreduce_result(r, t, op, postscale, n)
-        for r, t in zip(raws, tensors)]))
+        _allreduce_result(r, t, op, postscale, n, nm)
+        for r, t, nm in zip(raws, tensors, names)]))
 
 
 def _start_allreduce(tensor, op, name, prescale, postscale, process_set,
@@ -382,15 +400,14 @@ def _start_allgather(tensor, name, process_set, with_rows=False
                      ) -> _Pending:
     set_id, members = _set_args(process_set)
     x = tensor.reshape(1) if tensor.dim() == 0 else tensor
-    entry = TensorEntry(OpType.ALLGATHER,
-                        _auto_name("allgather", name, set_id), x,
-                        set_id=set_id)
+    name = _auto_name("allgather", name, set_id)
+    entry = TensorEntry(OpType.ALLGATHER, name, x, set_id=set_id)
 
     def finish(raws):
         r, rows = _gathered(*raws[0], x)
         if tensor.dim() == 0 and len(members) == 1:
             r = r.reshape(())
-        r = _back(r, tensor)
+        r = _poisoned("allgather", _back(r, tensor), name)
         return (r, rows) if with_rows else r
 
     return _submit([entry], "allgather", finish)
@@ -399,18 +416,18 @@ def _start_allgather(tensor, name, process_set, with_rows=False
 def _start_broadcast(tensor, root_rank, name, process_set,
                      inplace=False) -> _Pending:
     set_id, members = _set_args(process_set)
-    if root_rank not in members:
+    if _local_checks() and root_rank not in members:
         if set_id == 0:
             raise ValueError(f"broadcast root_rank {root_rank} out of "
                              f"range for size {len(members)}")
         raise ValueError(f"broadcast root_rank {root_rank} is not a member "
                          f"of process set {members}")
-    entry = TensorEntry(OpType.BROADCAST,
-                        _auto_name("broadcast", name, set_id), tensor,
-                        arg=root_rank, set_id=set_id)
+    name = _auto_name("broadcast", name, set_id)
+    entry = TensorEntry(OpType.BROADCAST, name, tensor, arg=root_rank,
+                        set_id=set_id)
 
     def finish(raws):
-        r = _back(raws[0], tensor)
+        r = _poisoned("broadcast", _back(raws[0], tensor), name)
         return _into(tensor, r) if inplace else r
 
     return _submit([entry], "broadcast", finish)
@@ -580,18 +597,17 @@ def reducescatter(tensor, op=None, name=None,
         raise ValueError(f"reducescatter supports Average/Sum, got {rop}")
     set_id, members = _set_args(process_set)
     n = len(members)
-    if tensor.dim() == 0 or tensor.shape[0] % n:
+    if _local_checks() and (tensor.dim() == 0 or tensor.shape[0] % n):
         raise ValueError(f"reducescatter needs a first dimension divisible "
                          f"by {n} ranks; got shape "
                          f"{tuple(tensor.shape)}")
-    raw, = _run([TensorEntry(OpType.REDUCESCATTER,
-                             _auto_name("reducescatter", name, set_id),
-                             tensor, arg=rop.code, set_id=set_id)],
-                "reducescatter")
+    name = _auto_name("reducescatter", name, set_id)
+    raw, = _run([TensorEntry(OpType.REDUCESCATTER, name, tensor,
+                             arg=rop.code, set_id=set_id)], "reducescatter")
     out = raw.reshape((tensor.shape[0] // n,) + tuple(tensor.shape[1:]))
     if rop is Average:
         out = divide(out, n)
-    return _back(out, tensor)
+    return _poisoned("reducescatter", _back(out, tensor), name)
 
 
 def alltoall(tensor, splits=None, name=None, process_set=None):
@@ -605,22 +621,25 @@ def alltoall(tensor, splits=None, name=None, process_set=None):
     rows = x.shape[0]
     send = ()
     if splits is None:
-        if rows % n:
+        if _local_checks() and rows % n:
             raise ValueError(f"alltoall first dimension {rows} is not "
                              f"divisible by {n} ranks; pass splits=")
     else:
         send = [int(v) for v in torch.as_tensor(splits).reshape(-1).tolist()]
-        if len(send) != n or sum(send) != rows or min(send) < 0:
+        if _local_checks() and (len(send) != n or sum(send) != rows
+                                or min(send) < 0):
             raise ValueError(f"alltoall splits {send} do not match first "
                              f"dimension {rows} for size-{n} job")
-    (flat, recv), = _run([TensorEntry(
-        OpType.ALLTOALL, _auto_name("alltoall", name, set_id), x,
-        set_id=set_id, splits=send)], "alltoall")
+    name = _auto_name("alltoall", name, set_id)
+    (flat, recv), = _run([TensorEntry(OpType.ALLTOALL, name, x,
+                                      set_id=set_id, splits=send)],
+                         "alltoall")
     out, received = _gathered(flat, recv, x)
+    out = _poisoned("alltoall", _back(out, tensor), name)
     if splits is None:
-        return _back(out, tensor)
-    return _back(out, tensor), torch.tensor(received, dtype=torch.int64,
-                                            device=tensor.device)
+        return out
+    return out, torch.tensor(received, dtype=torch.int64,
+                             device=tensor.device)
 
 
 def barrier(name=None, process_set=None) -> None:

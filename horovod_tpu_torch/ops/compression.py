@@ -56,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import config
-from horovod_tpu_torch.ops import fusion
+from horovod_tpu_torch.ops import _threefry, fusion
 
 log = logging.getLogger(__name__)
 
@@ -531,12 +531,9 @@ class PowerSGDCodec(BucketCodec):
     wire carries ``R(m + n)`` floats instead of ``m n``; the all-gather
     phase rides the bf16 cast.
 
-    The first factor: the reference draws it from
-    ``jax.random.PRNGKey(0x9D + 31 * b)``, which cannot be reproduced
-    without JAX.  The port draws ``torch.randn`` from a CPU
-    ``torch.Generator`` seeded with the same number, so the draw differs
-    (both are standard normal); carry the reference's factor across
-    (``convert.zero_state_to_torch``) to compare the two."""
+    The first factor is the reference's draw,
+    ``jax.random.normal(jax.random.PRNGKey(0x9D + 31 * b), (n, R))``,
+    reproduced bit for bit without JAX (:mod:`._threefry`)."""
 
     rank: int = 4
     name: ClassVar[str] = "powersgd"
@@ -561,9 +558,8 @@ class PowerSGDCodec(BucketCodec):
         if b not in plan.lowrank:
             return None
         _, n_cols = plan.bucket_leaf_shape(b)
-        gen = torch.Generator().manual_seed(0x9D + 31 * b)
-        return torch.randn((n_cols, self.rank), generator=gen,
-                           dtype=torch.float32).to(device)
+        draw = _threefry.normal(0x9D + 31 * b, (n_cols, self.rank))
+        return torch.from_numpy(draw).to(device)
 
     def start_reduce_scatter_bucket(self, b, flat, plan, group, mean,
                                     residual, factor):

@@ -232,6 +232,182 @@ def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     return torch.cat(out, dim=dim)
 
 
+class _AxisMean(torch.autograd.Function):
+    """The mean over a process group; the backward averages the
+    cotangents too (the gradient of the sum of every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _group_mean(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _group_mean(g, ctx.group), None
+
+
+def _group_mean(x, group):
+    out = x.detach().clone().reshape(-1)
+    dist.all_reduce(out, group=group)
+    return (out / dist.get_world_size(group)).reshape(x.shape)
+
+
+def axis_mean(x: torch.Tensor, axis) -> torch.Tensor:
+    """``pmean``: the mean of ``x`` over ``axis``; differentiable."""
+    if axis_size(axis) == 1:
+        return x
+    if isinstance(axis, VirtualRank):
+        every = axis.axis.exchange(axis.index, x)
+        return torch.stack(every).mean(dim=0)
+    return _AxisMean.apply(x, axis)
+
+
+# ---------------------------------------------------------------------------
+# The ragged all-to-all (reference ``ops/collective.py:916-1000``)
+# ---------------------------------------------------------------------------
+
+class _AllToAllV(torch.autograd.Function):
+    """``all_to_all_single`` with per-peer row counts on a process group;
+    the backward is the same exchange with the counts swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.sizes = group, (send, recv)
+        return _exchange_v(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        send, recv = ctx.sizes
+        return _exchange_v(g, ctx.group, recv, send), None, None, None
+
+
+def _exchange_v(x, group, send, recv):
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), list(recv), list(send),
+                           group=group)
+    return out
+
+
+def _ragged_exchange(x, axis, send: List[int], recv: List[int]):
+    """Rows ``x`` grouped by destination (``send[j]`` rows for peer j)
+    out, the rows each source sent in (``recv[i]`` from peer i)
+    concatenated in source order back; differentiable.  A virtual rank
+    swaps the blocks themselves, so autograd follows them with no
+    Function."""
+    if isinstance(axis, VirtualRank):
+        every = axis.axis.exchange(axis.index, list(x.split(send)))
+        return torch.cat([every[i][axis.index] for i in range(len(recv))])
+    return _AllToAllV.apply(x, axis, tuple(send), tuple(recv))
+
+
+def gather_splits(splits, axis, device) -> List[List[int]]:
+    """``m[s][d]``: the rows rank s sends to rank d, for every pair (one
+    all-gather of every rank's splits)."""
+    sp = torch.as_tensor(splits).reshape(1, -1).to(device=device,
+                                                   dtype=torch.int64)
+    if sp.shape[1] != axis_size(axis):
+        raise ValueError(f"alltoall_ragged: {sp.shape[1]} splits for an "
+                         f"axis of {axis_size(axis)} ranks")
+    return all_gather(sp, axis, dim=0).tolist()
+
+
+def _offsets(counts: Sequence[int]) -> List[int]:
+    out, acc = [], 0
+    for c in counts:
+        out.append(acc)
+        acc += c
+    return out
+
+
+def ragged_all_to_all(tensor, m, me: int, output_size: int, axis,
+                      primitive: bool):
+    """:func:`alltoall_ragged` on the gathered split matrix ``m``."""
+    size = len(m)
+    n, trailing = tensor.shape[0], tuple(tensor.shape[1:])
+    sp = list(m[me])
+    recv = [m[i][me] for i in range(size)]
+    in_off = _offsets(sp)
+    if sum(sp) > n:
+        raise ValueError(f"alltoall_ragged: splits {sp} sum past the "
+                         f"{n} rows of the tensor")
+    dev = tensor.device
+    if primitive:
+        # My block lands at each receiver after every lower rank's block;
+        # clamp it to the room left there (every rank derives the same
+        # clamps from the same matrix), so nothing past the static
+        # capacity crosses the wire.
+        out_off = [sum(m[k][j] for k in range(me)) for j in range(size)]
+        send = [max(0, min(output_size - out_off[j], sp[j]))
+                for j in range(size)]
+        at_me = _offsets(recv)
+        land = [max(0, min(output_size - at_me[i], recv[i]))
+                for i in range(size)]
+        rows = torch.tensor([in_off[j] + r for j in range(size)
+                             for r in range(send[j])], dtype=torch.long,
+                            device=dev)
+        got = _ragged_exchange(tensor.index_select(0, rows), axis, send,
+                               land)
+        out = torch.cat([got, got.new_zeros((output_size - got.shape[0],)
+                                            + trailing)])
+        return out
+    # The dense twin: each destination's block padded to n rows (the
+    # worst case, one peer gets everything), a regular exchange, then a
+    # compaction into the capacity buffer.
+    src = [in_off[j] + r for j in range(size) for r in range(sp[j])]
+    slot = [j * n + r for j in range(size) for r in range(sp[j])]
+    buf = tensor.new_zeros((size * n,) + trailing).index_copy(
+        0, torch.tensor(slot, dtype=torch.long, device=dev),
+        tensor.index_select(0, torch.tensor(src, dtype=torch.long,
+                                            device=dev)))
+    ex = _ragged_exchange(buf, axis, [n] * size, [n] * size)
+    at_me = _offsets(recv)
+    take, put = [], []
+    for i in range(size):
+        for r in range(recv[i]):
+            if at_me[i] + r < output_size:
+                take.append(i * n + r)
+                put.append(at_me[i] + r)
+    idx = torch.tensor(take, dtype=torch.long, device=dev)
+    return ex.new_zeros((output_size,) + trailing).index_copy(
+        0, torch.tensor(put, dtype=torch.long, device=dev),
+        ex.index_select(0, idx))
+
+
+def alltoall_ragged(tensor, splits, output_size: int, axis=None,
+                    use_primitive=None):
+    """Uneven all-to-all on the SPMD plane, with a static output capacity
+    (reference ``alltoall_ragged``): the MoE dispatch's exchange.
+
+    ``tensor``: ``[N, ...]`` this rank's rows grouped by destination
+    (rows for peer 0 first, then peer 1, ...); ``splits``: ``[S]`` rows
+    for each peer; ``output_size``: the row capacity of the result.
+    Returns ``(out, received)``: ``out[output_size, ...]`` holds each
+    source's rows in source order (zeros after them), and rows beyond
+    ``output_size`` are dropped (capacity goes to sources in rank
+    order); ``received[S]`` counts the rows each peer sent, before any
+    drop.  One all-gather exchanges the split matrix.
+
+    ``axis`` is a process group (None: the default group) or a
+    :class:`VirtualRank`.  The
+    exchange: on CUDA tensors ``all_to_all_single`` with per-peer row
+    counts, each block clamped to the room left at its receiver; on the
+    CPU the reference's dense twin (each block padded to ``N`` rows, a
+    regular exchange, then a compaction).  ``use_primitive`` forces one
+    (False: the dense twin anywhere).  Differentiable: the backward is
+    the reverse exchange, and dropped and slack rows get zero gradient.
+    It is collective over ``axis`` but not negotiated by name: every
+    rank calls it at the same point, as the reference's ``shard_map``
+    code does."""
+    m = gather_splits(splits, axis, tensor.device)
+    me = axis_index(axis)
+    primitive = (tensor.is_cuda if use_primitive is None
+                 else bool(use_primitive))
+    out = ragged_all_to_all(tensor, m, me, output_size, axis, primitive)
+    received = torch.tensor([m[i][me] for i in range(len(m))],
+                            dtype=torch.int64, device=tensor.device)
+    return out, received
+
+
 # ---------------------------------------------------------------------------
 # Ring attention
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ import torch.distributed as dist
 from horovod_tpu_torch import optim
 from horovod_tpu_torch.ops import compression as compression_mod
 from horovod_tpu_torch.ops import fusion
+from horovod_tpu_torch.tree import children
 
 
 class TreeDef(NamedTuple):
@@ -58,14 +59,13 @@ class TreeDef(NamedTuple):
 
 
 def tree_flatten(tree) -> Tuple[List[torch.Tensor], TreeDef]:
-    if isinstance(tree, dict):
-        keys = tuple(sorted(tree))
-        return [tree[k] for k in keys], TreeDef("dict", keys)
-    if isinstance(tree, (list, tuple)):
-        return list(tree), TreeDef(type(tree).__name__,
-                                   tuple(range(len(tree))))
-    raise TypeError(f"expected a list, tuple or dict of tensors, got "
-                    f"{type(tree).__name__}")
+    node = children(tree)
+    if node is None:
+        raise TypeError(f"expected a list, tuple or dict of tensors, got "
+                        f"{type(tree).__name__}")
+    _, keys, leaves = node
+    kind = "dict" if isinstance(tree, dict) else type(tree).__name__
+    return leaves, TreeDef(kind, tuple(keys))
 
 
 def tree_unflatten(treedef: TreeDef, leaves: Sequence[torch.Tensor]):

@@ -312,6 +312,94 @@ def test_a_peer_that_dies_fails_the_survivors_handles(tmp_path):
     assert float(r0["seconds"]) < 30
 
 
+BAD_INPUT = r'''
+import sys
+import time
+
+import numpy as np
+import torch
+
+import horovod_tpu_torch as thvd
+
+out_dir = sys.argv[1]
+thvd.init(device="cpu")
+r = thvd.rank()
+cases = {
+    # Shapes (4,) and (3,): the second is not divisible by 2 ranks.
+    "reducescatter": lambda: thvd.reducescatter(torch.ones(4 - r),
+                                                name="bad.rs"),
+    # Rank 1's splits sum to 2, its first dimension is 3.
+    "alltoall": lambda: thvd.alltoall(torch.ones(2 + r, 2), splits=[1, 1],
+                                      name="bad.a2a"),
+    # Rank 1's root is out of range.
+    "broadcast": lambda: thvd.broadcast(torch.ones(2), root_rank=5 * r,
+                                        name="bad.bc"),
+    "broadcast_both": lambda: thvd.broadcast(torch.ones(2), root_rank=5,
+                                             name="bad.bc2"),
+}
+out = {}
+for key, fn in cases.items():
+    t0 = time.monotonic()
+    try:
+        fn()
+        msg = "no error"
+    except (RuntimeError, ValueError) as e:
+        msg = f"{type(e).__name__}: {e}"
+    out[key] = np.array(msg)
+    out[key + "/seconds"] = np.array(time.monotonic() - t0)
+out["after"] = thvd.allreduce(torch.ones(2), op=thvd.Sum,
+                              name="bad.after").numpy()
+np.savez(f"{out_dir}/rank{r}.npz", **out)
+thvd.shutdown()
+'''
+
+BAD_INPUT_WORDS = {
+    "reducescatter": "Mismatched reducescatter tensor shapes for tensor "
+                     "bad.rs.",
+    "alltoall": "Alltoall splits of rank 1 sum to 2 but its first dimension "
+                "is 3 (tensor bad.a2a).",
+    "broadcast": "Mismatched broadcast root ranks for tensor bad.bc.",
+    "broadcast_both": "Broadcast root rank 5 out of range for job size 2 "
+                      "(tensor bad.bc2).",
+}
+
+
+def test_a_bad_input_on_one_rank_fails_every_rank_at_once(tmp_path):
+    """Reference ``native/cc/src/controller.cc:1150-1195``: at size > 1 the
+    shape and root checks are the coordinator's, so both ranks get its
+    error in the same cycle (a check on the calling rank alone left its
+    peer stalled for 70 s), and the runtime goes on.  The job's own
+    timeout ends a run in which a rank waits on a name its peer never
+    submitted."""
+    (r0, r1), _ = run_port_job(BAD_INPUT, str(tmp_path), timeout=30)
+    for r, res in enumerate((r0, r1)):
+        for key, words in BAD_INPUT_WORDS.items():
+            assert str(res[key]) == f"RuntimeError: {words}", (r, key)
+            assert float(res[key + "/seconds"]) < 10, (r, key)
+        np.testing.assert_array_equal(res["after"], [2.0, 2.0])
+
+
+@pytest.mark.parametrize("case,words", [
+    ("reducescatter", "reducescatter needs a first dimension divisible by 1 "
+                      "ranks; got shape ()"),
+    ("alltoall", "alltoall splits [2, 1] do not match first dimension 3 for "
+                 "size-1 job"),
+    ("broadcast", "broadcast root_rank 5 out of range for size 1"),
+])
+def test_without_peers_the_checks_stay_local(world1, case, words):
+    """At size 1 the reference has no runtime and checks on the spot
+    (``horovod_tpu/ops/collective.py:498-566``); so does the port."""
+    call = {"reducescatter": lambda: world1.reducescatter(torch.tensor(1.0)),
+            "alltoall": lambda: world1.alltoall(torch.ones(3),
+                                                splits=[2, 1]),
+            "broadcast": lambda: world1.broadcast(torch.ones(2), 5)}[case]
+    with pytest.raises(ValueError) as e:
+        call()
+    assert str(e.value) == words
+    assert world1.allreduce(torch.ones(2), op=world1.Sum).tolist() == [
+        1.0, 1.0]
+
+
 # ---------------------------------------------------------------------------
 # Size 1, in this process
 # ---------------------------------------------------------------------------

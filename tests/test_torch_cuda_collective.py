@@ -4,9 +4,10 @@ control plane answers names submitted in reversed orders and ``join``,
 ``DistributedOptimizer`` trains a small ResNet on ``cuda:0`` exactly as
 the optimizer it wraps, and two ranks on two cards pair names by name
 and join with uneven batches, and across cards the parallel LM steps
-(dp x tp x sp, dp x pp, ZeRO-1) match gloo.  Every test here carries the
-``cuda`` marker and skips without a CUDA device.  This file imports torch and the port only,
-so it runs on a GPU host without JAX:
+(dp x tp x sp, dp x pp, ZeRO-1) and the ragged MoE exchange match gloo.
+Every test here carries the ``cuda`` marker and skips without a CUDA
+device.  This file imports torch and the port only, so it runs on a GPU
+host without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda_collective.py -m cuda
 """
@@ -429,3 +430,22 @@ def test_zero_lm_step_and_two_level_collectives_nccl_match_gloo(tmp_path):
     nccl = chip_smoke.run_zero_step("nccl", shape, str(tmp_path))
     gloo = chip_smoke.run_zero_step("gloo", shape, str(tmp_path))
     print(chip_smoke.compare_zero_step(nccl, gloo))
+
+
+@pytest.mark.cuda
+def test_ragged_exchange_moe_and_shape_check_nccl_match_gloo(tmp_path):
+    """``alltoall_ragged`` (payloads naming sender, destination and row;
+    a capacity that drops rows; its gradient) bit for bit, an f32
+    ``moe_layer_ragged`` at overflow and its gradients within
+    ``chip_smoke.MOE_F32_TOL``, on NCCL ranks (one card each, up to 4)
+    against gloo ranks on the CPU; and a reducescatter whose shape is bad
+    on one rank fails every rank with the coordinator's words within 10 s
+    (``-k ragged``)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    size = min(n, 4)
+    nccl = chip_smoke.run_moe_processes("nccl", size, str(tmp_path))
+    gloo = chip_smoke.run_moe_processes("gloo", size, str(tmp_path))
+    print(chip_smoke.compare_moe_processes(nccl, gloo))

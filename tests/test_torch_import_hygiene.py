@@ -27,7 +27,11 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
             "import horovod_tpu_torch.ops.compression, "
             "horovod_tpu_torch.parallel.zero, "
             "horovod_tpu_torch.parallel.hierarchical, "
-            "horovod_tpu_torch.models.convert\n"
+            "horovod_tpu_torch.models.convert, "
+            "horovod_tpu_torch.parallel.expert, "
+            "horovod_tpu_torch.checkpoint, horovod_tpu_torch.resilience, "
+            "horovod_tpu_torch.faults, horovod_tpu_torch.ops._threefry, "
+            "horovod_tpu_torch.tree\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
