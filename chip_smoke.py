@@ -117,9 +117,25 @@ any failure ends the run with a traceback and a non-zero exit:
    ``moe_layer_ragged`` and a reducescatter whose shape is bad on one
    rank over NCCL against gloo on the CPU, else one line saying why it
    did not run.
+15. elastic continuity and warm restart, this script acting as the
+   launcher (it sets ``HOROVOD_SPILL_DIR`` and
+   ``HOROVOD_RESTART_ATTEMPT`` for subprocesses): (a) phase 7's model,
+   batch and seeds under ``StepGuard(rollback)`` spilling every third
+   commit, a disk checkpoint at step 1, SIGKILLed right after the
+   unspilled commit of step 3; attempt 1 starts from another seed,
+   ``warm_restore`` must report ``source == "spill"`` at step 2 with the
+   spilled cursor, and every loss of both attempts equals phase 7's at
+   its step bit for bit; the spill's bytes, its seconds by part (host
+   copy, serialization, crc, write, fsync), ms/step with and without a
+   spill and ``warm_restore``'s seconds by part; (b) phase 14 (d)'s small
+   LM whose every spill in attempt 0 is torn by
+   ``kind=spill_corrupt,attempt=0``: attempt 1 (same spec) rejects the
+   spill, restores the disk checkpoint, fires no fault, and its final
+   loss equals an uninterrupted run's bit for bit.  The spill and
+   checkpoint files are deleted when the phase ends.
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
-(b), 13 (a), 14 (b, c) and, for the forward kernel, 12 (a).  It prints
+(b), 13 (a), 14 (b, c), 15 and, for the forward kernel, 12 (a).  It prints
 one JSON line of
 kernel numbers and, last, one JSON line naming the device.  With no GPU
 it exits non-zero and prints no result.
@@ -335,6 +351,28 @@ ASYNC_STEP = 1
 # PREEMPT_AT of PREEMPT_STEPS steps in a subprocess, resumed in another.
 PREEMPT_STEPS = 6
 PREEMPT_AT = 3
+# Phase 15 (a): phase 7's model, batch and seeds under StepGuard(rollback,
+# snapshot_interval=1) with HOROVOD_SPILL_INTERVAL=WARM_SPILL_INTERVAL in
+# a subprocess that saves a disk checkpoint at step WARM_DISK_STEP
+# (commits 1-4 at steps 0-3: one spill, at step 2) and SIGKILLs itself
+# right after committing step WARM_KILL_STEP, which was not spilled; a
+# second subprocess from another seed (WARM_SEED) warm-restores and trains
+# to WARM_STEPS.  Its losses bit for bit phase 7's at the same steps.
+# (One spill, not two: a spill of the LM of record costs about 17 s.)
+WARM_SPILL_INTERVAL = 3
+WARM_DISK_STEP = 1
+WARM_KILL_STEP = 3
+WARM_STEPS = 5
+WARM_SEED = 7
+# Phase 15 (b): phase 14 (d)'s small LM, every spill of attempt 0 torn by
+# the spill_corrupt fault (attempt=0), a disk checkpoint at step
+# DISK_RUNG_SAVE; attempt 1 (same fault spec) restores from the disk and
+# trains to DISK_RUNG_STEPS, its final loss bit for bit an uninterrupted
+# run's.
+DISK_RUNG_SAVE = 1
+DISK_RUNG_KILL = 3
+DISK_RUNG_STEPS = 6
+DISK_RUNG_FAULT = "rank=0,site=spill,kind=spill_corrupt,attempt=0"
 # Phase 9 runs phase 4's step (same seed, batch and SGD) through
 # hvd.DistributedOptimizer, which at size 1 adds no hook and no
 # collective, after broadcast_optimizer_state's zero-gradient fill (which
@@ -2667,7 +2705,7 @@ class _LMRun:
     in-step guard ``policy``, and the state that a guard and a checkpoint
     take."""
 
-    def __init__(self, policy: str = "rollback"):
+    def __init__(self, policy: str = "rollback", seed: int = 0):
         import os
 
         from horovod_tpu_torch.benchmark import (make_lm_bench_state,
@@ -2675,7 +2713,8 @@ class _LMRun:
         from horovod_tpu_torch.models.convert import lm_ordered_parameters
 
         torch.cuda.empty_cache()
-        self.st = make_lm_bench_state(**LM, momentum_dtype="bfloat16")
+        self.st = make_lm_bench_state(**LM, momentum_dtype="bfloat16",
+                                      seed=seed)
         self.named = lm_ordered_parameters(self.st.model)
         self.params = [p for _, p in self.named]
         old = os.environ.get("HOROVOD_STEP_GUARD")
@@ -2957,6 +2996,292 @@ def phase_moe_and_resilience(smi: str, lm7: dict) -> list:
     return launched
 
 
+def _warm_worker(tmp: str, attempt: str) -> None:
+    """Phase 15 (a)'s training program, one launcher attempt: the LM of
+    record under StepGuard(rollback) with the spill directory and the
+    attempt from the environment, warm-restored first.  Attempt 0 saves
+    the disk checkpoint and dies by SIGKILL right after committing
+    WARM_KILL_STEP; attempt 1 starts from WARM_SEED and trains to
+    WARM_STEPS.  Prints one ``WARM {json}`` line before it ends (or
+    dies)."""
+    import os
+    import signal
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, resilience
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    hvd.init()
+    run = _LMRun(seed=0 if attempt == "0" else WARM_SEED)
+    guard = resilience.StepGuard(policy="rollback", snapshot_interval=1)
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    for c in counters:
+        c.reset()
+    ckpt = os.path.join(tmp, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, committed, source, extra = resilience.warm_restore(
+        run.params, run.trace, ckpt_dir=ckpt)
+    torch.cuda.synchronize()
+    out = {"attempt": attempt, "source": source, "committed": committed,
+           "extra": extra, "restore_s": time.perf_counter() - t0,
+           "restore": dict(resilience.last_restore), "losses": {},
+           "step_ms": {}, "spills": {}}
+    for t in range(committed + 1, WARM_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = run.run()
+        guard.spill_extra["cursor"] = t
+        resilience.last_spill.clear()
+        _, _, ev = guard.after_step(run.params, run.trace, t, loss)
+        torch.cuda.synchronize()
+        out["step_ms"][t] = (time.perf_counter() - t1) * 1e3
+        out["losses"][t] = loss
+        check(ev.action == "ok", f"phase 15 (a) attempt {attempt} step "
+              f"{t}: {ev}")
+        if resilience.last_spill:
+            out["spills"][t] = dict(resilience.last_spill)
+        if attempt == "0" and t == WARM_DISK_STEP:
+            t1 = time.perf_counter()
+            check(checkpoint.save(ckpt, {"params": run.params,
+                                         "opt_state": run.trace,
+                                         "step": t}, step=t) is not None,
+                  "phase 15 (a) the disk checkpoint failed")
+            out["save_s"] = time.perf_counter() - t1
+        if attempt == "0" and t == WARM_KILL_STEP:
+            break
+    out["launches"] = [c.count for c in counters]
+    print("WARM " + json.dumps(out), flush=True)
+    if attempt == "0":
+        # Dies as a lost host would: no unwind, no shutdown.
+        os.kill(os.getpid(), signal.SIGKILL)
+    hvd.shutdown()
+
+
+def _disk_rung_worker(tmp: str, mode: str) -> None:
+    """Phase 15 (b)'s training program: phase 14 (d)'s small LM under
+    StepGuard(rollback), warm-restored first.  ``attempt0`` saves a disk
+    checkpoint at DISK_RUNG_SAVE and stops after DISK_RUNG_KILL (its
+    spills torn by the fault spec); ``attempt1`` trains to
+    DISK_RUNG_STEPS; ``whole`` runs every step with no spill directory.
+    Prints the source, the recovered step, the flash launches and the
+    final loss's bits."""
+    import os
+
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, resilience
+    from horovod_tpu_torch.models import convert
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim import SGD
+
+    hvd.init()
+    cfg = tfm.TransformerConfig(**SP_STEP_LM, dtype=torch.bfloat16)
+    model = tfm.TransformerLM(cfg, device="cuda")
+    model.load_state_dict(convert.lm_params_to_torch(_small_lm_tree(cfg,
+                                                                    21)))
+    named = convert.lm_ordered_parameters(model)
+    params = [p for _, p in named]
+    opt = SGD(params, 0.1, momentum=0.9, accumulator_dtype=torch.bfloat16)
+    step = tfm.make_train_step(model, opt, hvd.mesh(), attention="flash")
+    toks = np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (SP_STEP_BATCH, cfg.max_seq + 1))
+    tokens = torch.from_numpy(toks[:, :-1].copy()).cuda()
+    labels = torch.from_numpy(toks[:, 1:].copy()).cuda()
+    counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    for c in counters:
+        c.reset()
+    guard = resilience.StepGuard(policy="rollback", snapshot_interval=1)
+    ckpt = os.path.join(tmp, "ckpt")
+    _, _, committed, source, _ = resilience.warm_restore(
+        params, opt.trace, ckpt_dir=ckpt)
+    last = DISK_RUNG_KILL if mode == "attempt0" else DISK_RUNG_STEPS - 1
+    loss = None
+    for t in range(committed + 1, last + 1):
+        loss = float(step(tokens, labels))
+        guard.after_step(params, opt.trace, t, loss)
+        if mode == "attempt0" and t == DISK_RUNG_SAVE:
+            checkpoint.save(ckpt, {"params": params, "opt_state": opt.trace,
+                                   "step": t}, step=t)
+    print(f"source {source} committed {committed} launches "
+          f"{[c.count for c in counters]} final loss {loss.hex()} after "
+          f"step {last}", flush=True)
+    hvd.shutdown()
+
+
+def _spill_header_step(path: str):
+    """The step in a spill file's header, or None without a spill there."""
+    from horovod_tpu_torch import resilience
+
+    try:
+        with open(path, "rb") as f:
+            magic, _, step, *_ = resilience._SPILL_HEADER.unpack(
+                f.read(resilience._SPILL_HEADER.size))
+    except (OSError, ValueError):
+        return None
+    return step if magic == resilience.SPILL_MAGIC else None
+
+
+def _phase_warm_restart(smi: str, lm7: dict) -> list:
+    """Phase 15 (a): the LM of record killed after an unspilled commit
+    and warm-restarted from its spill; returns the flash launches."""
+    import os
+    import shutil
+    import tempfile
+
+    script = os.path.abspath(__file__)
+    tmp = tempfile.mkdtemp(prefix="hvd_phase15_")
+    spill = os.path.join(tmp, "spill")
+    try:
+        def attempt(n: str):
+            env = dict(os.environ, HOROVOD_SPILL_DIR=spill,
+                       HOROVOD_RESTART_ATTEMPT=n,
+                       HOROVOD_SPILL_INTERVAL=str(WARM_SPILL_INTERVAL))
+            res = subprocess.run([sys.executable, script, "--warm-worker",
+                                  tmp, n], capture_output=True, text=True,
+                                 timeout=400, env=env)
+            lines = [ln for ln in res.stdout.splitlines()
+                     if ln.startswith("WARM ")]
+            check(lines, f"phase 15 (a) attempt {n} rc {res.returncode} "
+                  f"printed no result: {res.stderr[-3000:]}")
+            return res, json.loads(lines[-1][5:])
+
+        first, a0 = attempt("0")
+        check(first.returncode == -9, f"phase 15 (a) attempt 0 exited "
+              f"{first.returncode}, not by its SIGKILL")
+        spills = sorted(int(t) for t in a0["spills"])
+        newest = max(spills)
+        check(a0["source"] == "fresh" and spills == [
+            t for t in range(WARM_KILL_STEP + 1)
+            if (t + 1) % WARM_SPILL_INTERVAL == 0],
+              f"phase 15 (a) attempt 0: source {a0['source']}, spills at "
+              f"{spills}")
+        on_disk = _spill_header_step(os.path.join(spill, "rank0.spill"))
+        check(on_disk == newest and WARM_DISK_STEP < newest
+              < WARM_KILL_STEP, f"phase 15 (a) the spill on disk holds "
+              f"step {on_disk}; expected {newest}, between the disk "
+              f"checkpoint's {WARM_DISK_STEP} and the last commit "
+              f"{WARM_KILL_STEP}")
+        nbytes = os.path.getsize(os.path.join(spill, "rank0.spill"))
+        second, a1 = attempt("1")
+        check(second.returncode == 0, f"phase 15 (a) attempt 1 rc "
+              f"{second.returncode}: {second.stderr[-3000:]}")
+        check(a1["source"] == "spill" and a1["committed"] == newest
+              and a1["extra"] == {"cursor": newest},
+              f"phase 15 (a) attempt 1 recovered {a1['source']} step "
+              f"{a1['committed']} extra {a1['extra']}; expected the spill "
+              f"at step {newest} with cursor {newest}")
+        timed = lm7.get("step_losses", [])
+        held = {"0": [], "1": []}
+        for run in (a0, a1):
+            for t, loss in run["losses"].items():
+                i = int(t) - LM_WARMUP_STEPS
+                if 0 <= i < len(timed):
+                    held[run["attempt"]].append(int(t))
+                    check(loss == timed[i], f"phase 15 (a) attempt "
+                          f"{run['attempt']} step {t} loss {loss!r} is not "
+                          f"phase 7's {timed[i]!r}")
+        check(len(a1["losses"]) == WARM_STEPS - newest - 1 and all(
+            0 <= int(t) - LM_WARMUP_STEPS < len(timed) for t in a1["losses"]),
+              f"phase 15 (a) attempt 1 ran steps {list(a1['losses'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    parts = {k: round(statistics.median(s[k] for s in a0["spills"].values()),
+                      4) for k in next(iter(a0["spills"].values()))}
+    plain = [a0["step_ms"][str(t)] for t in range(1, WARM_KILL_STEP + 1)
+             if str(t) not in a0["spills"]]
+    spilled = [a0["step_ms"][t] for t in a0["spills"]]
+    print(f"phase 15 (a) LM d{LM['d_model']}/L{LM['n_layers']} killed after "
+          f"committing step {WARM_KILL_STEP} (spills every "
+          f"{WARM_SPILL_INTERVAL} commits, at steps {spills}; disk "
+          f"checkpoint at step {WARM_DISK_STEP}) and warm-restarted from "
+          f"another seed on {smi}: source {a1['source']} at step "
+          f"{a1['committed']}, cursor {a1['extra']['cursor']}; losses of "
+          f"steps {sorted(held['0'])} (attempt 0) and {sorted(held['1'])} "
+          f"(attempt 1) equal phase 7's bit for bit (phase 7 keeps no loss "
+          f"of its {LM_WARMUP_STEPS} warm-up steps, so attempt 0's steps "
+          f"below {LM_WARMUP_STEPS} are not held)", flush=True)
+    print(f"phase 15 (a) a spill: {nbytes} bytes; seconds (median of "
+          f"{len(spilled)}) {json.dumps(parts)}; ms/step with a spill "
+          f"{[round(v, 2) for v in spilled]}, without "
+          f"{[round(v, 2) for v in plain]}; disk save {a0['save_s']:.3f} s; "
+          f"warm_restore {a1['restore_s']:.3f} s "
+          f"{json.dumps({k: v for k, v in a1['restore'].items() if k.endswith('_s')})}; "
+          f"flash launches attempt 0 {a0['launches']}, attempt 1 "
+          f"{a1['launches']}", flush=True)
+    return [x + y for x, y in zip(a0["launches"], a1["launches"])]
+
+
+def _phase_disk_rung(smi: str) -> list:
+    """Phase 15 (b): the ladder's disk rung and the attempt key; returns
+    the flash launches."""
+    import os
+    import re
+    import tempfile
+
+    from horovod_tpu_torch import resilience
+
+    script = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory(prefix="hvd_disk_rung_") as tmp:
+        def run(mode: str, attempt: str):
+            env = dict(os.environ, HOROVOD_RESTART_ATTEMPT=attempt,
+                       HOROVOD_FAULT_SPEC=DISK_RUNG_FAULT,
+                       HOROVOD_SPILL_INTERVAL="1")
+            if mode != "whole":
+                env["HOROVOD_SPILL_DIR"] = os.path.join(tmp, "spill")
+            res = subprocess.run([sys.executable, script, "--disk-worker",
+                                  tmp if mode != "whole" else
+                                  os.path.join(tmp, "whole"), mode],
+                                 capture_output=True, text=True, timeout=300,
+                                 env=env)
+            check(res.returncode == 0, f"phase 15 (b) {mode} rc "
+                  f"{res.returncode}: {res.stderr[-3000:]}")
+            return res
+
+        first = run("attempt0", "0")
+        torn = first.stderr.count("firing kind=spill_corrupt")
+        second = run("attempt1", "1")
+        whole = run("whole", "0")
+        rec = resilience.read_spill(os.path.join(tmp, "spill",
+                                                 "rank0.spill"))
+        spilled = None if rec is None else rec["step"]
+    check(torn == DISK_RUNG_KILL + 1, f"phase 15 (b) attempt 0 tore {torn} "
+          f"spills; expected one a commit, {DISK_RUNG_KILL + 1}")
+    check("firing" not in second.stderr, "phase 15 (b) a fault fired in "
+          "attempt 1: " + second.stderr[-2000:])
+    check(f"source disk committed {DISK_RUNG_SAVE} " in second.stdout,
+          f"phase 15 (b) attempt 1: {second.stdout[-500:]}")
+    check(spilled == DISK_RUNG_STEPS - 1, f"phase 15 (b) attempt 1's spill "
+          f"holds step {spilled}, not a whole one of step "
+          f"{DISK_RUNG_STEPS - 1}")
+    final = re.findall(r"final loss (\S+)", second.stdout)
+    want = re.findall(r"final loss (\S+)", whole.stdout)
+    check(final and final == want, f"phase 15 (b) final loss {final}, "
+          f"uninterrupted {want}")
+    launches = [0, 0, 0]
+    for res in (first, second):
+        got = re.findall(r"launches \[(\d+), (\d+), (\d+)\]", res.stdout)
+        launches = [a + int(b) for a, b in zip(launches, got[0])]
+    print(f"phase 15 (b) small LM on {smi}: attempt 0's {torn} spills torn "
+          f"by {DISK_RUNG_FAULT!r}; attempt 1 rejected the spill, restored "
+          f"the disk checkpoint of step {DISK_RUNG_SAVE}, fired no fault "
+          f"and left a whole spill of step {spilled}; its final loss "
+          f"{final[0]} equals the uninterrupted run's bit for bit", flush=True)
+    return launches
+
+
+def phase_warm_restart(smi: str, lm7: dict) -> list:
+    """Phase 15 (a) and (b); returns their flash launches."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    warm = _phase_warm_restart(smi, lm7)
+    disk = _phase_disk_rung(smi)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    return [a + b for a, b in zip(warm, disk)]
+
+
 def _moe_process_worker(rank, size, addr, backend, out_dir):
     """Phase 14 (e)'s program on one rank of ``size``: the ragged
     all-to-all (payloads naming sender, destination and row; a capacity
@@ -3118,11 +3443,12 @@ def main() -> int:
     phase_zero_processes(smi)
     guard = phase_moe_and_resilience(smi, lm_summary)
     phase_moe_processes(smi)
+    warm = phase_warm_restart(smi, lm_summary)
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
-                           zero, guard):
+                           zero, guard, warm):
         check(all(count), f"{row['name']} did not launch on every path: "
-              f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a), 14 (b, c) "
+              f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a), 14 (b, c), 15 "
               f"{count}")
         row["launches"] = sum(count)
     flash_rows[0]["launches"] += decode[0]
@@ -3138,5 +3464,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--preempt-worker"]:
         _preempt_worker(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--warm-worker"]:
+        _warm_worker(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--disk-worker"]:
+        _disk_rung_worker(*sys.argv[2:4])
         sys.exit(0)
     sys.exit(main())

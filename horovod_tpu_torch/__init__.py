@@ -9,7 +9,9 @@ data-parallel mesh, fused gradient averaging, the ZeRO-1 sharded update
 and its wire codecs, expert parallelism (``parallel.expert``),
 checkpoints (``hvd.checkpoint``), the step guard and its host-side
 ladder (``hvd.StepGuard``, last-known-good, the divergence sentinel,
-preemption), ResNet v1.5, the transformer LM with its flash-attention
+preemption), elastic continuity and warm restart (spill files, the
+recovery ladder, the heartbeat to the launcher, fail-in-place
+``resilience.reform_world``), ResNet v1.5, the transformer LM with its flash-attention
 kernels, and the synthetic training benchmarks.  The package imports
 ``torch`` and never JAX or any module of ``horovod_tpu``.
 
@@ -31,7 +33,9 @@ from horovod_tpu_torch.topology import (  # noqa: F401
 # Imported after the topology submodule, so ``topology`` names the
 # accessor below and not the submodule.
 from horovod_tpu_torch.basics import (  # noqa: F401
+    CoordinatorInfo,
     Topology,
+    coordinator,
     cross_rank,
     cross_size,
     ddl_built,
@@ -57,6 +61,7 @@ from horovod_tpu_torch.basics import (  # noqa: F401
     topology,
     tpu_built,
     tpu_enabled,
+    world_epoch,
 )
 from horovod_tpu_torch.ops.collective import (  # noqa: F401
     Adasum,
@@ -101,6 +106,9 @@ from horovod_tpu_torch.parallel.data import (  # noqa: F401
     broadcast_optimizer_state,
     broadcast_parameters,
     broadcast_variables,
+    elastic_continuity,
+    elastic_shard,
+    elastic_transition,
     make_training_step,
 )
 from horovod_tpu_torch.parallel.zero import (  # noqa: F401

@@ -23,6 +23,13 @@ control group and a data group of its own (NCCL on the GPU), created in
 the same order on every rank, and the runtime's thread.  ``shutdown``
 stops the thread (every rank agrees) and joins it before it destroys the
 groups.
+
+When the launcher runs a health plane (``HOROVOD_HEALTH_RPC``), ``init``
+starts the heartbeat sender under this rank and ``shutdown`` stops it
+(reference ``basics.py:203-217``).  ``world_epoch`` (the in-process
+reformations this world has been through) and ``coordinator`` (the
+launcher's ``HOROVOD_COORD_*`` trio) are the reference's
+``basics.py:275-286`` and ``:392-412``.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ class _State:
         self.group: Optional[dist.ProcessGroup] = None
         self.global_ranks: Tuple[int, ...] = (0,)
         self.runtime = None
+        self.world_epoch = 0
 
 
 _state = _State()
@@ -152,7 +160,12 @@ def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
         _state.device = dev
         _state.group, _state.global_ranks = group, global_ranks
         _state.runtime = runtime
+        _state.world_epoch = config.env_int("HOROVOD_WORLD_EPOCH", 0) or 0
         _state.initialized = True
+    if config.env_raw("HOROVOD_HEALTH_RPC"):
+        # The launcher's health plane listens: push heartbeats from now on.
+        from horovod_tpu_torch import resilience
+        resilience.start_heartbeat(rank=_state.rank)
 
 
 def _subset_group(rank: int, size: int, members: List[int],
@@ -180,14 +193,24 @@ def on_shutdown(fn: Callable[[], None]) -> None:
 
 
 def shutdown() -> None:
-    """Stop the control plane and tear down the process groups ``init``
-    created (reference ``basics.py:211``)."""
+    """Stop the heartbeat and the control plane and tear down the process
+    groups ``init`` created (reference ``basics.py:211``).  After a peer
+    left (the runtime latched a membership change) an NCCL world is
+    aborted, not destroyed: destroying waits on the dead peer."""
+    if config.env_raw("HOROVOD_HEALTH_RPC"):
+        from horovod_tpu_torch import resilience
+        resilience.stop_heartbeat()
     with _state.lock:
         if not _state.initialized:
             return
-        _state.runtime.stop()
+        runtime = _state.runtime
+        runtime.stop()
         for fn in _shutdown_hooks:
             fn()
+        abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+        if (dist.is_initialized() and runtime.membership_changed
+                and abort is not None and dist.get_backend() == "nccl"):
+            abort()
         if dist.is_initialized():
             dist.destroy_process_group()
         _state.reset()
@@ -233,6 +256,32 @@ def cross_rank() -> int:
 def cross_size() -> int:
     _check_initialized()
     return _state.cross_size
+
+
+def world_epoch() -> int:
+    """Membership epoch of the current world: 0 at launch, one more for
+    every in-process reformation this process survived (fail-in-place);
+    ``HOROVOD_WORLD_EPOCH`` as ``init`` found it."""
+    _check_initialized()
+    return _state.world_epoch
+
+
+class CoordinatorInfo(NamedTuple):
+    """The control-plane coordinator as the launcher last exported it
+    (``HOROVOD_COORD_RANK`` / ``_EPOCH`` / ``_ELECTIONS``)."""
+    rank: int
+    epoch: int
+    elections: int
+
+
+def coordinator() -> CoordinatorInfo:
+    """The current coordinator identity, read fresh from the environment
+    on every call (the launcher re-exports it on each restart attempt);
+    works before ``init``."""
+    return CoordinatorInfo(
+        rank=config.env_int("HOROVOD_COORD_RANK"),
+        epoch=config.env_int("HOROVOD_COORD_EPOCH"),
+        elections=config.env_int("HOROVOD_COORD_ELECTIONS"))
 
 
 def runtime():

@@ -79,6 +79,44 @@ _var("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", "float", 0.0,
      "Seconds after which such a name fails on every rank; 0 disables")
 _var("HOROVOD_CACHE_CAPACITY", "int", 1024,
      "Response-cache capacity in names; 0 disables the cache")
+# Elastic continuity, warm restart and fail-in-place (set by the launcher).
+_var("HOROVOD_SPILL_DIR", "str", None,
+     "Host-local scratch dir for warm-restart peer spills (provisioned "
+     "by hvdrun)")
+_var("HOROVOD_SPILL_INTERVAL", "int", 1,
+     "LKG commits between peer-spill writes")
+_var("HOROVOD_RESTART_ATTEMPT", "int", 0,
+     "Elastic attempt counter injected by the launcher")
+_var("HOROVOD_ELASTIC_BATCH_POLICY", "str", "lr_scale",
+     "World-size-change continuity policy: lr_scale|accumulate")
+_var("HOROVOD_ELASTIC_PREV_SIZE", "int", None,
+     "Previous world size injected by the launcher across an elastic "
+     "restart")
+_var("HOROVOD_WORLD_EPOCH", "int", 0,
+     "Membership epoch, bumped by the launcher once per in-process "
+     "reformation; stale reformation specs are discarded against it")
+_var("HOROVOD_ON_RANK_FAILURE", "str", "restart",
+     "Rank-death policy: restart, shrink (survivors reform the world "
+     "in-process) or shrink-then-restart")
+_var("HOROVOD_REFORM_TIMEOUT", "float", 60.0,
+     "Seconds a survivor waits for the launcher's reformation spec "
+     "before falling back to the restart path")
+_var("HOROVOD_HEALTH_RPC", "str", None,
+     "launcher host:port of the heartbeat health plane (set by hvdrun)")
+_var("HOROVOD_HEARTBEAT_INTERVAL", "float", 2.0,
+     "Rank-side heartbeat push cadence in seconds")
+_var("HOROVOD_PARTITION_GRACE_SECONDS", "float", 30.0,
+     "Launcher silence past this fences the rank (exit 75); 0 disables")
+_var("HOROVOD_SECRET_KEY", "str", None,
+     "Base64 HMAC key authenticating the launcher's RPC plane")
+_var("HOROVOD_COORD_RANK", "int", 0,
+     "Global rank currently holding the coordinator lease (injected by "
+     "the launcher after failover)")
+_var("HOROVOD_COORD_EPOCH", "int", 0,
+     "Coordinator lease epoch, bumped by the launcher on each "
+     "re-election")
+_var("HOROVOD_COORD_ELECTIONS", "int", 0,
+     "Coordinator elections so far this job (launcher-injected)")
 
 
 class UnknownEnvVar(KeyError):

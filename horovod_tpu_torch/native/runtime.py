@@ -27,7 +27,14 @@ entry for, with zeros of the response's sizes.  An error response fails
 its names with ``RuntimeError(<message>)`` and the runtime goes on.  If
 the thread dies (an exchange fails because a peer left, or anything
 else raises), every pending and later entry fails with that error:
-nothing falls back to another route.
+nothing falls back to another route.  Under ``HOROVOD_ON_RANK_FAILURE``
+``shrink`` or ``shrink-then-restart`` a failure that means a peer left (a
+connection closed, reset or timed out, a remote abort: :func:`peer_lost`)
+is a :class:`MembershipChangedError` instead, whether the exchange, a
+data-group collective or a wait met it, and so is every failure once one
+has been seen (reference ``native/runtime.py:58``, ``:990-1004``): the
+caller reforms the world (``resilience.reform_world``).  Any other
+failure keeps its plain error and its logged traceback.
 """
 
 from __future__ import annotations
@@ -68,6 +75,36 @@ SHUTDOWN_TIMEOUT_S = 30.0
 CONTROL_TIMEOUT = datetime.timedelta(seconds=60)
 
 
+SHRINK_POLICIES = ("shrink", "shrink-then-restart")
+
+# What gloo, NCCL and the store say when the other end of a connection is
+# gone: closed, reset or refused, a broken pipe, a timed-out wait, a
+# remote abort.
+_PEER_LOSS_WORDS = ("connection closed", "closed by peer",
+                    "connection reset", "connection refused", "broken pipe",
+                    "timed out", "timeout", "remote process",
+                    "ncclremoteerror", "aborted")
+
+
+def peer_lost(exc: BaseException) -> bool:
+    """True when ``exc`` is the failure a dead peer causes."""
+    kinds = (ConnectionError, TimeoutError) + tuple(
+        k for k in (getattr(dist, "DistNetworkError", None),
+                    getattr(dist, "DistStoreError", None)) if k is not None)
+    if isinstance(exc, kinds):
+        return True
+    text = str(exc).lower()
+    return any(w in text for w in _PEER_LOSS_WORDS)
+
+
+class MembershipChangedError(RuntimeError):
+    """The collective world changed under this op: a peer died and
+    ``HOROVOD_ON_RANK_FAILURE`` allows in-process reformation.  The
+    caller (``resilience.reform_world``) tears the old world down,
+    re-inits on the launcher's reformation spec and recovers the state
+    from the warm-restore ladder instead of exiting."""
+
+
 class Runtime:
     """This process's control plane over ``ctrl_group`` (gloo) and
     ``data_group``, for hvd rank ``rank`` of ``size``.  ``global_ranks``
@@ -89,6 +126,9 @@ class Runtime:
             0: data_plane.DataGroup(data_group, range(size), rank,
                                     self.global_ranks, device)}
         self.joined = False
+        self.shrink = (config.env_str("HOROVOD_ON_RANK_FAILURE").strip()
+                       .lower() in SHRINK_POLICIES)
+        self.membership_changed = False
         self.cycles = 0
         self.cycle_seconds = 0.0
         self._shutting_down = False
@@ -104,6 +144,9 @@ class Runtime:
 
     def submit(self, entries: Sequence[TensorEntry], kind: str) -> None:
         """File ``entries`` for the next cycle (a short append)."""
+        if self.shrink:
+            for e in entries:
+                e.on_error = self._membership_error
         self.queue.add(entries, kind)
         requests.count += len(entries)
         self._wake.set()
@@ -123,6 +166,26 @@ class Runtime:
                         timeout)
             self.queue.close(RuntimeError(SHUTDOWN_ERROR))
 
+    def _peer_left(self, exc: BaseException) -> MembershipChangedError:
+        """Latch a membership change (shrink policies only): every pending
+        and later entry fails with the error returned."""
+        self.membership_changed = True
+        error = MembershipChangedError(
+            f"horovod_tpu_torch runtime: the world changed (a peer left): "
+            f"{type(exc).__name__}: {exc}")
+        self.queue.close(error)
+        return error
+
+    def _membership_error(self, exc: BaseException
+                          ) -> Optional[MembershipChangedError]:
+        """Under a shrink policy, the error that fails every entry when
+        ``exc`` means a peer left or a change is latched already; None
+        when ``exc`` keeps its own error."""
+        if not self.shrink or not (self.membership_changed
+                                   or peer_lost(exc)):
+            return None
+        return self._peer_left(exc)
+
     # -- the thread -------------------------------------------------------------
 
     def _run(self) -> None:
@@ -134,6 +197,11 @@ class Runtime:
                 pass
             error: BaseException = RuntimeError(SHUTDOWN_ERROR)
         except Exception as e:  # the thread's boundary: fail, never hang
+            if self._membership_error(e) is not None:
+                log.warning("horovod_tpu_torch runtime: the control plane "
+                            "stopped (%s: %s); the world changed",
+                            type(e).__name__, e)
+                return
             log.exception("horovod_tpu_torch runtime: the control plane "
                           "stopped")
             error = RuntimeError(
@@ -209,8 +277,10 @@ class Runtime:
         except Exception as exc:  # a data group failed: fail these names
             log.exception("horovod_tpu_torch runtime: %s of %s failed",
                           resp.op_type.name.lower(), resp.names)
+            error = (self._membership_error(exc)
+                     or RuntimeError(f"{type(exc).__name__}: {exc}"))
             for _, e in taken:
-                e.fail(RuntimeError(f"{type(exc).__name__}: {exc}"))
+                e.fail(error)
             return
         for i, e in taken:
             e.launch(works, outputs[i], done)

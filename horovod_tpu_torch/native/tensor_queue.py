@@ -57,6 +57,11 @@ class TensorEntry:
         self.output: Optional[Callable[[], object]] = None
         self.done_event: Optional[torch.cuda.Event] = None
         self.error: Optional[BaseException] = None
+        # What a failed wait raises in place of the work's own error, or
+        # None to keep it (the runtime sets it under a shrink policy: a
+        # peer left).
+        self.on_error: Optional[Callable[[BaseException],
+                                         Optional[BaseException]]] = None
 
     def request(self, rank: int) -> Request:
         t = self.tensor
@@ -96,8 +101,14 @@ class TensorEntry:
         self._launched.wait()
         if self.error is not None:
             raise self.error
-        for w in self.works:
-            w.wait()
+        try:
+            for w in self.works:
+                w.wait()
+        except Exception as exc:
+            changed = None if self.on_error is None else self.on_error(exc)
+            if changed is None:
+                raise
+            raise changed from exc
         if self.done_event is not None:
             torch.cuda.current_stream().wait_event(self.done_event)
         return self.output()
@@ -115,7 +126,7 @@ class TensorQueue:
         still being processed raises the reference's duplicate error."""
         with self._lock:
             if self._closed is not None:
-                raise RuntimeError(str(self._closed)) from self._closed
+                raise type(self._closed)(str(self._closed)) from self._closed
             seen = set()
             for e in entries:
                 if e.name in self._by_name or e.name in seen:

@@ -27,6 +27,11 @@ stateful wire codec, the compressed replicated update.  The per-leaf
 paths (``DistributedOptimizer``, ``DistributedGradientTape``) take the
 per-tensor casts; a stateful codec there warns once and falls back to
 none (``:45-75``).
+
+``elastic_shard``, ``elastic_continuity`` and ``elastic_transition``
+(reference ``:490-573``) keep the global batch's meaning across a world
+size change: the launcher exports the previous size on a restart, and
+``reform_world`` does so in-process.
 """
 
 from __future__ import annotations
@@ -38,9 +43,10 @@ import logging
 import threading
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from horovod_tpu_torch import basics, resilience
+from horovod_tpu_torch import basics, config, resilience
 from horovod_tpu_torch.ops import collective
 from horovod_tpu_torch.ops import compression as compression_mod
 from horovod_tpu_torch.ops import fusion
@@ -506,3 +512,77 @@ def _make_compressed_training_step(loss_fn, model, params, optimizer, group,
     step.codec = codec
     step.wire = wire
     return step
+
+
+# ---------------------------------------------------------------------------
+# Elastic world-size-change continuity (reference :490-573)
+# ---------------------------------------------------------------------------
+
+ELASTIC_BATCH_POLICY_VAR = "HOROVOD_ELASTIC_BATCH_POLICY"
+ELASTIC_BATCH_POLICIES = ("lr_scale", "accumulate")
+_ELASTIC_PREV_SIZE_VAR = "HOROVOD_ELASTIC_PREV_SIZE"
+
+
+def elastic_shard(num_items: int, global_step: int, world_size: int,
+                  rank: int, seed: int = 0) -> np.ndarray:
+    """This rank's items of ``[0, num_items)`` after a world-size change:
+    the strided slice ``rank::world_size`` of one permutation seeded from
+    ``(global_step, world_size, seed)``, numpy's ``RandomState`` as the
+    reference draws it, so every rank (and the reference) derives the
+    same assignment without any exchange."""
+    if world_size < 1:
+        raise ValueError(f"world_size={world_size} must be >= 1")
+    if not 0 <= rank < world_size:
+        raise ValueError(
+            f"rank={rank} out of range for world_size={world_size}")
+    mix = (int(global_step) * 1000003 + int(world_size) * 7919
+           + int(seed)) % (2 ** 32)
+    perm = np.random.RandomState(mix).permutation(int(num_items))
+    return perm[rank::world_size]
+
+
+def elastic_continuity(prev_size: int, new_size: int,
+                       policy: Optional[str] = None):
+    """``(lr_scale, accum_steps)`` for a world of ``new_size`` that was
+    ``prev_size``.  ``lr_scale`` (the default, or
+    ``HOROVOD_ELASTIC_BATCH_POLICY``) keeps the per-rank batch and scales
+    the learning rate by ``new/prev``; ``accumulate`` keeps the global
+    batch with ``ceil(prev/new)`` micro-steps an update, the returned
+    scale carrying the overshoot when ``prev`` is not a multiple of
+    ``new``.  A world that grew always rescales."""
+    if prev_size < 1 or new_size < 1:
+        raise ValueError(
+            f"sizes must be >= 1 (prev={prev_size}, new={new_size})")
+    if policy is None:
+        policy = ((config.env_str(ELASTIC_BATCH_POLICY_VAR) or "")
+                  .strip().lower() or "lr_scale")
+    if policy not in ELASTIC_BATCH_POLICIES:
+        raise ValueError(
+            f"{ELASTIC_BATCH_POLICY_VAR}={policy!r}: expected one of "
+            f"{', '.join(ELASTIC_BATCH_POLICIES)}")
+    if policy == "lr_scale" or new_size >= prev_size:
+        return float(new_size) / float(prev_size), 1
+    accum = -(-prev_size // new_size)  # ceil
+    return float(new_size * accum) / float(prev_size), accum
+
+
+def elastic_transition(new_size: Optional[int] = None,
+                       policy: Optional[str] = None):
+    """``(prev_size, lr_scale, accum_steps)`` from the previous attempt's
+    world size (``HOROVOD_ELASTIC_PREV_SIZE``); ``(new_size, 1.0, 1)`` on
+    a first launch or when the size did not change.  ``new_size``
+    defaults to ``hvd.size()``."""
+    if new_size is None:
+        new_size = basics.size()
+    raw = (config.env_raw(_ELASTIC_PREV_SIZE_VAR) or "").strip()
+    if not raw:
+        return new_size, 1.0, 1
+    try:
+        prev = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"{_ELASTIC_PREV_SIZE_VAR}={raw!r} is not an integer")
+    if prev < 1 or prev == new_size:
+        return new_size, 1.0, 1
+    lr_scale, accum = elastic_continuity(prev, new_size, policy)
+    return prev, lr_scale, accum

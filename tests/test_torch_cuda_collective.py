@@ -4,7 +4,8 @@ control plane answers names submitted in reversed orders and ``join``,
 ``DistributedOptimizer`` trains a small ResNet on ``cuda:0`` exactly as
 the optimizer it wraps, and two ranks on two cards pair names by name
 and join with uneven batches, and across cards the parallel LM steps
-(dp x tp x sp, dp x pp, ZeRO-1) and the ragged MoE exchange match gloo.
+(dp x tp x sp, dp x pp, ZeRO-1), the ragged MoE exchange and a ZeRO-1
+state spilled at 2 ranks and warm-restored at 1 match gloo.
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports torch and the port only, so it runs on a GPU
 host without JAX:
@@ -449,3 +450,79 @@ def test_ragged_exchange_moe_and_shape_check_nccl_match_gloo(tmp_path):
     nccl = chip_smoke.run_moe_processes("nccl", size, str(tmp_path))
     gloo = chip_smoke.run_moe_processes("gloo", size, str(tmp_path))
     print(chip_smoke.compare_moe_processes(nccl, gloo))
+
+
+def _warm_zero_worker(rank, size, addr, backend, out_dir):
+    """Two ZeRO-1 SGD steps on ``size`` ranks spilled every commit (a
+    gathered full state on each rank), or, at size 1, that state warm
+    restored into a fresh one-rank ZeRO-1 state, saved for comparison."""
+    import os
+
+    from horovod_tpu_torch import optim, resilience
+    from horovod_tpu_torch.parallel import zero
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    hvd.init(device=None if backend == "nccl" else "cpu")
+    try:
+        dev = hvd.device()
+        spill = os.path.join(out_dir, f"spill_{backend}")
+        params = [torch.zeros(6, device=dev), torch.zeros(3, device=dev)]
+        zopt = zero.sharded_optimizer(optim.sgd(0.5, 0.5))
+        state = zopt.init(params)
+        if size > 1:
+            guard = resilience.StepGuard(policy="rollback", spill_dir=spill)
+            for step in range(2):
+                grads = [torch.full(p.shape, 0.25 * (rank + 1) * (step + 1),
+                                    device=dev) for p in params]
+                upd, state = zopt.update(grads, state, params)
+                for p, u in zip(params, upd):
+                    p.add_(u)
+                guard.spill_extra["cursor"] = step
+                guard.after_step(params, state, step, 0.5)
+            return
+        params, state, step, source, extra = resilience.warm_restore(
+            params, state, directory=spill)
+        full = zero.gather_full_state(state)
+        torch.save({"step": step, "source": source, "extra": extra,
+                    "params": [p.cpu() for p in params],
+                    "trace": [t.cpu() for t in full.trace]},
+                   f"{out_dir}/warm_{backend}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def _run_warm_zero(backend: str, size: int, out_dir: str) -> None:
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    mp.start_processes(_warm_zero_worker,
+                       args=(size, addr, backend, out_dir), nprocs=size,
+                       start_method="spawn")
+
+
+@pytest.mark.cuda
+def test_warm_restore_of_a_two_rank_zero_state_nccl_matches_gloo(tmp_path):
+    """Two NCCL ranks (one card each) spill their ZeRO-1 state at every
+    commit, in the full layout; one rank warm-restores it into a one-rank
+    ZeRO-1 state (``source == "spill"``, the spilled cursor), and the
+    restored parameters and momentum are bit for bit what the same
+    program on gloo ranks on the CPU restores (``-k warm``)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    out = {}
+    for backend in ("nccl", "gloo"):
+        _run_warm_zero(backend, 2, str(tmp_path))
+        _run_warm_zero(backend, 1, str(tmp_path))
+        out[backend] = torch.load(f"{tmp_path}/warm_{backend}.pt")
+    for res in out.values():
+        assert (res["step"], res["source"], res["extra"]) == (
+            1, "spill", {"cursor": 1})
+    for key in ("params", "trace"):
+        for a, b in zip(out["nccl"][key], out["gloo"][key]):
+            assert torch.equal(a, b), key

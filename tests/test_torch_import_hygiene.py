@@ -31,7 +31,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
             "horovod_tpu_torch.parallel.expert, "
             "horovod_tpu_torch.checkpoint, horovod_tpu_torch.resilience, "
             "horovod_tpu_torch.faults, horovod_tpu_torch.ops._threefry, "
-            "horovod_tpu_torch.tree\n"
+            "horovod_tpu_torch.tree, horovod_tpu_torch.runner.rpc, "
+            "horovod_tpu_torch.native.runtime\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"

@@ -10,8 +10,10 @@
   the same bytes) and ``_divergent_ranks``, as
   ``tests/test_resilience.py:157-295``.
 * The value faults (``nan``, ``corrupt[:N]``) as
-  ``tests/test_resilience.py:310-391``, through a real eager allreduce;
-  the reference's other kinds are refused, not ignored.
+  ``tests/test_resilience.py:310-391``, through a real eager allreduce,
+  and the ``attempt`` key firing only on its restart attempt; the kinds
+  the port does not inject are refused, not ignored (the plane kinds are
+  ``tests/test_torch_warm_restart.py``'s).
 * One 2-rank gloo job: a NaN on one rank is a bad step on both (skip,
   then a rollback on both), and the sentinel names a diverged rank and
   heals it under ``rollback``, or raises ``DivergenceError`` under
@@ -210,7 +212,7 @@ def test_parse_corrupt_kind_arg():
 
 
 @pytest.mark.parametrize("kind", ["crash", "hang", "delay:1", "error",
-                                  "heartbeat_drop", "bogus"])
+                                  "residual_drop", "bogus"])
 def test_other_kinds_are_refused_not_ignored(kind):
     with pytest.raises(faults.FaultSpecError,
                        match="unknown fault kind .*valid kinds: nan, corrupt"):
@@ -219,13 +221,21 @@ def test_other_kinds_are_refused_not_ignored(kind):
         faults.parse_spec("site=nowhere,kind=nan")
 
 
-def test_attempt_key_is_refused():
-    # The reference's attempt= matches a restart count that only its
-    # launcher sets; the port has none, so the rule could never be right.
+def test_attempt_key_is_refused(spec, monkeypatch):
+    # attempt=N refuses to fire on any launcher restart attempt but the
+    # N-th (HOROVOD_RESTART_ATTEMPT), and fires there, as the
+    # reference's rule does.
     from horovod_tpu import faults as jfaults
-    assert jfaults.parse_spec("site=allreduce,kind=nan,attempt=1")
-    with pytest.raises(faults.FaultSpecError, match="restarting launcher"):
-        faults.parse_spec("site=allreduce,kind=nan,attempt=1")
+    (want,) = jfaults.parse_spec("site=allreduce,kind=nan,attempt=1")
+    (got,) = faults.parse_spec("site=allreduce,kind=nan,attempt=1")
+    assert got.attempt == want.attempt == 1
+    spec("site=allreduce,kind=nan,attempt=1")
+    x = torch.ones(3)
+    for attempt, fires in (("0", False), ("2", False), ("1", True)):
+        monkeypatch.setenv("HOROVOD_RESTART_ATTEMPT", attempt)
+        out = faults.corrupt_output("allreduce", x, rank=0)
+        assert bool(torch.isnan(out).all()) is fires
+        assert want._matches("allreduce", 0) is fires
 
 
 def test_corrupt_output_nan(spec, capsys):
