@@ -133,9 +133,30 @@ any failure ends the run with a traceback and a non-zero exit:
    spill, restores the disk checkpoint, fires no fault, and its final
    loss equals an uninterrupted run's bit for bit.  The spill and
    checkpoint files are deleted when the phase ends.
+16. the control plane's own instruments, each in a process of its own
+   (``--control-worker``) so that the knobs are read at ``init``: (a)
+   phase 10's step from a fresh state for 36 steps under
+   ``HOROVOD_TIMELINE`` with cycle markers: every loss equal to phase
+   4's (steps 4-13) bit for bit, the file parsed, each of the 161
+   gradients with ``NEGOTIATE_ALLREDUCE``, ``ALLREDUCE`` and an
+   ``NCCL_ALLREDUCE`` activity longer than 0 on the card's clock in
+   every step, ``CYCLE_START`` present, ms/step beside phase 10's and
+   the file's bytes; (b) the same 36 steps under ``HOROVOD_AUTOTUNE``,
+   its schedule sized from (a)'s busy cycles a step (the default
+   configuration through step 13, then 8 trials): every loss equal to
+   (a)'s bit for bit, a log of 5 rows or more that varies a parameter
+   and ends pinned, ``sync_tuned_config()`` equal to the pinned
+   threshold and the bucketer's, a next step whose bucketed mean takes
+   the agreed threshold's bucket count, ms/step before the search and
+   after the pin; (c) with 2 or more cards, the eager-op deadline over
+   NCCL (rank 1 never submits a name; rank 0 gets ``EagerStallError``
+   naming it and the other ranks within the deadline plus 2 s), then
+   process sets inside a rank-subset job over NCCL, else one line
+   saying why it did not run.
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
-(b), 13 (a), 14 (b, c), 15 and, for the forward kernel, 12 (a).  It prints
+(b), 13 (a), 14 (b, c), 15 and, for the forward kernel, 12 (a); the
+fused stem's add phase 16's 73 forward passes to phase 4's.  It prints
 one JSON line of
 kernel numbers and, last, one JSON line naming the device.  With no GPU
 it exits non-zero and prints no result.
@@ -373,6 +394,14 @@ DISK_RUNG_SAVE = 1
 DISK_RUNG_KILL = 3
 DISK_RUNG_STEPS = 6
 DISK_RUNG_FAULT = "rank=0,site=spill,kind=spill_corrupt,attempt=0"
+
+# Phase 16: the control plane's instruments.  Phase 10's step from a fresh
+# state for CONTROL_STEPS steps under the timeline, then under the tuner
+# (its search pins after CONTROL_TRIALS trials); (c)'s eager-op deadline.
+CONTROL_STEPS = 36
+CONTROL_TRIALS = 8
+DEADLINE_S = 3.0
+DEADLINE_JOB_S = 180
 # Phase 9 runs phase 4's step (same seed, batch and SGD) through
 # hvd.DistributedOptimizer, which at size 1 adds no hook and no
 # collective, after broadcast_optimizer_state's zero-gradient fill (which
@@ -1213,9 +1242,46 @@ def _submit_all(hvd, x, tag, order):
     return out
 
 
-def phase_control_plane(smi: str, main: dict) -> dict:
+def _hooked_resnet_step(hvd, st):
+    """Phase 4's step on ``st`` with every gradient submitted as a named
+    ``allreduce_async(op=Average)`` from its autograd hook, in the order
+    autograd produces them, and synchronized before the SGD update.
+    Returns the step, the parameters and what removes the hooks."""
     import torch.nn.functional as F
 
+    model, opt = st.model, st.optimizer
+    params = [p for p in model.parameters() if p.requires_grad]
+    index = {id(p): i for i, p in enumerate(params)}
+    handles = {}
+
+    def hook(p):
+        i = index[id(p)]
+        handles[i] = hvd.allreduce_async(p.grad, name=f"grad.{i}",
+                                         op=hvd.Average)
+
+    hooks = [p.register_post_accumulate_grad_hook(hook) for p in params]
+
+    def step():
+        model.train()
+        loss = F.cross_entropy(model(st.images), st.labels)
+        loss.backward()
+        check(len(handles) == len(params),
+              f"{len(handles)} of {len(params)} gradients submitted")
+        for i, h in handles.items():
+            params[i].grad = hvd.synchronize(h)
+        handles.clear()
+        opt.step()
+        opt.zero_grad()
+        return loss.detach()
+
+    def remove():
+        for h in hooks:
+            h.remove()
+
+    return step, params, remove
+
+
+def phase_control_plane(smi: str, main: dict) -> dict:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.benchmark import make_bench_state
     from horovod_tpu_torch.ops import fused_stem, fusion
@@ -1259,30 +1325,7 @@ def phase_control_plane(smi: str, main: dict) -> dict:
     st = make_bench_state("resnet50", batch_size=BATCH, image_size=IMAGE,
                           stem="s2d_fused", input_dtype="bfloat16")
     model, opt = st.model, st.optimizer
-    params = [p for p in model.parameters() if p.requires_grad]
-    index = {id(p): i for i, p in enumerate(params)}
-    handles = {}
-
-    def hook(p):
-        i = index[id(p)]
-        handles[i] = hvd.allreduce_async(p.grad, name=f"grad.{i}",
-                                         op=hvd.Average)
-
-    hooks = [p.register_post_accumulate_grad_hook(hook) for p in params]
-
-    def step():
-        model.train()
-        loss = F.cross_entropy(model(st.images), st.labels)
-        loss.backward()
-        check(len(handles) == len(params),
-              f"{len(handles)} of {len(params)} gradients submitted")
-        for i, h in handles.items():
-            params[i].grad = hvd.synchronize(h)
-        handles.clear()
-        opt.step()
-        opt.zero_grad()
-        return loss.detach()
-
+    step, params, remove = _hooked_resnet_step(hvd, st)
     fused_stem.launches.reset()
     losses = [step() for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
@@ -1298,8 +1341,7 @@ def phase_control_plane(smi: str, main: dict) -> dict:
     seconds = rt.cycle_seconds - seconds0
     fused = fusion.allreduce_calls.count
     launches = fused_stem.launches.count
-    for h in hooks:
-        h.remove()
+    remove()
     steps = WARMUP_STEPS + TIMED_STEPS
     losses = [float(x) for x in losses]
     for i, loss in enumerate(losses):
@@ -3416,6 +3458,361 @@ def phase_moe_processes(smi: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The control plane's own instruments
+# ---------------------------------------------------------------------------
+
+def _run_control_worker(mode: str, out_dir: str, extra=()) -> dict:
+    """Run this script's ``--control-worker`` in a process of its own, so
+    that the environment knobs it sets are read at ``init``; returns the
+    JSON it wrote."""
+    import os
+
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--control-worker", mode, out_dir, *extra],
+                         capture_output=True, text=True, timeout=300)
+    sys.stdout.write(res.stdout)
+    check(res.returncode == 0, f"phase 16 {mode} worker failed "
+          f"(rc {res.returncode}): {res.stderr[-3000:]}")
+    with open(os.path.join(out_dir, f"{mode}_result.json")) as f:
+        return json.load(f)
+
+
+def _control_worker(mode: str, out_dir: str, *args: str) -> None:
+    """Phase 16's program: phase 10's ResNet-50 step from a fresh state
+    for CONTROL_STEPS steps, under ``timeline`` (HOROVOD_TIMELINE with
+    cycle markers; the timed window is phase 10's, steps 4-13, back to
+    back) or ``autotune`` (HOROVOD_AUTOTUNE with a schedule sized from
+    the busy cycles a step that ``timeline`` counted, each step timed on
+    its own; then ``sync_tuned_config`` and one step whose gradients take
+    the bucketed mean, ``fusion.fused_pytree_mean``).  Writes
+    ``<mode>_result.json``."""
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.benchmark import make_bench_state
+    from horovod_tpu_torch.ops import fused_stem, fusion
+
+    if mode == "timeline":
+        os.environ.update(
+            HOROVOD_TIMELINE=os.path.join(out_dir, "timeline.json"),
+            HOROVOD_TIMELINE_MARK_CYCLES="1")
+    else:
+        busy_per_step = float(args[0])
+        per_sample = max(1, int(busy_per_step // 4))
+        os.environ.update(
+            HOROVOD_AUTOTUNE="1",
+            HOROVOD_AUTOTUNE_LOG=os.path.join(out_dir, "autotune.csv"),
+            # The default configuration through phase 10's 13 steps, then
+            # the search: one sample is about a quarter of a step.
+            HOROVOD_AUTOTUNE_WARMUP_SAMPLES=str(
+                int(13 * busy_per_step // per_sample)),
+            HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE=str(per_sample),
+            HOROVOD_AUTOTUNE_SAMPLES="1",
+            HOROVOD_AUTOTUNE_BAYES_TRIALS=str(CONTROL_TRIALS),
+            HOROVOD_AUTOTUNE_DRIFT_WINDOWS=str(10 ** 6))
+    hvd.init()
+    rt = hvd.basics.runtime()
+    st = make_bench_state("resnet50", batch_size=BATCH, image_size=IMAGE,
+                          stem="s2d_fused", input_dtype="bfloat16")
+    step, params, remove = _hooked_resnet_step(hvd, st)
+    fused_stem.launches.reset()
+    out = {"losses": [], "ms": [], "phase": []}
+    busy0 = rt.busy_cycles
+    window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(CONTROL_STEPS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        if i == WARMUP_STEPS:
+            window[0].record()
+        pinned = rt.tuner is not None and rt.tuner.monitoring
+        t0.record()
+        out["losses"].append(step())
+        t1.record()
+        if i == WARMUP_STEPS + TIMED_STEPS - 1:
+            window[1].record()
+        if mode == "autotune":
+            torch.cuda.synchronize()
+            out["ms"].append(t0.elapsed_time(t1))
+            tuner = rt.tuner
+            out["phase"].append("pinned" if pinned else (
+                "default" if tuner.trials == 0 and tuner.active
+                else "search"))
+    torch.cuda.synchronize()
+    out["losses"] = [float(x) for x in out["losses"]]
+    out["busy_cycles_per_step"] = (rt.busy_cycles - busy0) / CONTROL_STEPS
+    out["window_ms_per_step"] = window[0].elapsed_time(window[1]) / TIMED_STEPS
+    out["fused_stem_launches"] = fused_stem.launches.count
+    out["config"] = rt.tuned_config()
+    if mode == "autotune":
+        check(rt.tuner.monitoring, f"phase 16 (b): the tuner did not pin in "
+              f"{CONTROL_STEPS} steps (phases {out['phase']})")
+        pinned = rt.tuner.fusion_threshold
+        agreed = rt.sync_tuned_config()["fusion_threshold_bytes"]
+        out["pinned"] = {"cycle_time_ms": rt.tuner.cycle_time_ms,
+                         "fusion_threshold_bytes": pinned,
+                         "cache_enabled": rt.tuner.cache_enabled}
+        out["agreed"] = agreed
+        out["live"] = fusion.fusion_threshold_bytes()
+        # The next step, its gradients averaged by the bucketer, which
+        # follows the agreed threshold.
+        remove()
+        loss = torch.nn.functional.cross_entropy(st.model(st.images),
+                                                 st.labels)
+        loss.backward()
+        grads = [p.grad for p in params]
+        calls0 = fusion.allreduce_calls.count
+        fusion.fused_pytree_mean(grads)
+        torch.cuda.synchronize()
+        out["buckets"] = fusion.allreduce_calls.count - calls0
+        out["plan_buckets"] = len(fusion._bucket_leaves(grads, agreed))
+        out["default_buckets"] = len(fusion._bucket_leaves(
+            grads, fusion.DEFAULT_FUSION_THRESHOLD))
+        out["fused_stem_launches"] = fused_stem.launches.count
+    hvd.shutdown()
+    with open(os.path.join(out_dir, f"{mode}_result.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _timeline_events(path: str) -> dict:
+    """Per tensor row of a timeline: (name, start, end) of each B/E pair."""
+    with open(path) as f:
+        events = json.load(f)
+    rows = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    spans: dict = {name: [] for name in rows.values()}
+    open_: dict = {}
+    for e in events:
+        if e["ph"] not in "BE" or e["tid"] not in rows:
+            continue
+        stack = open_.setdefault(e["tid"], [])
+        if e["ph"] == "B":
+            stack.append(e)
+        else:
+            b = stack.pop()
+            spans[rows[e["tid"]]].append((b["name"], b["ts"], e["ts"]))
+    spans["__cycles__"] = sum(e["name"] == "CYCLE_START" for e in events)
+    return spans
+
+
+def phase_control_instruments(smi: str, main: dict, ctl: dict) -> int:
+    """Phase 16 (a) and (b), each in a worker process, and (c) where the
+    host has the cards for it; returns the fused-stem launches."""
+    import csv
+    import os
+    import tempfile
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hvd_control_") as tmp:
+        tl = _run_control_worker("timeline", tmp)
+        path = os.path.join(tmp, "timeline.json")
+        size = os.path.getsize(path)
+        spans = _timeline_events(path)
+        at = _run_control_worker("autotune", tmp,
+                                 [str(tl["busy_cycles_per_step"])])
+        with open(os.path.join(tmp, "autotune.csv")) as f:
+            rows = list(csv.DictReader(f))
+    want = main["step_losses"]
+    for tag, res in (("(a)", tl), ("(b)", at)):
+        check(res["losses"][WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS] == want,
+              f"phase 16 {tag} losses differ from phase 4's: "
+              f"{res['losses']} vs {want}")
+    check(at["losses"] == tl["losses"], f"phase 16 (b)'s losses "
+          f"{at['losses']} differ from (a)'s {tl['losses']}")
+    # (a): every gradient's events, the wire's time on the card above 0.
+    names = [f"grad.{i}" for i in range(ctl["gradients"])]
+    for name in names:
+        got = spans.get(name, [])
+        kinds = {k for k, _, _ in got}
+        check({"NEGOTIATE_ALLREDUCE", "ALLREDUCE",
+               "NCCL_ALLREDUCE"} <= kinds, f"phase 16 (a): {name}'s "
+              f"timeline events {sorted(kinds)}")
+        wire = [e - s for k, s, e in got if k == "NCCL_ALLREDUCE"]
+        check(len(wire) == CONTROL_STEPS and min(wire) > 0,
+              f"phase 16 (a): {name}'s NCCL_ALLREDUCE durations {wire}")
+    check(spans["__cycles__"] > 0, "phase 16 (a): no CYCLE_START marker")
+    wire_us = [e - s for n in names for k, s, e in spans[n]
+               if k == "NCCL_ALLREDUCE"]
+    # (b): the log explores, varies a parameter and pins last.
+    check(len(rows) >= 5 and rows[-1]["pinned"] == "1"
+          and (len({r["cycle_time_ms"] for r in rows}) > 1
+               or len({r["fusion_threshold_mb"] for r in rows}) > 1),
+          f"phase 16 (b): the trial log {rows}")
+    pinned = at["pinned"]["fusion_threshold_bytes"]
+    check(at["agreed"] == at["live"] == pinned
+          and at["config"]["fusion_threshold_bytes"] == pinned,
+          f"phase 16 (b): sync_tuned_config gave {at['agreed']}, the "
+          f"bucketer {at['live']}, the tuner pinned {pinned}")
+    check(at["buckets"] == at["plan_buckets"], f"phase 16 (b): "
+          f"{at['buckets']} bucket all-reduces at the agreed threshold, "
+          f"the plan has {at['plan_buckets']}")
+    before = [m for m, p in zip(at["ms"], at["phase"])
+              if p == "default"][WARMUP_STEPS:]
+    after = [m for m, p in zip(at["ms"], at["phase"]) if p == "pinned"]
+    check(len(before) >= 3 and len(after) >= 3, f"phase 16 (b): steps "
+          f"before the search {len(before)}, after the pin {len(after)}")
+    launches = tl["fused_stem_launches"] + at["fused_stem_launches"]
+    check(launches == 2 * CONTROL_STEPS + 1, f"fused_stem launched "
+          f"{launches} times in phase 16's {2 * CONTROL_STEPS + 1} forward "
+          f"passes")
+    result = {
+        "timeline": {"ms_per_step": tl["window_ms_per_step"],
+                     "phase10_ms_per_step": ctl["ms_per_step"],
+                     "bytes": size, "bytes_per_step": size / CONTROL_STEPS,
+                     "busy_cycles_per_step": tl["busy_cycles_per_step"],
+                     "nccl_allreduce_us_median":
+                         statistics.median(wire_us)},
+        "autotune": {"trials": len(rows) - 1, "pinned": at["pinned"],
+                     "ms_per_step_before": statistics.mean(before),
+                     "ms_per_step_after": statistics.mean(after),
+                     "steps_before": len(before), "steps_after": len(after),
+                     "buckets_at_pinned": at["buckets"],
+                     "buckets_at_64mb": at["default_buckets"]},
+        "nvidia_smi": smi}
+    print(f"phase 16 (a): ResNet-50 s2d_fused, batch {BATCH}, the timeline "
+          f"on: {tl['window_ms_per_step']:.2f} ms/step (phase 10 without "
+          f"it: {ctl['ms_per_step']:.2f}) on {smi}; {size} bytes in "
+          f"{CONTROL_STEPS} steps; each of the {len(names)} gradients has "
+          f"NEGOTIATE_ALLREDUCE, ALLREDUCE and NCCL_ALLREDUCE (> 0 us on the "
+          f"card, median {result['timeline']['nccl_allreduce_us_median']} "
+          f"us); every loss equals phase 4's bit for bit", flush=True)
+    print(f"phase 16 (b): the tuner pinned {at['pinned']} after "
+          f"{len(rows) - 1} trials; {statistics.mean(before):.2f} ms/step "
+          f"before the search, {statistics.mean(after):.2f} after the pin; "
+          f"sync_tuned_config agreed {at['agreed']} bytes and the next "
+          f"step's bucketed mean took {at['buckets']} all-reduces (64 MB: "
+          f"{at['default_buckets']}); every loss equals (a)'s bit for bit",
+          flush=True)
+    phase_deadline_processes(smi)
+    print(f"phase 16: {time.perf_counter() - t_start:.1f} s; "
+          + json.dumps(result), flush=True)
+    return launches
+
+
+def _deadline_worker(rank, size, addrs, out_dir):
+    """Phase 16 (c)'s program on one NCCL rank of ``size``: under a 3 s
+    deadline rank 1 never submits ``stalled``; then the job again as a
+    rank subset of all but the last process, with the sets [0, 1] and
+    [1, 2] (or [0, 1] alone at 2 ranks) and their collectives."""
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.native.runtime import EagerStallError
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addrs[0],
+                      HOROVOD_EAGER_OP_TIMEOUT=str(DEADLINE_S))
+    out = {}
+
+    def stage(what):
+        print(f"phase 16 (c) rank {rank}: {what}", flush=True)
+
+    hvd.init()
+    try:
+        dev = hvd.basics.device()
+        hvd.allreduce(torch.ones(1, device=dev), name="start")
+        stage("started")
+        if rank == 0:
+            t0 = time.perf_counter()
+            try:
+                hvd.allreduce(torch.ones(4, device=dev), name="stalled")
+                out["stall"] = "no error"
+            except EagerStallError as e:
+                out["stall"] = str(e)
+            out["stall_seconds"] = time.perf_counter() - t0
+            stage("the deadline passed")
+    finally:
+        hvd.shutdown()
+    stage("shut down")
+    os.environ.update(HOROVOD_COORDINATOR_ADDR=addrs[1])
+    os.environ.pop("HOROVOD_EAGER_OP_TIMEOUT")
+    members = list(range(size - 1)) if size > 2 else [0, 1]
+    hvd.init(ranks=members)
+    try:
+        dev = hvd.basics.device()
+        r, n = hvd.rank(), hvd.size()
+        stage(f"a subset job of {members}")
+        if rank in members:
+            sets = [hvd.add_process_set([0, 1])]
+            if n > 2:
+                sets.append(hvd.add_process_set([1, 2]))
+            stage(f"sets {[ps.ranks for ps in sets]} registered")
+            for k, ps in enumerate(sets):
+                if not ps.included():
+                    continue
+                x = torch.arange(6.0, device=dev) * (r + 1) + k
+                out[f"set{k}"] = [
+                    hvd.allreduce(x, op=hvd.Sum, name=f"s{k}.sum",
+                                  process_set=ps).cpu(),
+                    hvd.allgather(x[:ps.rank() + 1], name=f"s{k}.ag",
+                                  process_set=ps).cpu(),
+                    hvd.broadcast(x, ps.ranks[1], name=f"s{k}.bc",
+                                  process_set=ps).cpu()]
+                stage(f"set {ps.ranks} done")
+        out["world"] = (r, n)
+        torch.save(out, f"{out_dir}/deadline{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def phase_deadline_processes(smi: str) -> None:
+    """Phase 16 (c): across NCCL processes, where the host has the cards
+    for it."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 16 (c) did not run: {n} CUDA device here, and the "
+              f"eager-op deadline across NCCL processes and process sets "
+              f"inside a rank-subset job need one card a rank (NCCL refuses "
+              f"two ranks on one card)", flush=True)
+        return
+    size = min(n, 4)
+    addrs = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            addrs.append(f"127.0.0.1:{sock.getsockname()[1]}")
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(_deadline_worker, args=(size, addrs, out),
+                                 nprocs=size, start_method="spawn",
+                                 join=False)
+        end = time.monotonic() + DEADLINE_JOB_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > end:
+                for p in ctx.processes:
+                    p.kill()
+                check(False, f"phase 16 (c): the NCCL processes did not "
+                      f"finish in {DEADLINE_JOB_S} s")
+        res = [torch.load(f"{out}/deadline{r}.pt", weights_only=False)
+               for r in range(size)]
+    msg, secs = res[0]["stall"], res[0]["stall_seconds"]
+    check(msg.startswith("Stalled eager op 'stalled': submitted by rank 0")
+          and f"suspected missing ranks: {list(range(1, size))}" in msg
+          and DEADLINE_S <= secs < DEADLINE_S + 2,
+          f"phase 16 (c): after {secs:.2f} s rank 0 got {msg!r}")
+    members = list(range(size - 1)) if size > 2 else [0, 1]
+    sets = [[0, 1]] + ([[1, 2]] if len(members) > 2 else [])
+    for k, ranks in enumerate(sets):
+        for pos, r in enumerate(ranks):
+            x = [torch.arange(6.0) * (m + 1) + k for m in ranks]
+            want = [sum(x), torch.cat([v[:i + 1] for i, v in enumerate(x)]),
+                    x[1]]
+            got = res[r][f"set{k}"]
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"phase 16 (c) set {ranks} rank {r}: {got} != {want}")
+    print(f"phase 16 (c): over NCCL on {size} cards ({smi}) rank 0's wait "
+          f"on a name rank 1 never submitted raised EagerStallError after "
+          f"{secs:.2f} s ({DEADLINE_S:g} s deadline) naming it and ranks "
+          f"{list(range(1, size))}; in a rank-subset job of {members} the "
+          f"sets {sets} gave exact allreduce, allgather and broadcast",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3431,7 +3828,7 @@ def main() -> int:
     counts, lm_summary = phase_lm_main_path(smi)
     phase_lm_reference()
     phase_hvd_api(smi, main_summary)
-    phase_control_plane(smi, main_summary)
+    control = phase_control_plane(smi, main_summary)
     ring = phase_sequence_parallel(smi)
     lm_sp = phase_lm_parallel(smi, lm_summary)
     phase_parallel_processes(smi)
@@ -3444,6 +3841,8 @@ def main() -> int:
     guard = phase_moe_and_resilience(smi, lm_summary)
     phase_moe_processes(smi)
     warm = phase_warm_restart(smi, lm_summary)
+    stem_row["launches"] += phase_control_instruments(smi, main_summary,
+                                                      control)
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
                            zero, guard, warm):
@@ -3470,5 +3869,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--disk-worker"]:
         _disk_rung_worker(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--control-worker"]:
+        _control_worker(*sys.argv[2:])
         sys.exit(0)
     sys.exit(main())

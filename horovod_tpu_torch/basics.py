@@ -25,8 +25,9 @@ stops the thread (every rank agrees) and joins it before it destroys the
 groups.
 
 When the launcher runs a health plane (``HOROVOD_HEALTH_RPC``), ``init``
-starts the heartbeat sender under this rank and ``shutdown`` stops it
-(reference ``basics.py:203-217``).  ``world_epoch`` (the in-process
+starts the heartbeat sender under this rank (reference
+``basics.py:203-217``); it beats until the process ends or a later
+``init`` replaces it.  ``world_epoch`` (the in-process
 reformations this world has been through) and ``coordinator`` (the
 launcher's ``HOROVOD_COORD_*`` trio) are the reference's
 ``basics.py:275-286`` and ``:392-412``.
@@ -152,7 +153,14 @@ def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
         else:
             ctrl = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
             data = dist.new_group(backend=backend)
-        runtime = Runtime(rank, size, ctrl, data, global_ranks, dev)
+        try:
+            runtime = Runtime(rank, size, ctrl, data, global_ranks, dev,
+                              subset=members is not None)
+        except BaseException:
+            # The timeline or the trial log could not be opened: no half
+            # world is left behind.
+            dist.destroy_process_group()
+            raise
         runtime.start()
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
@@ -193,13 +201,16 @@ def on_shutdown(fn: Callable[[], None]) -> None:
 
 
 def shutdown() -> None:
-    """Stop the heartbeat and the control plane and tear down the process
-    groups ``init`` created (reference ``basics.py:211``).  After a peer
-    left (the runtime latched a membership change) an NCCL world is
-    aborted, not destroyed: destroying waits on the dead peer."""
-    if config.env_raw("HOROVOD_HEALTH_RPC"):
-        from horovod_tpu_torch import resilience
-        resilience.stop_heartbeat()
+    """Stop the control plane and tear down the process groups ``init``
+    created (reference ``basics.py:211``).  After a peer left (the
+    runtime latched a membership change) an NCCL world is aborted, not
+    destroyed: destroying waits on the dead peer.
+
+    The heartbeat, unlike the reference's, goes on until the process ends
+    or the next ``init`` replaces it: the rank is alive while it waits
+    for its peers to agree to shut down and tears its groups down, and a
+    launcher that heard nothing for its deadline then would kill it as
+    dead at the end of a run that succeeded."""
     with _state.lock:
         if not _state.initialized:
             return

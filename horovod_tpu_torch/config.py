@@ -18,7 +18,7 @@ log = logging.getLogger(__name__)
 
 class EnvVar(NamedTuple):
     name: str
-    type: str          # "str" | "int" | "float"
+    type: str          # "str" | "int" | "float" | "bool"
     default: Any       # None = unset / derived
     doc: str
 
@@ -79,6 +79,36 @@ _var("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", "float", 0.0,
      "Seconds after which such a name fails on every rank; 0 disables")
 _var("HOROVOD_CACHE_CAPACITY", "int", 1024,
      "Response-cache capacity in names; 0 disables the cache")
+# The eager-op deadline, the timeline and the autotuner (the launcher's
+# --autotune, --autotune-log-file, --timeline-filename and
+# --timeline-mark-cycles set the last six).
+_var("HOROVOD_EAGER_OP_TIMEOUT", "float", None,
+     "Seconds after which a blocked eager wait raises EagerStallError "
+     "(unset = wait forever, the watchdog still warns)")
+_var("HOROVOD_EAGER_OP_WARN_SECONDS", "float", 60.0,
+     "Seconds an eager op may stay in flight before the watchdog warns, "
+     "again each interval; 0 disables the watchdog")
+_var("HOROVOD_TIMELINE", "str", "",
+     "Chrome-tracing timeline path, written by rank 0")
+_var("HOROVOD_TIMELINE_MARK_CYCLES", "bool", False,
+     "1 adds a CYCLE_START marker per control-plane cycle to the timeline")
+_var("HOROVOD_AUTOTUNE", "bool", False,
+     "1 enables the online Bayesian autotuner of the control plane")
+_var("HOROVOD_AUTOTUNE_LOG", "str", None,
+     "CSV of the autotune trials, written by rank 0")
+_var("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", "int", 3,
+     "Discarded warm-up samples before scoring starts")
+_var("HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", "int", 10,
+     "Busy control-plane cycles folded into one autotune sample")
+_var("HOROVOD_AUTOTUNE_SAMPLES", "int", 5,
+     "Samples per Bayesian trial (their median is its score)")
+_var("HOROVOD_AUTOTUNE_BAYES_TRIALS", "int", 20,
+     "Bayesian trials before pinning the best configuration")
+_var("HOROVOD_AUTOTUNE_DRIFT_RATIO", "float", 0.5,
+     "Monitored-score ratio against the pin anchor that re-opens the "
+     "search")
+_var("HOROVOD_AUTOTUNE_DRIFT_WINDOWS", "int", 2,
+     "Consecutive drifted monitoring windows that re-open the search")
 # Elastic continuity, warm restart and fail-in-place (set by the launcher).
 _var("HOROVOD_SPILL_DIR", "str", None,
      "Host-local scratch dir for warm-restart peer spills (provisioned "
@@ -168,6 +198,17 @@ def env_float(name: str, default: Any = _UNSET) -> Any:
         return float(raw)
     except ValueError:
         raise ValueError(f"{name}={raw!r} is not a number") from None
+
+
+def env_bool(name: str, default: Any = _UNSET) -> Any:
+    """Unset or empty gives the default; then ``"0"`` and ``"false"`` (any
+    case) are False and anything else True, as the launcher writes them."""
+    entry = _entry(name)
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return entry.default if default is _UNSET else default
+    v = raw.strip()
+    return v != "0" and v.lower() != "false"
 
 
 def cycle_time_ms() -> float:

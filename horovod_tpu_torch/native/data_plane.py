@@ -183,10 +183,11 @@ Launched = Tuple[list, List[Output]]
 
 
 def allreduce(resp: Response, held: List[Optional[torch.Tensor]],
-              g: DataGroup) -> Launched:
+              g: DataGroup, mark=None) -> Launched:
     """One flat buffer for every name of a (fused) response through
     :func:`fusion.start_bucket`; the caller divides an Average and
-    applies its postscale.  Adasum responses hold one name."""
+    applies its postscale.  Adasum responses hold one name.  ``mark``
+    is called once the buffer is filled."""
     parts = [t if t is not None else _zeros(n, resp.dtype, g)
              for t, n in zip(held, resp.first_dims)]
     if resp.arg == ReduceOp.ADASUM:
@@ -194,7 +195,7 @@ def allreduce(resp: Response, held: List[Optional[torch.Tensor]],
         return [], [lambda: on_caller(out)]
     work, finish = fusion.start_bucket(parts, g.group, g.size,
                                        op=TORCH_OPS[resp.arg],
-                                       device=g.device)
+                                       device=g.device, after_copy=mark)
     once = _Once(finish)
     return [work], [lambda i=i: on_caller(once.part(i))
                     for i in range(len(parts))]

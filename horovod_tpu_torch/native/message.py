@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 
 class OpType(enum.IntEnum):
@@ -101,6 +101,18 @@ class Response:
 
 
 @dataclass
+class TunedParams:
+    """What rank 0's autotuner attaches to every response list while it
+    runs (``autotune.h`` ``TunedParams``, the dimensions the port has):
+    every rank applies them before it fuses that list."""
+    tuning: bool = False
+    cycle_time_ms: float = 1.0
+    fusion_threshold: int = 64 * 1024 * 1024
+    cache_enabled: bool = True
+
+
+@dataclass
 class ResponseList:
     responses: List[Response] = field(default_factory=list)
     shutdown: bool = False
+    params: Optional[TunedParams] = None

@@ -35,14 +35,28 @@ data-group collective or a wait met it, and so is every failure once one
 has been seen (reference ``native/runtime.py:58``, ``:990-1004``): the
 caller reforms the world (``resilience.reform_world``).  Any other
 failure keeps its plain error and its logged traceback.
+
+The plane's own instruments (reference ``native/runtime.py:837-953``,
+``operations.cc``): under ``HOROVOD_EAGER_OP_TIMEOUT`` a wait raises
+:class:`EagerStallError` at its deadline, naming the tensor, this rank
+and every peer as a suspect; a watchdog thread warns about every op in
+flight past ``HOROVOD_EAGER_OP_WARN_SECONDS``, again each interval,
+without touching the completion path.  On rank 0, ``HOROVOD_TIMELINE``
+starts the timeline (:mod:`.timeline`) and ``HOROVOD_AUTOTUNE`` the
+tuner (:mod:`.autotune`), whose parameters ride every response list and
+are applied by every rank before it fuses that list.  The fusion
+threshold that framework code buckets by follows the tuner only
+through :meth:`Runtime.sync_tuned_config`, a collective.
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
 import logging
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -50,13 +64,18 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import config
 from horovod_tpu_torch.native import data_plane
+from horovod_tpu_torch.native.autotune import ParameterManager
 from horovod_tpu_torch.native.controller import Controller, fuse
-from horovod_tpu_torch.native.message import (OpType, RequestList,
-                                              Response, ResponseList)
+from horovod_tpu_torch.native.message import (OP_NAMES, OpType, ReduceOp,
+                                              RequestList, Response,
+                                              ResponseList, TunedParams)
 from horovod_tpu_torch.native.response_cache import ResponseCache
 from horovod_tpu_torch.native.stall_inspector import StallInspector
 from horovod_tpu_torch.native.tensor_queue import (SHUTDOWN_ERROR,
                                                    TensorEntry, TensorQueue)
+from horovod_tpu_torch.native.timeline import (AllOf, Completions,
+                                               DeviceClock, DeviceStamp,
+                                               Timeline)
 from horovod_tpu_torch.ops import fusion
 from horovod_tpu_torch.ops._build import CallCounter
 
@@ -97,6 +116,12 @@ def peer_lost(exc: BaseException) -> bool:
     return any(w in text for w in _PEER_LOSS_WORDS)
 
 
+class EagerStallError(RuntimeError):
+    """An eager op outlived ``HOROVOD_EAGER_OP_TIMEOUT`` (reference
+    ``native/runtime.py:48``): the message names the stuck tensor, this
+    rank and the suspected missing ranks."""
+
+
 class MembershipChangedError(RuntimeError):
     """The collective world changed under this op: a peer died and
     ``HOROVOD_ON_RANK_FAILURE`` allows in-process reformation.  The
@@ -108,18 +133,25 @@ class MembershipChangedError(RuntimeError):
 class Runtime:
     """This process's control plane over ``ctrl_group`` (gloo) and
     ``data_group``, for hvd rank ``rank`` of ``size``.  ``global_ranks``
-    maps hvd ranks to ``torch.distributed`` ranks."""
+    maps hvd ranks to ``torch.distributed`` ranks; ``subset`` says the
+    job is a rank subset of the launched processes (``init(ranks=...)``),
+    whose processes outside it never create a group of the job's."""
 
     def __init__(self, rank: int, size: int, ctrl_group, data_group,
-                 global_ranks: Sequence[int], device: torch.device):
+                 global_ranks: Sequence[int], device: torch.device,
+                 subset: bool = False):
         self.rank, self.size = rank, size
         self.device = device
         self.ctrl_group = ctrl_group
         self.global_ranks = list(global_ranks)
+        self.subset = subset
         self.queue = TensorQueue()
         self.cache = ResponseCache(config.cache_capacity())
-        self.fusion_threshold = fusion.fusion_threshold_bytes()
+        self.cache_enabled = self.cache.enabled
+        self.cache_lookups = self.cache_hits = 0
+        self.fusion_threshold = fusion.env_fusion_threshold_bytes()
         self.cycle_time_s = config.cycle_time_ms() / 1000.0
+        self.exploring = False
         self.controller = Controller(size, self.cache, StallInspector(
             config.stall_check_seconds(), config.stall_shutdown_seconds()))
         self.groups: Dict[int, data_plane.DataGroup] = {
@@ -130,24 +162,77 @@ class Runtime:
                        .lower() in SHRINK_POLICIES)
         self.membership_changed = False
         self.cycles = 0
+        self.busy_cycles = 0
         self.cycle_seconds = 0.0
         self._shutting_down = False
         self._wake = threading.Event()
         self._stream = None
+        self._clock: Optional[DeviceClock] = None
         self.thread = threading.Thread(target=self._run, daemon=True,
                                        name="hvd-torch-runtime")
+        # The eager-op deadline and the watchdog's in-flight entries.
+        self.op_timeout = config.env_float("HOROVOD_EAGER_OP_TIMEOUT")
+        self.op_warn = config.env_float("HOROVOD_EAGER_OP_WARN_SECONDS")
+        # Weak: the watchdog must keep no entry, and so none of its
+        # tensors and buffers, alive after its caller has let it go.
+        self._inflight: weakref.WeakValueDictionary = (
+            weakref.WeakValueDictionary())
+        self._inflight_seq = itertools.count()
+        self._inflight_lock = threading.Lock()
+        self._watchdog_stop = threading.Event()
+        self._watchdog: Optional[threading.Thread] = None
+        if self.op_warn:
+            self._watchdog = threading.Thread(
+                target=self._watch, daemon=True, name="hvd-torch-watchdog")
+        # Rank 0's instruments: the timeline and the tuner, and the thread
+        # that stamps when the card finished what they record.
+        self._sync_seq = 0
+        self._agreed_fusion_threshold: Optional[int] = None
+        self.completions: Optional[Completions] = None
+        self.timeline: Optional[Timeline] = None
+        self.tuner: Optional[ParameterManager] = None
+        self._tuner_lock = threading.Lock()
+        path = config.env_str("HOROVOD_TIMELINE")
+        tune = config.env_bool("HOROVOD_AUTOTUNE")
+        if rank == 0 and (path or tune):
+            self.completions = Completions()
+            try:
+                if path:
+                    self.timeline = Timeline(
+                        path, config.env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
+                        self.completions)
+                if tune:
+                    self.tuner = ParameterManager(
+                        rank, self.cycle_time_s * 1000.0,
+                        self.fusion_threshold, self.cache_enabled)
+                    self.exploring = True
+            except BaseException:
+                self._close_instruments()
+                raise
 
     # -- caller side ------------------------------------------------------------
 
     def start(self) -> None:
+        fusion.set_live_threshold_provider(self._live_fusion_threshold)
+        if self._watchdog is not None:
+            self._watchdog.start()
         self.thread.start()
 
     def submit(self, entries: Sequence[TensorEntry], kind: str) -> None:
         """File ``entries`` for the next cycle (a short append)."""
-        if self.shrink:
-            for e in entries:
+        now = time.monotonic()
+        for e in entries:
+            if self.shrink:
                 e.on_error = self._membership_error
+            if self.op_timeout is not None:
+                e.timeout = self.op_timeout
+                e.on_timeout = self._stall_error
+            e.submitted_at = now
         self.queue.add(entries, kind)
+        if self._watchdog is not None:
+            with self._inflight_lock:
+                for e in entries:
+                    self._inflight[next(self._inflight_seq)] = e
         requests.count += len(entries)
         self._wake.set()
 
@@ -160,11 +245,116 @@ class Runtime:
         self._shutting_down = True
         self._wake.set()
         self.thread.join(timeout)
+        self._watchdog_stop.set()
+        if self._watchdog is not None and self._watchdog.is_alive():
+            self._watchdog.join(5.0)
+        fusion.set_live_threshold_provider(None)
         if self.thread.is_alive():
             log.warning("horovod_tpu_torch runtime: the ranks did not agree "
                         "to shut down within %s s; leaving the thread",
                         timeout)
             self.queue.close(RuntimeError(SHUTDOWN_ERROR))
+
+    # -- the tuned configuration --------------------------------------------------
+
+    def tuned_config(self) -> dict:
+        """The live control-plane configuration: the parameters last
+        applied from the response stream (the environment's when the
+        tuner is off) and the response cache's counters (reference
+        ``native/runtime.py:455-493``, the dimensions the port has)."""
+        lookups, hits = self.cache_lookups, self.cache_hits
+        return {"cycle_time_ms": self.cycle_time_s * 1000.0,
+                "fusion_threshold_bytes": int(self.fusion_threshold),
+                "exploring": self.exploring,
+                "cache_enabled": self.cache_enabled,
+                "cache_lookups": lookups, "cache_hits": hits,
+                "cache_hit_ratio": hits / lookups if lookups else 0.0}
+
+    def sync_tuned_config(self) -> dict:
+        """Agree on the tuned fusion threshold and latch it for the
+        framework's bucketing (``fusion.fusion_threshold_bytes``).
+
+        Every rank applies the tuner's parameters at the same point of the
+        response stream, but other threads read them at any moment, so two
+        ranks may see different values mid-trial, and buckets cut under
+        different thresholds would hang the job.  So the bucketing follows
+        the tuner only through this collective, a Min all-reduce over each
+        rank's view: every rank calls it at the same point of the program
+        (reference ``native/runtime.py:495-550``).  Returns
+        ``{"fusion_threshold_bytes": agreed}``."""
+        self._sync_seq += 1
+        local = torch.tensor([int(self.fusion_threshold)],
+                             dtype=torch.int64, device=self.device)
+        e = TensorEntry(OpType.ALLREDUCE, f"hvd.autotune.sync."
+                        f"{self._sync_seq}", local, arg=int(ReduceOp.MIN))
+        self.submit([e], "allreduce")
+        agreed = int(e.result()[0])
+        if agreed > 0:
+            self._agreed_fusion_threshold = agreed
+        return {"fusion_threshold_bytes": agreed}
+
+    def _live_fusion_threshold(self) -> Optional[int]:
+        return self._agreed_fusion_threshold
+
+    def _apply(self, params: TunedParams) -> None:
+        """Take the tuner's parameters before fusing the list they came
+        with, on every rank at the same point of the response stream."""
+        self.cycle_time_s = params.cycle_time_ms / 1000.0
+        self.fusion_threshold = int(params.fusion_threshold)
+        self.cache_enabled = params.cache_enabled and self.cache.enabled
+        self.exploring = params.tuning
+
+    # -- the eager-op deadline and the watchdog ------------------------------------
+
+    def _stall_report(self, name: str, elapsed: float) -> str:
+        """Reference ``native/runtime.py:837-894``, without the transport
+        and schedule-check notes (the port has neither): this rank
+        submitted the op and its completion never came, so the suspects
+        are every peer."""
+        suspects = [r for r in range(self.size) if r != self.rank]
+        cfg = self.tuned_config()
+        coord = (f" Coordination plane: coordinator rank "
+                 f"{config.env_int('HOROVOD_COORD_RANK')}, lease epoch "
+                 f"{config.env_int('HOROVOD_COORD_EPOCH')}, elections so "
+                 f"far {config.env_int('HOROVOD_COORD_ELECTIONS')}.")
+        tuned = (f" Active control-plane config: cycle_time="
+                 f"{cfg['cycle_time_ms']:.2f}ms, fusion_threshold="
+                 f"{cfg['fusion_threshold_bytes']} bytes"
+                 + (", autotuner exploring" if cfg["exploring"] else "")
+                 + ".")
+        return (f"Stalled eager op '{name}': submitted by rank {self.rank} "
+                f"but not completed after {elapsed:.1f}s. One or more ranks "
+                f"likely never reached this collective — suspected missing "
+                f"ranks: {suspects} (every peer of rank {self.rank}; the "
+                f"coordinator's stall watchdog, HOROVOD_STALL_CHECK_TIME_"
+                f"SECONDS, reports the authoritative list on rank 0). "
+                f"Possible causes: a crashed or hung peer, a deadlocked "
+                f"submission order, or a network partition." + coord + tuned)
+
+    def _stall_error(self, name: str, elapsed: float) -> EagerStallError:
+        return EagerStallError(self._stall_report(name, elapsed))
+
+    def _watch(self) -> None:
+        """Warn about every entry in flight past the warning time, again
+        each interval; drop the entries that are done."""
+        warn = self.op_warn
+        last: Dict[int, float] = {}
+        while not self._watchdog_stop.wait(min(warn, 5.0)):
+            now = time.monotonic()
+            reports = []
+            with self._inflight_lock:
+                entries = list(self._inflight.items())
+            for key, e in entries:
+                if e.done():
+                    with self._inflight_lock:
+                        self._inflight.pop(key, None)
+                    last.pop(key, None)
+                elif (now - e.submitted_at >= warn
+                      and now - last.get(key, 0.0) >= warn):
+                    last[key] = now
+                    reports.append((e.name, now - e.submitted_at))
+            for name, elapsed in reports:
+                log.warning("%s", self._stall_report(name, elapsed))
 
     def _peer_left(self, exc: BaseException) -> MembershipChangedError:
         """Latch a membership change (shrink policies only): every pending
@@ -193,14 +383,18 @@ class Runtime:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
                 self._stream = torch.cuda.Stream(self.device)
+                if self.completions is not None:
+                    self._clock = DeviceClock(self._stream)
             while not self._cycle():
                 pass
             error: BaseException = RuntimeError(SHUTDOWN_ERROR)
         except Exception as e:  # the thread's boundary: fail, never hang
+            self._close_control()
             if self._membership_error(e) is not None:
                 log.warning("horovod_tpu_torch runtime: the control plane "
                             "stopped (%s: %s); the world changed",
                             type(e).__name__, e)
+                self._close_instruments()
                 return
             log.exception("horovod_tpu_torch runtime: the control plane "
                           "stopped")
@@ -208,23 +402,68 @@ class Runtime:
                 f"horovod_tpu_torch runtime stopped: {type(e).__name__}: "
                 f"{e}")
         self.queue.close(error)
+        self._close_instruments()
+
+    def _close_control(self) -> None:
+        """Close this rank's connections of the control group, so that a
+        peer blocked in an exchange with it fails at once instead of after
+        ``CONTROL_TIMEOUT`` (a survivor waiting on the coordinator's answer
+        while the coordinator met a dead peer; reference: the master's
+        sockets close when its loop ends)."""
+        if self.size > 1 and self.ctrl_group is not None:
+            group, self.ctrl_group = self.ctrl_group, None
+            try:
+                dist.destroy_process_group(group)
+            except Exception:   # the world may be gone already
+                pass
+
+    def _close_instruments(self) -> None:
+        """Stamp what is left, then close the timeline and the trial log."""
+        if self.completions is not None:
+            self.completions.stop()
+        if self.timeline is not None:
+            self.timeline.close()
+        if self.tuner is not None:
+            self.tuner.close()
 
     def _cycle(self) -> bool:
         """One cycle; True once every rank has agreed to shut down."""
         start = time.perf_counter()
+        tl = self.timeline
+        if tl is not None:
+            tl.mark_cycle_start()
         mine = RequestList(shutdown=self._shutting_down)
         for e in self.queue.pop_announcements():
             r = e.request(self.rank)
             if r.op_type == OpType.JOIN:
                 self.joined = True
-            slot = self.cache.lookup(r)
+            if tl is not None:
+                tl.negotiate_start(e.name, OP_NAMES[r.op_type])
+            slot = -1
+            if self.cache_enabled:
+                slot = self.cache.lookup(r)
+                self.cache_lookups += 1
+                self.cache_hits += slot >= 0
             if slot >= 0:
                 mine.cache_hits |= 1 << slot
             else:
                 mine.requests.append(r)
         out = self._exchange(mine)
+        if out.params is not None:
+            self._apply(out.params)
+        moved, probes = 0, []
         for resp in fuse(out.responses, self.fusion_threshold):
-            self._execute(resp)
+            n, probe = self._execute(resp)
+            moved += n
+            if probe is not None:
+                probes.append(probe)
+        self.busy_cycles += moved > 0
+        if self.tuner is not None and moved > 0:
+            # Scored at the completion of the cycle's collectives, not at
+            # their launch (on the card the two are far apart).
+            self.completions.add(
+                lambda now, n=moved: self._tuner_update(n, now),
+                AllOf(probes) if probes else None)
         self.cycles += 1
         self.cycle_seconds += time.perf_counter() - start
         if out.shutdown:
@@ -235,45 +474,67 @@ class Runtime:
         self._wake.clear()
         return False
 
+    def _tuner_update(self, nbytes: int, now: float) -> None:
+        with self._tuner_lock:
+            self.tuner.update(nbytes, now)
+
     def _exchange(self, mine: RequestList) -> ResponseList:
         if self.size == 1:
-            return self.controller.cycle([mine])
+            return self._answer([mine])
         root = self.global_ranks[0]
         if self.rank == 0:
             lists = [None] * self.size
             dist.gather_object(mine, lists, dst=root, group=self.ctrl_group)
-            box = [self.controller.cycle(lists)]
+            box = [self._answer(lists)]
         else:
             dist.gather_object(mine, None, dst=root, group=self.ctrl_group)
             box = [None]
         dist.broadcast_object_list(box, src=root, group=self.ctrl_group)
         return box[0]
 
-    def _execute(self, resp: Response) -> None:
+    def _answer(self, lists) -> ResponseList:
+        """Rank 0: the coordinator's list, with the tuner's parameters."""
+        out = self.controller.cycle(lists)
+        if self.tuner is not None:
+            with self._tuner_lock:
+                out.params = self.tuner.current()
+        return out
+
+    def _execute(self, resp: Response):
+        """Run one (fused) response; returns the payload bytes this rank
+        moved (the tuner's score, 0 for errors, barriers and joins) and
+        the probe of its completion, or None."""
         taken = self.queue.take(resp.names, resp.set_id)
+        tl = self.timeline
+        if tl is not None:
+            for _, e in taken:
+                tl.negotiate_end(e.name)
         if resp.error:
             for _, e in taken:
                 e.fail(RuntimeError(resp.error_message))
-            return
+            return 0, None
         # Every rank puts the entries it holds for a cacheable response,
         # in the response order, so the replicas stay identical
         # (operations.cc:306-328).
-        if resp.cacheable and resp.op_type not in (
-                OpType.BARRIER, OpType.JOIN, OpType.PROCESS_SET):
+        if (self.cache_enabled and resp.cacheable and resp.op_type not in (
+                OpType.BARRIER, OpType.JOIN, OpType.PROCESS_SET)):
             for _, e in taken:
                 self.cache.put(e.request(self.rank), resp)
+        moved = sum(_nbytes(e) for _, e in taken)
         if resp.op_type == OpType.PROCESS_SET:
             self._install_set(resp, [e for _, e in taken])
-            return
+            return moved, None
         if resp.op_type == OpType.JOIN:
             self.joined = False
             for _, e in taken:
                 e.launch([], lambda arg=resp.arg: arg)
-            return
+            return 0, None
         if not taken and not (self.joined and resp.set_id == 0):
-            return
+            return 0, None
+        t0 = time.perf_counter()
+        marks: List[object] = []
         try:
-            works, outputs, done = self._launch(resp, taken)
+            works, outputs, done = self._launch(resp, taken, marks)
         except Exception as exc:  # a data group failed: fail these names
             log.exception("horovod_tpu_torch runtime: %s of %s failed",
                           resp.op_type.name.lower(), resp.names)
@@ -281,11 +542,54 @@ class Runtime:
                      or RuntimeError(f"{type(exc).__name__}: {exc}"))
             for _, e in taken:
                 e.fail(error)
-            return
+            return 0, None
+        # On the card the probe is the launch's event, and under an
+        # instrument its time is the card's (a DeviceStamp).
+        event, probe = done, None
+        if isinstance(done, DeviceStamp):
+            event, probe = done.event, done
+        elif done is not None:
+            probe = done.query
         for i, e in taken:
-            e.launch(works, outputs[i], done)
+            e.launch(works, outputs[i], event)
+        if resp.op_type == OpType.BARRIER:
+            return 0, None
+        works = [w for w in works if w is not None]
+        if probe is None and works:
+            def probe():
+                return all(w.is_completed() for w in works)
+        if tl is not None:
+            self._record(tl, resp, [e.name for _, e in taken], t0, marks,
+                         probe, time.perf_counter())
+        return moved, probe
 
-    def _launch(self, resp: Response, taken):
+    def _record(self, tl: Timeline, resp: Response, names, t0: float,
+                marks, probe, t1: float) -> None:
+        """The timeline's events of one launched response: ``<OP>`` from
+        the launch to the completion, a fused allreduce's copy into its
+        buffer, and the wire activity."""
+        op = resp.op_type
+        g = self.groups[resp.set_id]
+        wire = ("NCCL_" if g.nccl else "GLOO_") + op.name
+        if op == OpType.ALLTOALL and len(resp.first_dims) == g.size ** 2:
+            wire += "V"
+        # An allreduce's copy mark: the card's stamp after the copy into
+        # the buffer, or the host time when the copy ran on the host.
+        copied = {"at": t0}
+        if marks:
+            m = marks[0]
+            copied = {"at": m} if isinstance(m, float) else {"probe": m}
+        end = {"probe": probe} if probe is not None else {"at": t1}
+        for n in names:
+            tl.begin(n, op.name, at=t0)
+            if op == OpType.ALLREDUCE and len(resp.names) > 1:
+                tl.begin(n, "MEMCPY_IN_FUSION_BUFFER", at=t0)
+                tl.end(n, **copied)
+            tl.begin(n, wire, **copied)
+            tl.end(n, **end)
+            tl.end(n, **end)
+
+    def _launch(self, resp: Response, taken, marks: list):
         g = self.groups[resp.set_id]
         held: List[Optional[torch.Tensor]] = [None] * len(resp.names)
         for i, e in taken:
@@ -294,8 +598,10 @@ class Runtime:
             return [], [lambda: None] * len(held), None
         op = getattr(data_plane, resp.op_type.name.lower())
         arg = held if resp.op_type == OpType.ALLREDUCE else held[0]
+        kw = ({"mark": self._mark(marks)} if self.timeline is not None
+              and resp.op_type == OpType.ALLREDUCE else {})
         if self._stream is None:
-            works, outputs = op(resp, arg, g)
+            works, outputs = op(resp, arg, g, **kw)
             return works, outputs, None
         with torch.cuda.stream(self._stream):
             for t in held:
@@ -304,20 +610,61 @@ class Runtime:
             for _, e in taken:
                 if e.ready is not None:
                     self._stream.wait_event(e.ready)
-            works, outputs = op(resp, arg, g)
-            done = torch.cuda.Event()
-            done.record(self._stream)
+            works, outputs = op(resp, arg, g, **kw)
+            # NCCL runs on a stream of its own: this stream waits for it
+            # (no host wait), so the event after marks its completion.
+            for w in works:
+                if w is not None:
+                    w.wait()
+            if self._clock is not None:
+                done = self._clock.stamp(self._stream)
+            else:
+                done = torch.cuda.Event()
+                done.record(self._stream)
         return works, outputs, done
+
+    def _mark(self, marks: list):
+        """A function the data plane calls after it copied a fused
+        response into its buffer: it records a CUDA event on the runtime's
+        stream, or the host time."""
+        def mark():
+            if self._clock is not None:
+                marks.append(self._clock.stamp(self._stream))
+            else:
+                marks.append(time.perf_counter())
+        return mark
 
     def _install_set(self, resp: Response, taken: List[TensorEntry]) -> None:
         """Register the set the coordinator numbered, on every rank at the
-        same point of the response stream: its data group (creating a
-        group is collective over the whole job) and a cleared cache."""
+        same point of the response stream: its data group and a cleared
+        cache.  Creating a group is collective over every process of the
+        default group; in a rank-subset job the processes outside it never
+        take part, so only the set's members create its group
+        (``use_local_synchronization``), and every other rank of the job
+        creates a group of its own at that point: such groups are named by
+        a hash of how many groups a process holds, which must stay equal
+        on the members of a later set."""
         self.cache.clear()
         if resp.arg not in self.groups:
             members = list(resp.first_dims)
-            group = dist.new_group([self.global_ranks[m] for m in members])
+            ranks = [self.global_ranks[m] for m in members]
+            if not self.subset:
+                group = dist.new_group(ranks)
+            elif self.rank in members:
+                group = dist.new_group(ranks, use_local_synchronization=True)
+            else:
+                dist.new_group([self.global_ranks[self.rank]],
+                               use_local_synchronization=True)
+                group = None
             self.groups[resp.arg] = data_plane.DataGroup(
                 group, members, self.rank, self.global_ranks, self.device)
         for e in taken:
             e.launch([], lambda arg=resp.arg: arg)
+
+
+def _nbytes(e: TensorEntry) -> int:
+    """The payload bytes of an entry, as the reference counts them
+    (``operations.cc:612-617``: a tensor-less entry is one int32)."""
+    if e.tensor is None:
+        return 4
+    return e.tensor.numel() * e.tensor.element_size()

@@ -11,6 +11,7 @@ executes.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -62,6 +63,13 @@ class TensorEntry:
         # peer left).
         self.on_error: Optional[Callable[[BaseException],
                                          Optional[BaseException]]] = None
+        # The eager-op deadline (HOROVOD_EAGER_OP_TIMEOUT): after
+        # ``timeout`` seconds of waiting, ``result`` raises what
+        # ``on_timeout(name, seconds)`` returns.  None waits for ever.
+        self.timeout: Optional[float] = None
+        self.on_timeout: Optional[Callable[[str, float],
+                                           BaseException]] = None
+        self.submitted_at = 0.0
 
     def request(self, rank: int) -> Request:
         t = self.tensor
@@ -95,9 +103,33 @@ class TensorEntry:
         return (all(w.is_completed() for w in self.works)
                 and (self.done_event is None or self.done_event.query()))
 
+    def _wait_bounded(self) -> None:
+        """Poll :meth:`done` (never a blocking wait: on the card that is the
+        works' ``is_completed`` and the launch event's ``query``) until it
+        holds or the deadline passes: a brief spin for the common quick
+        completion, then sleeps from 1 ms doubling to 50 ms (reference
+        ``native/runtime.py:927-953``)."""
+        for _ in range(200):
+            if self.done():
+                return
+        start = time.monotonic()
+        deadline = start + self.timeout
+        sleep = 0.001
+        while not self.done():
+            now = time.monotonic()
+            if now >= deadline:
+                raise self.on_timeout(self.name, now - start)
+            time.sleep(min(sleep, max(deadline - now, 0.001)))
+            sleep = min(sleep * 2.0, 0.05)
+
     def result(self):
         """Wait for the collective and return its raw result; the caller's
-        current stream is ordered after it."""
+        current stream is ordered after it.  Under a deadline the wait
+        raises when it passes; the entry stays with the runtime, and its
+        late result goes into buffers of the runtime's own (the data
+        plane copies every input), never into a tensor of the caller."""
+        if self.timeout is not None:
+            self._wait_bounded()
         self._launched.wait()
         if self.error is not None:
             raise self.error

@@ -73,7 +73,8 @@ def _resolve_op(op, average):
 
 # ---------------------------------------------------------------------------
 # Process sets (reference ``collective.py:116-210``).  Registration is
-# negotiated over every rank; the runtime then creates the set's group.
+# negotiated over every rank; the runtime then creates the set's group
+# (inside a rank-subset job, only its members do).
 # ---------------------------------------------------------------------------
 
 class ProcessSet:
@@ -155,11 +156,6 @@ def add_process_set(ranks) -> ProcessSet:
             or ps.ranks[0] < 0 or ps.ranks[-1] >= n):
         raise ValueError(f"process set {ps.ranks} is invalid for a "
                          f"{n}-process job")
-    if basics.process_group() is not None:
-        raise NotImplementedError(
-            "process sets inside a rank-subset job (init(ranks=...)) are "
-            "not ported: the processes outside the subset would have to "
-            "create the group too")
     with _lock:
         _set_registrations += 1
         name = f"hvd.process_set.{_set_registrations}"

@@ -101,8 +101,36 @@ def record_collective_bytes(kind: str, codec: str, nbytes: int,
 
 _warned_bad_threshold = False
 
+# The live threshold's provider (reference ``ops/fusion.py:65-90``): the
+# control plane registers one that returns the threshold the ranks last
+# agreed on in ``Runtime.sync_tuned_config()``, a collective, or None
+# before any agreement.  It must return the same number on every rank at
+# the same point of the program: buckets cut under different thresholds
+# would desynchronize the ranks' collectives and hang the job.
+_live_threshold_provider = None
+
+
+def set_live_threshold_provider(provider) -> None:
+    """Register (or clear, with None) the live threshold's source; it
+    must honour the rank-agreement contract above."""
+    global _live_threshold_provider
+    _live_threshold_provider = provider
+
 
 def fusion_threshold_bytes() -> int:
+    """The fusion bucket limit: the rank-agreed tuned value once the
+    control plane latched one, else ``HOROVOD_FUSION_THRESHOLD``."""
+    if _live_threshold_provider is not None:
+        try:
+            live = _live_threshold_provider()
+        except Exception:   # a dying runtime must not break bucketing
+            live = None
+        if live is not None and live > 0:
+            return int(live)
+    return env_fusion_threshold_bytes()
+
+
+def env_fusion_threshold_bytes() -> int:
     """``HOROVOD_FUSION_THRESHOLD`` (bytes, or with a binary suffix); an
     unparseable value falls back to the 64 MB default with one warning."""
     global _warned_bad_threshold
@@ -168,7 +196,8 @@ def start_bucket(tensors: Sequence[torch.Tensor], group, size: int, *,
                  op=dist.ReduceOp.SUM, mean: bool = False,
                  prescale_factor: float = 1.0,
                  postscale_factor: float = 1.0,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 after_copy=None):
     """Start ONE async all-reduce of a bucket: ``tensors`` flattened into
     one buffer on ``device`` (default: where they lie).
 
@@ -177,10 +206,14 @@ def start_bucket(tensors: Sequence[torch.Tensor], group, size: int, *,
     tensors in order, shaped as the inputs.  The scale factors and the
     ``mean`` divide by ``size`` run in the bucket's dtype, as the
     reference's SPMD plane computes (``fused_psum``); the control plane
-    passes neither and scales each result as numpy would.
+    passes neither and scales each result as numpy would, and may pass
+    ``after_copy``, called once the tensors are in the buffer (its
+    timeline marks the copy).
     """
     # cat copies, so the reduction never writes into a caller's tensor.
     flat = torch.cat([t.reshape(-1).to(device) for t in tensors])
+    if after_copy is not None:
+        after_copy()
     flat = _times(flat, prescale_factor, _same)
     work = None
     if flat.numel():

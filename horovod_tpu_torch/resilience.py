@@ -1113,15 +1113,24 @@ _heartbeat_lock = threading.Lock()
 def start_heartbeat(rank: Optional[int] = None
                     ) -> Optional[HeartbeatSender]:
     """Start the heartbeat sender when the launcher runs a health plane
-    (``HOROVOD_HEALTH_RPC=addr:port``).  Idempotent; ``hvd.init`` calls
-    it.  Returns the sender, or None without a health plane."""
+    (``HOROVOD_HEALTH_RPC=addr:port``).  Idempotent for the same rank and
+    world; ``hvd.init`` calls it, and a sender of an earlier world (a
+    reformed one, or another rank) is stopped and replaced.  Returns the
+    sender, or None without a health plane."""
     global _heartbeat_sender
     target = (config.env_str("HOROVOD_HEALTH_RPC") or "").strip()
     if not target:
         return None
+    if rank is None:
+        rank = config.env_int("HOROVOD_RANK", 0) or 0
     with _heartbeat_lock:
-        if _heartbeat_sender is not None:
-            return _heartbeat_sender
+        old = _heartbeat_sender
+        if old is not None:
+            if (old.rank == int(rank) and old.world_epoch == (
+                    config.env_int("HOROVOD_WORLD_EPOCH", 0) or 0)):
+                return old
+            old.stop()
+            _heartbeat_sender = None
         addr, _, port = target.rpartition(":")
         if not addr or not port.isdigit():
             log.warning("HOROVOD_HEALTH_RPC=%r is not addr:port; "
@@ -1134,8 +1143,6 @@ def start_heartbeat(rank: Optional[int] = None
                         "using 2.0s",
                         config.env_raw("HOROVOD_HEARTBEAT_INTERVAL"))
             interval = 2.0
-        if rank is None:
-            rank = config.env_int("HOROVOD_RANK", 0) or 0
         from horovod_tpu_torch.runner import rpc
         key = rpc.job_key_bytes(config.env_str("HOROVOD_SECRET_KEY"))
         sender = HeartbeatSender(addr, int(port), key, rank, interval)
@@ -1196,13 +1203,13 @@ def reform_world(params, opt_state, *, ckpt_dir: Optional[str] = None,
 
     1. wait for this rank's spec, which the launcher delivers in a
        heartbeat reply (``timeout``, default ``HOROVOD_REFORM_TIMEOUT``);
-    2. tear the old world down (``hvd.shutdown``: the heartbeat stops, a
-       broken NCCL world is aborted);
+    2. tear the old world down (``hvd.shutdown``: a broken NCCL world is
+       aborted; the old heartbeat beats on until step 4 replaces it);
     3. adopt the spec: rank, size, local and cross topology,
        ``HOROVOD_WORLD_EPOCH``, ``HOROVOD_ELASTIC_PREV_SIZE``, and the
        spec's fresh rendezvous as ``HOROVOD_COORDINATOR_ADDR``;
-    4. ``hvd.init`` on the same kind of device (the heartbeat restarts
-       under the new rank);
+    4. ``hvd.init`` on the same kind of device (a heartbeat under the new
+       rank and world replaces the old one);
     5. recover the state through :func:`warm_restore`.
 
     Returns what :func:`warm_restore` returns.  Raises ``TimeoutError``

@@ -36,7 +36,7 @@ import torch
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.native import runtime as runtime_mod
 from horovod_tpu_torch.native.runtime import MembershipChangedError
-from torch_support import REPO
+from torch_support import REPO, run_port_job
 
 JOB_TIMEOUT = 90
 
@@ -347,9 +347,14 @@ hvd.shutdown()
 
 
 def test_fail_in_place_under_the_launcher(tmp_path):
+    # The launcher learns of rank 2's death from its exit, not from the
+    # heartbeat.  The deadline only has to outlast a survivor's exit after
+    # FIP_OK: once the interpreter finalizes no thread of it runs, and on a
+    # loaded host that took more than the default 5 intervals (1 s).
     res = _launch(tmp_path, FIP, 3, "localhost:2,127.0.1.1:1",
                   ["--heartbeat-interval", "0.2", "--min-np", "2",
-                   "--on-rank-failure", "shrink"])
+                   "--on-rank-failure", "shrink"],
+                  env={"HOROVOD_HEARTBEAT_DEADLINE": "10"})
     log = res.stdout + res.stderr
     assert res.returncode == 0, log[-6000:]
     assert ("reforming the world in-process as epoch 1 with 2 rank(s)"
@@ -369,3 +374,98 @@ def test_fail_in_place_under_the_launcher(tmp_path):
         pids.add(int(got["pid"]))
     assert len(pids) == 2
     assert res.stdout.count("FIP_OK") == 2
+
+
+# -- what made the reform job above fail under load -----------------------------
+
+SLOW_SHUTDOWN = r'''
+import os
+import sys
+import time
+
+import torch
+
+torch.set_num_threads(1)
+
+import horovod_tpu_torch as hvd
+
+hvd.init(device="cpu")
+rank = hvd.rank()
+hvd.allreduce(torch.ones(1), name="start")
+time.sleep(1.0)          # a few heartbeats: the launcher tracks the rank
+if rank == 1:
+    time.sleep(6.0)
+t0 = time.monotonic()
+hvd.shutdown()
+print(f"SHUT_OK rank={rank} seconds={time.monotonic() - t0:.1f}",
+      flush=True)
+os._exit(0)              # no interpreter teardown: only shutdown is timed
+'''
+
+
+def test_a_rank_waiting_for_its_peers_to_shut_down_is_not_dead(tmp_path):
+    """Rank 0 waits about 6 s in ``shutdown`` for rank 1 to agree.  The
+    heartbeat beats on meanwhile, so the launcher (a 2 s deadline at a
+    0.2 s interval) does not kill it as dead at the end of a run that
+    succeeded, as it killed the survivors of the reform job above in a
+    loaded run."""
+    res = _launch(tmp_path, SLOW_SHUTDOWN, 2, "localhost:2",
+                  ["--heartbeat-interval", "0.2"],
+                  env={"HOROVOD_HEARTBEAT_DEADLINE": "2"})
+    log = res.stdout + res.stderr
+    assert res.returncode == 0, log[-6000:]
+    assert "sent no heartbeat" not in res.stderr, log[-6000:]
+    assert res.stdout.count("SHUT_OK") == 2, log[-6000:]
+    waited = float(res.stdout.split("SHUT_OK rank=0 seconds=")[1].split()[0])
+    assert waited > 2.0, log[-6000:]
+
+
+BEHIND = r'''
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+import horovod_tpu_torch as thvd
+
+out_dir = sys.argv[1]
+thvd.init(device="cpu")
+r = thvd.rank()
+rt = thvd.basics.runtime()
+thvd.allreduce(torch.ones(1), name="start")
+if r == 0:
+    answer = rt._answer
+
+    def failing(lists):
+        # The coordinator meets a dead peer while gathering "boom".
+        if any(q.name == "boom" for rl in lists for q in rl.requests):
+            raise ConnectionError("Connection reset by peer")
+        return answer(lists)
+
+    rt._answer = failing
+t0 = time.monotonic()
+try:
+    thvd.allreduce(torch.ones(2), name="boom")
+    msg = "no error"
+except RuntimeError as e:
+    msg = str(e)
+np.savez(f"{out_dir}/rank{r}.npz", msg=np.array(msg),
+         seconds=np.array(time.monotonic() - t0))
+thvd.shutdown()
+'''
+
+
+def test_a_survivor_behind_the_coordinator_learns_of_the_failure_at_once(
+        tmp_path):
+    """Rank 1 sent its list and waits for the coordinator's answer when
+    rank 0's exchange fails.  Rank 0 closes its control connections as its
+    runtime stops, so rank 1's wait fails within seconds, not after the
+    control group's 60 s timeout (the 60 s that a survivor of the reform
+    job above spent in a loaded run)."""
+    (r0, r1), _ = run_port_job(BEHIND, str(tmp_path), timeout=45)
+    assert "Connection reset by peer" in str(r0["msg"]), r0["msg"]
+    assert str(r1["msg"]).startswith("horovod_tpu_torch runtime stopped"), (
+        r1["msg"])
+    assert float(r1["seconds"]) < 15, r1["seconds"]
