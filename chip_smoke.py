@@ -142,7 +142,8 @@ any failure ends the run with a traceback and a non-zero exit:
    ``NCCL_ALLREDUCE`` activity longer than 0 on the card's clock in
    every step, ``CYCLE_START`` present, ms/step beside phase 10's and
    the file's bytes; (b) the same 36 steps under ``HOROVOD_AUTOTUNE``,
-   its schedule sized from (a)'s busy cycles a step (the default
+   and on (72 at most) until three steps ran after the pin, its
+   schedule sized from (a)'s busy cycles a step (the default
    configuration through step 13, then 8 trials): every loss equal to
    (a)'s bit for bit, a log of 5 rows or more that varies a parameter
    and ends pinned, ``sync_tuned_config()`` equal to the pinned
@@ -153,10 +154,27 @@ any failure ends the run with a traceback and a non-zero exit:
    naming it and the other ranks within the deadline plus 2 s), then
    process sets inside a rank-subset job over NCCL, else one line
    saying why it did not run.
+17. telemetry and the schedule verifier: (a) in one worker process
+   (``--telemetry-worker``), phase 10's step from a fresh state for
+   phase 10's 13 steps under each of three ``init``s: telemetry unset
+   (the snapshot stays empty, no span); ``HOROVOD_METRICS``,
+   ``HOROVOD_TRACE`` and ``HOROVOD_EAGER_TIMELINE`` (``hvd_eager_ops_total``
+   equal to ``runtime.requests``, ``hvd_fusion_buckets_total`` to
+   ``fusion.allreduce_calls``, ``hvd_collective_bytes_total`` to the
+   gradients' bytes a step); ``HOROVOD_SCHEDULE_CHECK`` (a record per
+   request, 0 divergences); every loss equal across the modes and to
+   phase 10's bit for bit, ms/step beside phase 10's, series, spans,
+   timeline bytes and records a step; (b) the LM of record through the
+   ZeRO-1 ``int8`` step for 3 steps with metrics on: compression bytes
+   out over in equal to phase 13's wire ratio, ``hvd_zero_*`` to the
+   plan's buckets.  The tree needs 4 cards: ``-k tree`` of
+   ``tests/test_torch_cuda_collective.py``.
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
-(b), 13 (a), 14 (b, c), 15 and, for the forward kernel, 12 (a); the
-fused stem's add phase 16's 73 forward passes to phase 4's.  It prints
+(b), 13 (a), 14 (b, c), 15, 17 (b) and, for the forward kernel, 12 (a);
+the fused stem's add phase 16's 73 or more (36 under the timeline, 36
+to 72 under the tuner, 1 bucketed step) and phase 17's 39 forward
+passes to phase 4's.  It prints
 one JSON line of
 kernel numbers and, last, one JSON line naming the device.  With no GPU
 it exits non-zero and prints no result.
@@ -399,6 +417,11 @@ DISK_RUNG_FAULT = "rank=0,site=spill,kind=spill_corrupt,attempt=0"
 # state for CONTROL_STEPS steps under the timeline, then under the tuner
 # (its search pins after CONTROL_TRIALS trials); (c)'s eager-op deadline.
 CONTROL_STEPS = 36
+# The tuner's search lasts as many steps as the cycle times it tries
+# allow busy cycles (a host that runs the plane slower stretches it), so
+# (b) steps on past CONTROL_STEPS, up to this many, until it has timed
+# three steps after the pin.
+CONTROL_STEPS_MAX = 72
 CONTROL_TRIALS = 8
 DEADLINE_S = 3.0
 DEADLINE_JOB_S = 180
@@ -3484,7 +3507,7 @@ def _control_worker(mode: str, out_dir: str, *args: str) -> None:
     cycle markers; the timed window is phase 10's, steps 4-13, back to
     back) or ``autotune`` (HOROVOD_AUTOTUNE with a schedule sized from
     the busy cycles a step that ``timeline`` counted, each step timed on
-    its own; then ``sync_tuned_config`` and one step whose gradients take
+    its own, and on past CONTROL_STEPS until three pinned steps; then ``sync_tuned_config`` and one step whose gradients take
     the bucketed mean, ``fusion.fused_pytree_mean``).  Writes
     ``<mode>_result.json``."""
     import os
@@ -3520,7 +3543,10 @@ def _control_worker(mode: str, out_dir: str, *args: str) -> None:
     out = {"losses": [], "ms": [], "phase": []}
     busy0 = rt.busy_cycles
     window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    for i in range(CONTROL_STEPS):
+    for i in range(CONTROL_STEPS_MAX):
+        if i >= CONTROL_STEPS and (mode != "autotune"
+                                   or out["phase"].count("pinned") >= 3):
+            break
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         if i == WARMUP_STEPS:
@@ -3540,13 +3566,14 @@ def _control_worker(mode: str, out_dir: str, *args: str) -> None:
                 else "search"))
     torch.cuda.synchronize()
     out["losses"] = [float(x) for x in out["losses"]]
-    out["busy_cycles_per_step"] = (rt.busy_cycles - busy0) / CONTROL_STEPS
+    out["busy_cycles_per_step"] = ((rt.busy_cycles - busy0)
+                                   / len(out["losses"]))
     out["window_ms_per_step"] = window[0].elapsed_time(window[1]) / TIMED_STEPS
     out["fused_stem_launches"] = fused_stem.launches.count
     out["config"] = rt.tuned_config()
     if mode == "autotune":
         check(rt.tuner.monitoring, f"phase 16 (b): the tuner did not pin in "
-              f"{CONTROL_STEPS} steps (phases {out['phase']})")
+              f"{len(out['losses'])} steps (phases {out['phase']})")
         pinned = rt.tuner.fusion_threshold
         agreed = rt.sync_tuned_config()["fusion_threshold_bytes"]
         out["pinned"] = {"cycle_time_ms": rt.tuner.cycle_time_ms,
@@ -3616,8 +3643,8 @@ def phase_control_instruments(smi: str, main: dict, ctl: dict) -> int:
         check(res["losses"][WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS] == want,
               f"phase 16 {tag} losses differ from phase 4's: "
               f"{res['losses']} vs {want}")
-    check(at["losses"] == tl["losses"], f"phase 16 (b)'s losses "
-          f"{at['losses']} differ from (a)'s {tl['losses']}")
+    check(at["losses"][:len(tl["losses"])] == tl["losses"], f"phase 16 "
+          f"(b)'s losses {at['losses']} differ from (a)'s {tl['losses']}")
     # (a): every gradient's events, the wire's time on the card above 0.
     names = [f"grad.{i}" for i in range(ctl["gradients"])]
     for name in names:
@@ -3651,9 +3678,9 @@ def phase_control_instruments(smi: str, main: dict, ctl: dict) -> int:
     check(len(before) >= 3 and len(after) >= 3, f"phase 16 (b): steps "
           f"before the search {len(before)}, after the pin {len(after)}")
     launches = tl["fused_stem_launches"] + at["fused_stem_launches"]
-    check(launches == 2 * CONTROL_STEPS + 1, f"fused_stem launched "
-          f"{launches} times in phase 16's {2 * CONTROL_STEPS + 1} forward "
-          f"passes")
+    passes = len(tl["losses"]) + len(at["losses"]) + 1
+    check(launches == passes, f"fused_stem launched {launches} times in "
+          f"phase 16's {passes} forward passes")
     result = {
         "timeline": {"ms_per_step": tl["window_ms_per_step"],
                      "phase10_ms_per_step": ctl["ms_per_step"],
@@ -3813,6 +3840,300 @@ def phase_deadline_processes(smi: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the telemetry layer and the schedule verifier on the card
+# ---------------------------------------------------------------------------
+
+TELEMETRY_MODES = ("off", "metrics", "schedule")
+# Each mode's knobs ("timeline" stands for the eager timeline's path); the
+# last three split "metrics" by consumer for phase_telemetry_attribution.
+TELEMETRY_ENV = {
+    "off": {},
+    "metrics": {"HOROVOD_METRICS": "1", "HOROVOD_TRACE": "1",
+                "HOROVOD_EAGER_TIMELINE": "timeline"},
+    "schedule": {"HOROVOD_SCHEDULE_CHECK": "1"},
+    "metrics_only": {"HOROVOD_METRICS": "1"},
+    "trace_only": {"HOROVOD_TRACE": "1"},
+    "timeline_only": {"HOROVOD_EAGER_TIMELINE": "timeline"},
+}
+TELEMETRY_KNOBS = ("HOROVOD_METRICS", "HOROVOD_TRACE", "HOROVOD_EAGER_TIMELINE",
+                   "HOROVOD_SCHEDULE_CHECK")
+TELEMETRY_ATTRIBUTION = ("off", "metrics", "metrics_only", "trace_only",
+                         "timeline_only", "off", "metrics", "timeline_only",
+                         "trace_only", "metrics_only")
+TELEMETRY_LM_STEPS = (1, 2)     # (warm-up, timed): 3 steps
+
+
+def _series_total(snap: dict, name: str, **labels) -> float:
+    return sum(v["value"] for v in snap.get(name, {}).get("values", [])
+               if all(v["labels"].get(k) == x for k, x in labels.items()))
+
+
+def _telemetry_worker(out_dir: str, modes: str) -> None:
+    """Phase 17 (a)'s program: phase 10's ResNet-50 step from a fresh
+    state for phase 10's 13 steps, once per mode of the comma-separated
+    ``modes`` (:data:`TELEMETRY_ENV`: telemetry unset; ``HOROVOD_METRICS``
+    + ``HOROVOD_TRACE`` + ``HOROVOD_EAGER_TIMELINE``;
+    ``HOROVOD_SCHEDULE_CHECK``; each consumer alone), each under an
+    ``init`` of its own that reads the knobs.  Writes
+    ``telemetry_result.json``: ``runs`` in order."""
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.benchmark import make_bench_state
+    from horovod_tpu_torch.native import runtime as runtime_mod
+    from horovod_tpu_torch.ops import fused_stem, fusion
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    tl_path = os.path.join(out_dir, "eager_timeline.json")
+    runs = []
+    fused_stem.launches.reset()
+    for mode in modes.split(","):
+        for knob in TELEMETRY_KNOBS:
+            os.environ.pop(knob, None)
+        os.environ.update({k: tl_path if v == "timeline" else v
+                           for k, v in TELEMETRY_ENV[mode].items()})
+        telemetry.reset_for_tests()
+        hvd.init()
+        rt = hvd.basics.runtime()
+        st = make_bench_state("resnet50", batch_size=BATCH, image_size=IMAGE,
+                              stem="s2d_fused", input_dtype="bfloat16")
+        step, params, remove = _hooked_resnet_step(hvd, st)
+        runtime_mod.requests.reset()
+        fusion.allreduce_calls.reset()
+        sp = telemetry.spans()
+        window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        losses = []
+        for i in range(steps):
+            if i == WARMUP_STEPS:
+                window[0].record()
+            losses.append(step())
+        window[1].record()
+        torch.cuda.synchronize()
+        snap = telemetry.metrics_snapshot()
+        res = {"mode": mode, "losses": [float(x) for x in losses],
+               "ms_per_step": window[0].elapsed_time(window[1])
+               / TIMED_STEPS,
+               "steps": steps, "gradients": len(params),
+               "grad_bytes": sum(p.numel() * p.element_size()
+                                 for p in params),
+               "requests": runtime_mod.requests.count,
+               "allreduce_calls": fusion.allreduce_calls.count,
+               "eager_ops": _series_total(snap, "hvd_eager_ops_total"),
+               "fusion_buckets": _series_total(snap,
+                                               "hvd_fusion_buckets_total"),
+               "collective_bytes": _series_total(
+                   snap, "hvd_collective_bytes_total"),
+               "series": len(snap), "spans": len(sp) if sp else 0,
+               "sched_submissions": rt.sched_submissions,
+               "sched_divergences": rt.sched_divergences}
+        remove()
+        del st, step, params
+        hvd.shutdown()
+        for knob in TELEMETRY_KNOBS:
+            os.environ.pop(knob, None)
+        telemetry.reset_for_tests()     # closes the eager timeline
+        res["timeline_bytes"] = (os.path.getsize(tl_path)
+                                 if os.path.exists(tl_path) else 0)
+        if os.path.exists(tl_path):
+            os.remove(tl_path)
+        runs.append(res)
+    with open(os.path.join(out_dir, "telemetry_result.json"), "w") as f:
+        json.dump({"runs": runs,
+                   "fused_stem_launches": fused_stem.launches.count}, f)
+
+
+def _run_telemetry_worker(modes) -> dict:
+    """Run :func:`_telemetry_worker` over ``modes`` in a process of its
+    own (the knobs are read at ``init`` and at import); its JSON."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="hvd_telemetry_") as tmp:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--telemetry-worker", tmp, ",".join(modes)],
+                             capture_output=True, text=True, timeout=600)
+        sys.stdout.write(res.stdout)
+        check(res.returncode == 0, f"phase 17 worker failed (rc "
+              f"{res.returncode}): {res.stderr[-3000:]}")
+        with open(os.path.join(tmp, "telemetry_result.json")) as f:
+            return json.load(f)
+
+
+def _phase_telemetry_lm(smi: str) -> list:
+    """Phase 17 (b): the LM of record through the ZeRO-1 ``int8`` step
+    for 3 steps with metrics on, in this process.  Returns the flash
+    launches."""
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.benchmark import run_lm_benchmark
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    plan, wire_int8, _ = _zero_plan("int8")
+    _, wire_none, _ = _zero_plan("none")
+    ratio13 = wire_int8 / wire_none     # phase 13's wire ratio, exactly
+    flash = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    for c in flash:
+        c.reset()
+    warm, timed = TELEMETRY_LM_STEPS
+    steps = warm + timed
+    torch.cuda.empty_cache()
+    telemetry.registry().clear()
+    telemetry.configure(enabled_flag=True)
+    try:
+        res = run_lm_benchmark(
+            **LM, attention="flash", remat="none", momentum_dtype="bfloat16",
+            num_warmup_batches=warm, num_batches_per_iter=1,
+            num_iters=timed, shard_optimizer=True, compression="int8",
+            verbose=False)
+        snap = telemetry.metrics_snapshot()
+    finally:
+        telemetry.configure(enabled_flag=False)
+        telemetry.registry().clear()
+    launched = [c.count for c in flash]
+    n = LM["n_layers"] * steps
+    check(launched == [n, n, n], f"phase 17 (b) flash launches {launched}; "
+          f"expected {n} each ({steps} steps)")
+    for i, loss in enumerate(res["step_losses"]):
+        check(loss == loss and abs(loss) != float("inf"),
+              f"phase 17 (b) step {i} loss is not finite: {loss}")
+    nb = len(plan.buckets)
+    updates = _series_total(snap, "hvd_zero_updates_total")
+    buckets = _series_total(snap, "hvd_zero_buckets_total")
+    shards = snap["hvd_zero_shard_bytes"]["values"][0]["count"]
+    check((updates, buckets, shards) == (steps, steps * nb, steps * nb),
+          f"phase 17 (b): hvd_zero_updates_total {updates}, "
+          f"hvd_zero_buckets_total {buckets}, hvd_zero_shard_bytes count "
+          f"{shards}; the plan's {nb} buckets over {steps} steps")
+    b_in = _series_total(snap, "hvd_compression_bytes_in_total",
+                         codec="int8")
+    b_out = _series_total(snap, "hvd_compression_bytes_out_total",
+                          codec="int8")
+    gauge = _series_total(snap, "hvd_compression_ratio", codec="int8")
+    check(b_out / b_in == ratio13, f"phase 17 (b): compression bytes out/in "
+          f"{b_out}/{b_in} = {b_out / b_in} != phase 13's wire ratio "
+          f"{ratio13}")
+    check(abs(1.0 / gauge - INT8_WIRE_RATIO[0]) <= INT8_WIRE_RATIO[1],
+          f"phase 17 (b): hvd_compression_ratio {gauge}")
+    wire = _series_total(snap, "hvd_collective_bytes_total", codec="int8")
+    check(wire == steps * wire_int8, f"phase 17 (b): "
+          f"hvd_collective_bytes_total{{codec=int8}} {wire} != {steps} x "
+          f"the plan's {wire_int8}")
+    print(f"phase 17 (b): LM d{LM['d_model']}/L{LM['n_layers']} ZeRO-1 int8, "
+          f"{steps} steps with metrics on, {res['ms_per_step']:.2f} ms/step "
+          f"on {smi}: hvd_zero_updates_total {updates:.0f}, "
+          f"hvd_zero_buckets_total {buckets:.0f} = {steps} x {nb} buckets; "
+          f"compression bytes out/in {b_out / b_in} = phase 13's wire ratio "
+          f"{ratio13}; hvd_compression_ratio (latest, the all-gather) "
+          f"{gauge}; flash launches {launched}; {len(snap)} series",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_telemetry_attribution(smi: str) -> dict:
+    """Not part of :func:`main`: phase 17 (a)'s step under
+    :data:`TELEMETRY_ATTRIBUTION` (the metrics mode, each consumer alone
+    and telemetry unset, twice each in turns) in one worker process;
+    ms/step by mode, every loss equal across the runs."""
+    got = _run_telemetry_worker(TELEMETRY_ATTRIBUTION)
+    runs = got["runs"]
+    for r in runs:
+        check(r["losses"] == runs[0]["losses"], f"attribution: "
+              f"{r['mode']}'s losses differ from {runs[0]['mode']}'s")
+    by_mode: dict = {}
+    for r in runs:
+        by_mode.setdefault(r["mode"], []).append(r["ms_per_step"])
+    print(f"phase 17 attribution on {smi}, ms/step by mode (in run "
+          f"order {[r['mode'] for r in runs]}): " + json.dumps(by_mode),
+          flush=True)
+    return by_mode
+
+
+def phase_telemetry(smi: str, main: dict, ctl: dict) -> tuple:
+    """Phase 17: (a) in a worker process, phase 10's step under the three
+    modes; (b) the LM's ZeRO-1 int8 step with metrics on.  Returns the
+    fused-stem launches and the flash launches."""
+    t_start = time.perf_counter()
+    got = _run_telemetry_worker(TELEMETRY_MODES)
+    out = {r["mode"]: r for r in got["runs"]}
+    out["fused_stem_launches"] = got["fused_stem_launches"]
+    want = main["step_losses"]
+    first = out[TELEMETRY_MODES[0]]["losses"]
+    summary = {}
+    for mode in TELEMETRY_MODES:
+        r = out[mode]
+        steps = r["steps"]
+        check(r["losses"] == first, f"phase 17 (a) {mode}'s losses "
+              f"{r['losses']} differ from {TELEMETRY_MODES[0]}'s {first}")
+        check(r["losses"][WARMUP_STEPS:] == want, f"phase 17 (a) {mode}'s "
+              f"timed losses differ from phases 4 and 10's: {r['losses']} "
+              f"vs {want}")
+        check(r["requests"] == steps * r["gradients"], f"phase 17 (a) "
+              f"{mode}: {r['requests']} requests in {steps} steps of "
+              f"{r['gradients']} gradients")
+        if mode == "off":
+            check(r["series"] == 0 and r["spans"] == 0, f"phase 17 (a): "
+                  f"telemetry unset, yet {r['series']} series and "
+                  f"{r['spans']} spans")
+        if mode == "metrics":
+            check(r["eager_ops"] == r["requests"], f"phase 17 (a): "
+                  f"hvd_eager_ops_total {r['eager_ops']} != runtime.requests "
+                  f"{r['requests']}")
+            check(r["fusion_buckets"] == r["allreduce_calls"], f"phase 17 "
+                  f"(a): hvd_fusion_buckets_total {r['fusion_buckets']} != "
+                  f"fusion.allreduce_calls {r['allreduce_calls']}")
+            check(r["collective_bytes"] == steps * r["grad_bytes"],
+                  f"phase 17 (a): hvd_collective_bytes_total "
+                  f"{r['collective_bytes']} != {steps} x "
+                  f"{r['grad_bytes']} gradient bytes")
+            check(r["spans"] >= 2 * r["requests"] and r["timeline_bytes"] > 0,
+                  f"phase 17 (a): {r['spans']} spans for {r['requests']} "
+                  f"ops, {r['timeline_bytes']} timeline bytes")
+        if mode == "schedule":
+            check(r["sched_submissions"] == r["requests"]
+                  and r["sched_divergences"] == 0, f"phase 17 (a): "
+                  f"{r['sched_submissions']} schedule submissions for "
+                  f"{r['requests']} requests, {r['sched_divergences']} "
+                  f"divergences")
+        summary[mode] = {
+            "ms_per_step": r["ms_per_step"],
+            "eager_ops_per_step": r["eager_ops"] / steps,
+            "fusion_buckets_per_step": r["fusion_buckets"] / steps,
+            "collective_bytes_per_step": r["collective_bytes"] / steps,
+            "spans_per_step": r["spans"] / steps,
+            "timeline_bytes_per_step": r["timeline_bytes"] / steps,
+            "sched_submissions_per_step": r["sched_submissions"] / steps,
+            "sched_divergences": r["sched_divergences"],
+            "series": r["series"]}
+    launches = out["fused_stem_launches"]
+    n = len(TELEMETRY_MODES) * (WARMUP_STEPS + TIMED_STEPS)
+    check(launches == n, f"fused_stem launched {launches} times in phase "
+          f"17's {n} forward passes")
+    summary["phase10_ms_per_step"] = ctl["ms_per_step"]
+    summary["nvidia_smi"] = smi
+    print(f"phase 17 (a): ResNet-50 s2d_fused, batch {BATCH}, through the "
+          f"control plane on {smi}: telemetry unset "
+          f"{summary['off']['ms_per_step']:.2f} ms/step, metrics + trace + "
+          f"eager timeline {summary['metrics']['ms_per_step']:.2f}, schedule "
+          f"check {summary['schedule']['ms_per_step']:.2f} (phase 10: "
+          f"{ctl['ms_per_step']:.2f}); a step: "
+          f"{summary['metrics']['eager_ops_per_step']:.0f} eager ops = "
+          f"runtime.requests, {summary['metrics']['fusion_buckets_per_step']:.2f}"
+          f" fusion buckets = fusion.allreduce_calls, "
+          f"{summary['metrics']['collective_bytes_per_step']:.0f} bytes, "
+          f"{summary['metrics']['spans_per_step']:.1f} spans, "
+          f"{summary['metrics']['timeline_bytes_per_step']:.0f} timeline "
+          f"bytes, {summary['schedule']['sched_submissions_per_step']:.0f} "
+          f"schedule submissions, 0 divergences; telemetry unset leaves the "
+          f"snapshot empty; every loss of the three modes equals phase 10's "
+          f"bit for bit", flush=True)
+    flash = _phase_telemetry_lm(smi)
+    print(f"phase 17: {time.perf_counter() - t_start:.1f} s; "
+          + json.dumps(summary), flush=True)
+    return launches, flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3843,12 +4164,14 @@ def main() -> int:
     warm = phase_warm_restart(smi, lm_summary)
     stem_row["launches"] += phase_control_instruments(smi, main_summary,
                                                       control)
+    tele_stem, tele_flash = phase_telemetry(smi, main_summary, control)
+    stem_row["launches"] += tele_stem
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
-                           zero, guard, warm):
+                           zero, guard, warm, tele_flash):
         check(all(count), f"{row['name']} did not launch on every path: "
-              f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a), 14 (b, c), 15 "
-              f"{count}")
+              f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a), 14 (b, c), 15, "
+              f"17 (b) {count}")
         row["launches"] = sum(count)
     flash_rows[0]["launches"] += decode[0]
     hvd.shutdown()
@@ -3872,5 +4195,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--control-worker"]:
         _control_worker(*sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--telemetry-worker"]:
+        _telemetry_worker(*sys.argv[2:4])
         sys.exit(0)
     sys.exit(main())

@@ -132,5 +132,7 @@ from horovod_tpu_torch.resilience import (  # noqa: F401
     apply_step_guard,
     report_progress,
 )
+from horovod_tpu_torch import telemetry  # noqa: F401
+from horovod_tpu_torch.telemetry import metrics_snapshot  # noqa: F401
 
 __version__ = "0.1.0"

@@ -17,6 +17,13 @@ processes (reference ``basics.py:155-165``): members get their position
 in the subset as rank and a process group of their own; every other
 process becomes an inactive world of one.
 
+Every rank announces the coordination epoch it runs under
+(``HOROVOD_COORD_EPOCH``) at the rendezvous, and rank 0's is the job's:
+a rank that announces another epoch (a straggler from before a
+coordinator failover) is dropped there and its ``init`` raises, while
+the rest of the world forms without it (reference ``controller.cc:102-
+165``, in its words).
+
 ``init`` also starts the control plane (:mod:`horovod_tpu_torch.native`)
 that every eager ``hvd.*`` collective goes through, at every size: a gloo
 control group and a data group of its own (NCCL on the GPU), created in
@@ -36,6 +43,7 @@ launcher's ``HOROVOD_COORD_*`` trio) are the reference's
 from __future__ import annotations
 
 import atexit
+import logging
 import os
 import socket
 import threading
@@ -44,8 +52,11 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import config
+from horovod_tpu_torch import config, telemetry
+from horovod_tpu_torch.native import coord_tree
 from horovod_tpu_torch.native.runtime import CONTROL_TIMEOUT, Runtime
+
+log = logging.getLogger("horovod_tpu_torch.controller")
 
 NOT_INITIALIZED_ERROR = (
     "horovod_tpu_torch has not been initialized; use hvd.init()."
@@ -97,17 +108,50 @@ def resolve_device(device=None, local_rank: Optional[int] = None
     return torch.device("cuda", local_rank)
 
 
-def _init_method(size: int) -> str:
+def _rendezvous_addr(size: int) -> Tuple[str, int]:
     coord = config.env_raw("HOROVOD_COORDINATOR_ADDR")
     if coord:
-        return f"tcp://{coord}"
+        host, port = coord.rsplit(":", 1)
+        return host.strip("[]"), int(port)
     if os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
-        return "env://"
+        return os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"])
     if size == 1:
-        return f"tcp://127.0.0.1:{_free_localhost_port()}"
+        return "127.0.0.1", _free_localhost_port()
     raise RuntimeError(
         f"a world of size {size} needs a rendezvous address: set "
         f"HOROVOD_COORDINATOR_ADDR=host:port or MASTER_ADDR/MASTER_PORT")
+
+
+_EPOCH_KEY = "hvd/coord_epoch"
+_STALE_KEY = "hvd/stale"
+
+
+def _rendezvous(rank: int, size: int):
+    """The store every rank meets at (rank 0 serves it), after the epoch
+    check: rank 0 publishes its epoch; any other rank whose epoch differs
+    leaves a note for rank 0 and raises instead of joining."""
+    host, port = _rendezvous_addr(size)
+    store = dist.TCPStore(host, port, None, rank == 0,
+                          dist.constants.default_pg_timeout,
+                          wait_for_workers=False, multi_tenant=True)
+    epoch = config.env_int("HOROVOD_COORD_EPOCH")
+    if rank == 0:
+        store.set(_EPOCH_KEY, str(epoch))
+        return store
+    current = int(store.get(_EPOCH_KEY))
+    if current != epoch:
+        note = (f"controller: dropped rank {rank} announcing stale "
+                f"coordination epoch {epoch} (current epoch {current})")
+        n = store.add(_STALE_KEY, 1)
+        store.set(f"{_STALE_KEY}/{n}", note)
+        raise RuntimeError(note)
+    return store
+
+
+def _report_stale(store) -> None:
+    """Rank 0: log the stragglers the rendezvous dropped."""
+    for i in range(1, store.add(_STALE_KEY, 0) + 1):
+        log.warning("%s", store.get(f"{_STALE_KEY}/{i}").decode())
 
 
 def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
@@ -141,8 +185,11 @@ def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
-        dist.init_process_group(backend, init_method=_init_method(size),
-                                rank=rank, world_size=size)
+        store = _rendezvous(rank, size)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=size)
+        if rank == 0:
+            _report_stale(store)
         group, global_ranks = None, tuple(range(size))
         if members is not None:
             group, global_ranks = _subset_group(rank, size, members)
@@ -153,9 +200,15 @@ def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
         else:
             ctrl = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
             data = dist.new_group(backend=backend)
+        tree = None
+        plan = None if members is not None else coord_tree.plan_from_env(
+            rank, size, config.env_bool("HOROVOD_SCHEDULE_CHECK"))
+        if plan is not None:
+            tree = coord_tree.TreeGroups(plan, rank, global_ranks,
+                                         CONTROL_TIMEOUT)
         try:
             runtime = Runtime(rank, size, ctrl, data, global_ranks, dev,
-                              subset=members is not None)
+                              subset=members is not None, tree=tree)
         except BaseException:
             # The timeline or the trial log could not be opened: no half
             # world is left behind.
@@ -170,6 +223,12 @@ def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
         _state.runtime = runtime
         _state.world_epoch = config.env_int("HOROVOD_WORLD_EPOCH", 0) or 0
         _state.initialized = True
+    # The coordination epoch this rank runs under: after a failover the
+    # merged metrics show every rank on the new one.
+    telemetry.gauge(
+        "hvd_coord_epoch",
+        "Coordinator lease epoch this process is operating under").set(
+        float(config.env_int("HOROVOD_COORD_EPOCH")))
     if config.env_raw("HOROVOD_HEALTH_RPC"):
         # The launcher's health plane listens: push heartbeats from now on.
         from horovod_tpu_torch import resilience

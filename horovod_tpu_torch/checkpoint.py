@@ -41,7 +41,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from horovod_tpu_torch import basics
+from horovod_tpu_torch import basics, telemetry
 from horovod_tpu_torch.ops import collective as _c
 from horovod_tpu_torch.tree import tree_leaves_with_path, tree_map
 
@@ -227,13 +227,25 @@ def save(ckpt_dir: str, state: Any, step: int = 0,
     if basics.rank() == 0:
         try:
             ckpt_dir = os.path.abspath(ckpt_dir)
+            t0 = telemetry.clock() if telemetry.enabled() else 0.0
             path = _write(ckpt_dir, step, _host_dict(state), max_to_keep)
             ok[0] = 1
+            if telemetry.enabled():
+                telemetry.counter("hvd_checkpoint_saves_total",
+                                  "Checkpoints written by rank 0").inc()
+                telemetry.histogram(
+                    "hvd_checkpoint_save_seconds",
+                    "Wall time of a rank-0 checkpoint save").observe(
+                    telemetry.clock() - t0)
             log.info("checkpoint step %d written to %s", step, path)
         except Exception as e:  # noqa: BLE001 (degrade, never deadlock)
             log.error("checkpoint save step %d to %s FAILED (%s: %s); "
                       "continuing without a checkpoint", step, ckpt_dir,
                       type(e).__name__, e)
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_checkpoint_save_failures_total",
+                    "rank-0 checkpoint writes that raised").inc()
     if basics.size() > 1:
         ok = _c.broadcast(ok, 0, name=f"hvd.checkpoint.save.ok.{step}")
     return path if int(ok[0]) else None
@@ -273,7 +285,13 @@ def save_async(ckpt_dir: str, state: Any, step: int = 0,
     state = _gather_zero(state)
     if basics.rank() != 0:
         return None
+    t_snap = telemetry.clock() if telemetry.enabled() else 0.0
     snapshot = _host_dict(state, copy=True)
+    if telemetry.enabled():
+        telemetry.histogram(
+            "hvd_ckpt_async_snapshot_seconds",
+            "device->host snapshot time per async save (the only part "
+            "that blocks the step)").observe(telemetry.clock() - t_snap)
     ckpt_dir = os.path.abspath(ckpt_dir)
     record = _AsyncSave(step)
 
@@ -283,8 +301,20 @@ def save_async(ckpt_dir: str, state: Any, step: int = 0,
             record.path = _write(ckpt_dir, step, snapshot, max_to_keep)
             log.info("async checkpoint step %d written to %s", step,
                      record.path)
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_ckpt_async_saves_total",
+                    "background checkpoint writes completed").inc()
+                telemetry.histogram(
+                    "hvd_ckpt_async_write_seconds",
+                    "background orbax write time per async save").observe(
+                    time.perf_counter() - t0)
         except Exception as e:  # noqa: BLE001 (reported when drained)
             record.error = e
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_ckpt_async_failures_total",
+                    "background checkpoint writes that raised").inc()
         record.seconds = time.perf_counter() - t0
 
     record.thread = threading.Thread(
@@ -348,6 +378,7 @@ def restore(ckpt_dir: str, state_template: Any, step: Optional[int] = None,
     portable = _gather_zero(state_template)
     state = portable
     found = torch.zeros(1, dtype=torch.int32)
+    t0 = telemetry.clock() if telemetry.enabled() else 0.0
     if basics.rank() == root_rank:
         ckpt_dir = os.path.abspath(ckpt_dir)
         for use_step in _candidates(ckpt_dir, step):
@@ -366,7 +397,17 @@ def restore(ckpt_dir: str, state_template: Any, step: Optional[int] = None,
         if int(found[0]):
             state = _tree_broadcast(state, root_rank,
                                     "hvd.checkpoint.restore")
-    return _scatter_zero(state, state_template)
+    state = _scatter_zero(state, state_template)
+    if telemetry.enabled():
+        telemetry.counter(
+            "hvd_checkpoint_restores_total",
+            "Checkpoint restore attempts (including broadcast)",
+            found=str(bool(int(found[0])))).inc()
+        telemetry.histogram(
+            "hvd_checkpoint_restore_seconds",
+            "Wall time of restore + cross-rank broadcast").observe(
+            telemetry.clock() - t0)
+    return state
 
 
 def load_local(ckpt_dir: str, state_template: Any,

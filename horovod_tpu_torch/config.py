@@ -147,6 +147,38 @@ _var("HOROVOD_COORD_EPOCH", "int", 0,
      "re-election")
 _var("HOROVOD_COORD_ELECTIONS", "int", 0,
      "Coordinator elections so far this job (launcher-injected)")
+_var("HOROVOD_COORD_TREE", "bool", False,
+     "1 coordinates through the two-level host/leader tree instead of "
+     "the flat rank-0 star (needs a HOROVOD_TOPOLOGY of >= 2 hosts)")
+_var("HOROVOD_SCHEDULE_CHECK", "bool", False,
+     "1 arms the collective-schedule verifier: the coordinator matches "
+     "every rank's submission records by name and aborts at the first "
+     "divergence (rank, call index, field) instead of stalling")
+_var("HOROVOD_SCHEDULE_CHECK_QUIET_SECONDS", "float", 2.0,
+     "Schedule verifier's quiet window: abort when every rank has an "
+     "unmatched submission and none announced anything for this long")
+_var("HOROVOD_METRICS", "bool", False,
+     "1 turns metric collection on without any export path")
+_var("HOROVOD_METRICS_PORT", "int", None,
+     "Prometheus scrape port base (per-rank = base + local_rank; 0 = "
+     "ephemeral)")
+_var("HOROVOD_METRICS_FILE", "str", None,
+     "Per-rank at-exit JSON dump path")
+_var("HOROVOD_METRICS_RPC", "str", None,
+     "launcher host:port the at-exit snapshot is pushed to (set by "
+     "hvdrun)")
+_var("HOROVOD_EAGER_TIMELINE", "str", None,
+     "Chrome-tracing JSON path for the per-rank eager-plane timeline")
+_var("HOROVOD_TRACE", "bool", False,
+     "1 turns cross-rank span tracing on (set by hvdrun --trace)")
+_var("HOROVOD_TRACE_DIR", "str", None,
+     "Directory for the per-rank span-log file (spans.rank<k>.json)")
+_var("HOROVOD_TRACE_RPC", "str", None,
+     "launcher host:port span documents are pushed to (set by hvdrun)")
+_var("HOROVOD_TRACE_SAMPLE", "int", 1,
+     "Trace 1-in-N occurrences of each name (1 = every one)")
+_var("HOROVOD_TRACE_BUFFER", "int", 65536,
+     "Per-rank span buffer capacity; overflow drops spans")
 
 
 class UnknownEnvVar(KeyError):

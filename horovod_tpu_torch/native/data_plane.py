@@ -193,6 +193,10 @@ def allreduce(resp: Response, held: List[Optional[torch.Tensor]],
     if resp.arg == ReduceOp.ADASUM:
         out = adasum(to_wire(parts[0], g.device), g)
         return [], [lambda: on_caller(out)]
+    fusion.record_buckets("eager", parts, [range(len(parts))])
+    fusion.record_collective_bytes(
+        "allreduce", "none", sum(t.numel() * t.element_size() for t in parts),
+        level="flat", plane="eager")
     work, finish = fusion.start_bucket(parts, g.group, g.size,
                                        op=TORCH_OPS[resp.arg],
                                        device=g.device, after_copy=mark)

@@ -73,10 +73,66 @@ class Request:
 class RequestList:
     """Everything one rank tells the coordinator in one cycle: its new
     requests, the cache slots of the names it announces by bit (an int
-    used as a bit set), and whether it wants to shut down."""
+    used as a bit set), and whether it wants to shut down.
+
+    Tree coordination: a host leader sends its host's lists upstream as
+    one, whose requests carry their ranks; ``shutdown_ranks`` and
+    ``member_cache_hits`` (``(rank, bits)`` pairs) carry the list-level
+    state that a flat exchange tells by which rank sent the list.
+
+    The schedule verifier (``HOROVOD_SCHEDULE_CHECK``): ``sched`` holds
+    this rank's submissions of the cycle as they were made, before the
+    cache turned any into bits; ``sched_seq`` and ``sched_digest`` count
+    and fold (order-insensitively) every global-set submission since
+    init or this rank's last join."""
     requests: List[Request] = field(default_factory=list)
     cache_hits: int = 0
     shutdown: bool = False
+    shutdown_ranks: List[int] = field(default_factory=list)
+    member_cache_hits: List[Tuple[int, int]] = field(default_factory=list)
+    sched: List[Request] = field(default_factory=list)
+    sched_seq: int = 0
+    sched_digest: int = 0
+
+
+# The schedule digest (``message.h`` ``kSchedDigestInit``, ``SchedFold``
+# in ``message.cc:89``): each record is hashed on its own with FNV-1a and
+# XORed into the running digest, so equal multisets of submissions give
+# equal digests whatever their order.  The port folds a dtype's name
+# where the reference folds its enum code: the digests are compared only
+# among the port's ranks.
+SCHED_DIGEST_INIT = 1469598103934665603
+_FNV_PRIME = 1099511628211
+_MASK64 = (1 << 64) - 1
+
+
+def sched_fold(digest: int, r: Request) -> int:
+    h = SCHED_DIGEST_INIT
+
+    def word(v: int) -> None:
+        nonlocal h
+        v &= _MASK64
+        for i in range(8):
+            h = ((h ^ ((v >> (i * 8)) & 0xFF)) * _FNV_PRIME) & _MASK64
+
+    def text(t: str) -> None:
+        nonlocal h
+        for b in t.encode():
+            h = ((h ^ b) * _FNV_PRIME) & _MASK64
+
+    word(int(r.op_type))
+    text(r.dtype)
+    word(r.arg)
+    word(r.set_id)
+    text(r.name)
+    # The first dimension of an allgather or alltoall may differ by rank.
+    start = 1 if r.op_type in (OpType.ALLGATHER, OpType.ALLTOALL) else 0
+    word(len(r.shape))
+    for d in r.shape[start:]:
+        word(d)
+    word((1 if r.splits else 0) if r.op_type == OpType.ALLTOALL
+         else len(r.splits))
+    return digest ^ h
 
 
 @dataclass
@@ -113,6 +169,10 @@ class TunedParams:
 
 @dataclass
 class ResponseList:
+    """The coordinator's answer of one cycle.  A non-empty
+    ``abort_message`` is the schedule verifier's report of a divergence:
+    every rank fails its pending work with it and stops."""
     responses: List[Response] = field(default_factory=list)
     shutdown: bool = False
     params: Optional[TunedParams] = None
+    abort_message: str = ""

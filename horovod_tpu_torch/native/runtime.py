@@ -47,11 +47,31 @@ tuner (:mod:`.autotune`), whose parameters ride every response list and
 are applied by every rank before it fuses that list.  The fusion
 threshold that framework code buckets by follows the tuner only
 through :meth:`Runtime.sync_tuned_config`, a collective.
+
+The control plane's last parts (``controller.cc``): under
+``HOROVOD_SCHEDULE_CHECK`` every list carries this rank's submission
+records, its count and its digest, and a coordinator's abort fails every
+pending entry with the report and stops the thread; under
+``HOROVOD_COORD_TREE`` the exchange goes member -> host leader -> master
+and back (:mod:`.coord_tree`).
+
+Telemetry (reference ``native/runtime.py:800-1020``), host-side only:
+with any telemetry consumer on, a submission records its SUBMIT span and
+timeline row, and the return of its wait (``TensorEntry.result``) the
+op's count, latency and bytes (``observe_op``),
+``hvd_native_wait_seconds``, the ``wait`` span and the timeline's WAIT
+and FINISH; failed waits count in ``hvd_eager_op_errors_total``, stalls
+and watchdog warnings in ``hvd_eager_stalls_total`` and
+``hvd_eager_stall_warnings_total``.  The gauges (the tuned
+configuration, the schedule check, the tree, the membership) are
+published at start, by the watchdog and at stop.  Nothing here waits on
+the device.
 """
 
 from __future__ import annotations
 
 import datetime
+import functools
 import itertools
 import logging
 import threading
@@ -62,13 +82,15 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import config
+from horovod_tpu_torch import config, telemetry
 from horovod_tpu_torch.native import data_plane
 from horovod_tpu_torch.native.autotune import ParameterManager
 from horovod_tpu_torch.native.controller import Controller, fuse
-from horovod_tpu_torch.native.message import (OP_NAMES, OpType, ReduceOp,
-                                              RequestList, Response,
-                                              ResponseList, TunedParams)
+from horovod_tpu_torch.native.coord_tree import TreeGroups
+from horovod_tpu_torch.native.message import (OP_NAMES, SCHED_DIGEST_INIT,
+                                              OpType, ReduceOp, RequestList,
+                                              Response, ResponseList,
+                                              TunedParams, sched_fold)
 from horovod_tpu_torch.native.response_cache import ResponseCache
 from horovod_tpu_torch.native.stall_inspector import StallInspector
 from horovod_tpu_torch.native.tensor_queue import (SHUTDOWN_ERROR,
@@ -139,7 +161,7 @@ class Runtime:
 
     def __init__(self, rank: int, size: int, ctrl_group, data_group,
                  global_ranks: Sequence[int], device: torch.device,
-                 subset: bool = False):
+                 subset: bool = False, tree: Optional[TreeGroups] = None):
         self.rank, self.size = rank, size
         self.device = device
         self.ctrl_group = ctrl_group
@@ -152,8 +174,20 @@ class Runtime:
         self.fusion_threshold = fusion.env_fusion_threshold_bytes()
         self.cycle_time_s = config.cycle_time_ms() / 1000.0
         self.exploring = False
-        self.controller = Controller(size, self.cache, StallInspector(
-            config.stall_check_seconds(), config.stall_shutdown_seconds()))
+        self.tree = tree
+        self.schedule_check = config.env_bool("HOROVOD_SCHEDULE_CHECK")
+        self.sched_submissions = self.sched_divergences = 0
+        self._sched_digest, self._sched_seq = SCHED_DIGEST_INIT, 0
+        self._abort: Optional[BaseException] = None
+        self._trace_cycle = 0
+        self.controller = Controller(
+            size, self.cache, StallInspector(
+                config.stall_check_seconds(),
+                config.stall_shutdown_seconds()),
+            schedule_check=self.schedule_check,
+            sched_quiet_s=config.env_float(
+                "HOROVOD_SCHEDULE_CHECK_QUIET_SECONDS"),
+            tree=tree is not None)
         self.groups: Dict[int, data_plane.DataGroup] = {
             0: data_plane.DataGroup(data_group, range(size), rank,
                                     self.global_ranks, device)}
@@ -181,7 +215,7 @@ class Runtime:
         self._inflight_lock = threading.Lock()
         self._watchdog_stop = threading.Event()
         self._watchdog: Optional[threading.Thread] = None
-        if self.op_warn:
+        if self.op_warn or telemetry.enabled():
             self._watchdog = threading.Thread(
                 target=self._watch, daemon=True, name="hvd-torch-watchdog")
         # Rank 0's instruments: the timeline and the tuner, and the thread
@@ -214,9 +248,17 @@ class Runtime:
 
     def start(self) -> None:
         fusion.set_live_threshold_provider(self._live_fusion_threshold)
+        telemetry.register_metrics_flush_hook(self.publish_gauges)
+        self.publish_gauges()
         if self._watchdog is not None:
             self._watchdog.start()
         self.thread.start()
+
+    def coord_tree_enabled(self) -> bool:
+        """True when tree coordination is active (reference
+        ``native/runtime.py:402-409``); False in flat mode, the two
+        fallbacks included."""
+        return self.tree is not None
 
     def submit(self, entries: Sequence[TensorEntry], kind: str) -> None:
         """File ``entries`` for the next cycle (a short append)."""
@@ -226,15 +268,99 @@ class Runtime:
                 e.on_error = self._membership_error
             if self.op_timeout is not None:
                 e.timeout = self.op_timeout
-                e.on_timeout = self._stall_error
+                e.on_timeout = functools.partial(self._stall_error,
+                                                 op=OP_NAMES[e.op_type])
             e.submitted_at = now
         self.queue.add(entries, kind)
-        if self._watchdog is not None:
+        if telemetry.active():
+            self._record_submit(entries, now)
+        if self.op_warn:
             with self._inflight_lock:
                 for e in entries:
                     self._inflight[next(self._inflight_seq)] = e
         requests.count += len(entries)
         self._wake.set()
+
+    # -- telemetry ----------------------------------------------------------------
+
+    def _record_submit(self, entries: Sequence[TensorEntry],
+                       t0: float) -> None:
+        """The SUBMIT span and timeline row of each entry, its trace
+        occurrence, and the hook its wait reports to."""
+        t1 = time.monotonic()
+        sp, tl = telemetry.spans(), telemetry.timeline()
+        for e in entries:
+            op, nbytes = OP_NAMES[e.op_type], _nbytes(e)
+            e.telemetry, e.enqueued_at = self, t1
+            if sp is not None:
+                e.trace_seq = sp.next_seq(e.name)
+                sp.record(e.name, "submit", e.trace_seq, t0, t1, nbytes)
+            if tl is not None:
+                tl.span(e.name, f"SUBMIT_{op.upper()}", t0, t1,
+                        args={"op": op, "bytes": nbytes})
+
+    def op_done(self, e: TensorEntry, t_wait: float, t_done: float) -> None:
+        """An entry's wait returned (reference ``_wait_read``)."""
+        op, nbytes = OP_NAMES[e.op_type], _nbytes(e)
+        sp = telemetry.spans()
+        if sp is not None and e.trace_seq >= 0:
+            sp.record(e.name, "wait", e.trace_seq, t_wait, t_done, nbytes)
+        telemetry.observe_op(op, max(t_done - e.enqueued_at, 1e-9), nbytes)
+        if telemetry.enabled():
+            telemetry.histogram(
+                "hvd_native_wait_seconds",
+                "Time blocked in hvd_wait on the native runtime",
+                bounds=telemetry.DEFAULT_TIME_BUCKETS,
+                op=op).observe(max(t_done - t_wait, 0.0))
+        tl = telemetry.timeline()
+        if tl is not None:
+            tl.span(e.name, f"WAIT_{op.upper()}", t_wait, t_done)
+            tl.instant(e.name, "FINISH", t_done, args={"op": op})
+
+    def op_failed(self, e: TensorEntry) -> None:
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_eager_op_errors_total",
+                "Eager ops completed with a native error status",
+                op=OP_NAMES[e.op_type]).inc()
+
+    def publish_gauges(self) -> None:
+        """The tuned configuration, the schedule check, the tree and the
+        membership as gauges (reference ``_publish_autotune_gauges`` and
+        ``_publish_schedule_check_metrics``, the dimensions the port
+        has)."""
+        if not telemetry.enabled():
+            return
+        telemetry.gauge(
+            "hvd_schedule_check_enabled",
+            "1 while HOROVOD_SCHEDULE_CHECK verification is active",
+        ).set(1.0 if self.schedule_check else 0.0)
+        cfg = self.tuned_config()
+        telemetry.gauge(
+            "hvd_autotune_cycle_time_ms",
+            "Active coordination cycle time (latest TunedParams)",
+        ).set(cfg["cycle_time_ms"])
+        telemetry.gauge(
+            "hvd_autotune_fusion_threshold_bytes",
+            "Active fusion threshold (latest TunedParams)",
+        ).set(float(cfg["fusion_threshold_bytes"]))
+        telemetry.gauge(
+            "hvd_autotune_cache_hit_ratio",
+            "Response-cache hit ratio for this rank's announcements",
+        ).set(cfg["cache_hit_ratio"])
+        telemetry.gauge(
+            "hvd_coord_tree",
+            "1 while tree coordination (member -> host leader -> master) "
+            "is active on this rank",
+        ).set(1.0 if self.tree is not None else 0.0)
+        telemetry.gauge(
+            "hvd_membership_changed",
+            "1 once this runtime saw a peer leave under a shrink policy",
+        ).set(1.0 if self.membership_changed else 0.0)
+        telemetry.gauge(
+            "hvd_world_epoch",
+            "Membership epoch this world was initialized under",
+        ).set(float(config.env_int("HOROVOD_WORLD_EPOCH", 0) or 0))
 
     def has_set(self, set_id: int) -> bool:
         return set_id in self.groups
@@ -249,6 +375,8 @@ class Runtime:
         if self._watchdog is not None and self._watchdog.is_alive():
             self._watchdog.join(5.0)
         fusion.set_live_threshold_provider(None)
+        self.publish_gauges()
+        telemetry.unregister_metrics_flush_hook(self.publish_gauges)
         if self.thread.is_alive():
             log.warning("horovod_tpu_torch runtime: the ranks did not agree "
                         "to shut down within %s s; leaving the thread",
@@ -308,9 +436,9 @@ class Runtime:
 
     def _stall_report(self, name: str, elapsed: float) -> str:
         """Reference ``native/runtime.py:837-894``, without the transport
-        and schedule-check notes (the port has neither): this rank
-        submitted the op and its completion never came, so the suspects
-        are every peer."""
+        note (the port has no native transports): this rank submitted the
+        op and its completion never came, so the suspects are every
+        peer."""
         suspects = [r for r in range(self.size) if r != self.rank]
         cfg = self.tuned_config()
         coord = (f" Coordination plane: coordinator rank "
@@ -322,6 +450,12 @@ class Runtime:
                  f"{cfg['fusion_threshold_bytes']} bytes"
                  + (", autotuner exploring" if cfg["exploring"] else "")
                  + ".")
+        sched = "" if self.schedule_check else (
+            " If a divergent submission order is suspected, rerun with "
+            "HOROVOD_SCHEDULE_CHECK=1: the coordinator then verifies every "
+            "rank's submission stream and aborts at the first divergence "
+            "naming both ranks, the call index and the mismatched field "
+            "instead of stalling here.")
         return (f"Stalled eager op '{name}': submitted by rank {self.rank} "
                 f"but not completed after {elapsed:.1f}s. One or more ranks "
                 f"likely never reached this collective — suspected missing "
@@ -329,17 +463,30 @@ class Runtime:
                 f"coordinator's stall watchdog, HOROVOD_STALL_CHECK_TIME_"
                 f"SECONDS, reports the authoritative list on rank 0). "
                 f"Possible causes: a crashed or hung peer, a deadlocked "
-                f"submission order, or a network partition." + coord + tuned)
+                f"submission order, or a network partition." + coord + tuned
+                + sched)
 
-    def _stall_error(self, name: str, elapsed: float) -> EagerStallError:
+    def _stall_error(self, name: str, elapsed: float,
+                     op: str = "unknown") -> EagerStallError:
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_eager_stalls_total",
+                "Eager ops that raised EagerStallError at the "
+                "HOROVOD_EAGER_OP_TIMEOUT deadline", op=op).inc()
         return EagerStallError(self._stall_report(name, elapsed))
 
     def _watch(self) -> None:
         """Warn about every entry in flight past the warning time, again
-        each interval; drop the entries that are done."""
-        warn = self.op_warn
+        each interval; drop the entries that are done.  It also keeps the
+        gauges fresh (with telemetry on, it runs without a warning time
+        too)."""
+        warn = self.op_warn or float("inf")
         last: Dict[int, float] = {}
         while not self._watchdog_stop.wait(min(warn, 5.0)):
+            try:
+                self.publish_gauges()
+            except Exception:   # telemetry never stops the watchdog
+                pass
             now = time.monotonic()
             reports = []
             with self._inflight_lock:
@@ -354,6 +501,11 @@ class Runtime:
                     last[key] = now
                     reports.append((e.name, now - e.submitted_at))
             for name, elapsed in reports:
+                if telemetry.enabled():
+                    telemetry.counter(
+                        "hvd_eager_stall_warnings_total",
+                        "Watchdog warnings for eager ops inflight past "
+                        "HOROVOD_EAGER_OP_WARN_SECONDS").inc()
                 log.warning("%s", self._stall_report(name, elapsed))
 
     def _peer_left(self, exc: BaseException) -> MembershipChangedError:
@@ -387,7 +539,8 @@ class Runtime:
                     self._clock = DeviceClock(self._stream)
             while not self._cycle():
                 pass
-            error: BaseException = RuntimeError(SHUTDOWN_ERROR)
+            error: BaseException = self._abort or RuntimeError(
+                SHUTDOWN_ERROR)
         except Exception as e:  # the thread's boundary: fail, never hang
             self._close_control()
             if self._membership_error(e) is not None:
@@ -411,11 +564,15 @@ class Runtime:
         while the coordinator met a dead peer; reference: the master's
         sockets close when its loop ends)."""
         if self.size > 1 and self.ctrl_group is not None:
-            group, self.ctrl_group = self.ctrl_group, None
-            try:
-                dist.destroy_process_group(group)
-            except Exception:   # the world may be gone already
-                pass
+            groups = [self.ctrl_group]
+            if self.tree is not None:
+                groups += self.tree.groups()
+            self.ctrl_group = None
+            for group in groups:
+                try:
+                    dist.destroy_process_group(group)
+                except Exception:   # the world may be gone already
+                    pass
 
     def _close_instruments(self) -> None:
         """Stamp what is left, then close the timeline and the trial log."""
@@ -437,6 +594,8 @@ class Runtime:
             r = e.request(self.rank)
             if r.op_type == OpType.JOIN:
                 self.joined = True
+            if self.schedule_check:
+                self._sched_record(mine, r)
             if tl is not None:
                 tl.negotiate_start(e.name, OP_NAMES[r.op_type])
             slot = -1
@@ -448,7 +607,32 @@ class Runtime:
                 mine.cache_hits |= 1 << slot
             else:
                 mine.requests.append(r)
+        if self.schedule_check:
+            mine.sched_seq, mine.sched_digest = (self._sched_seq,
+                                                 self._sched_digest)
+        sp = telemetry.spans()
+        t_coord = time.monotonic() if sp is not None else 0.0
         out = self._exchange(mine)
+        if (sp is not None and out.responses
+                and sp.sampled(self._trace_cycle)):
+            # The exchange of a cycle that delivered work; the cycle
+            # index is the same on every rank (lock-step).
+            sp.record("coord/cycle", "coord", self._trace_cycle, t_coord,
+                      time.monotonic())
+        self._trace_cycle += 1
+        if out.abort_message:
+            # The coordinator found a schedule divergence: every rank
+            # gets the report in the same cycle, fails its pending work
+            # with it and stops.
+            log.error("%s", out.abort_message)
+            self.sched_divergences += 1
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_schedule_check_divergence_total",
+                    "Coordinator-reported schedule divergence aborts "
+                    "observed by this rank").inc()
+            self._abort = RuntimeError(out.abort_message)
+            return True
         if out.params is not None:
             self._apply(out.params)
         moved, probes = 0, []
@@ -474,6 +658,23 @@ class Runtime:
         self._wake.clear()
         return False
 
+    def _sched_record(self, mine: RequestList, r) -> None:
+        """This rank's record of one submission, taken before the cache
+        can turn it into a bit; its own join starts a new stream."""
+        if r.op_type == OpType.JOIN:
+            self._sched_digest, self._sched_seq = SCHED_DIGEST_INIT, 0
+            return
+        mine.sched.append(r)
+        self.sched_submissions += 1
+        if r.set_id == 0:
+            self._sched_digest = sched_fold(self._sched_digest, r)
+            self._sched_seq += 1
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_schedule_check_submissions_total",
+                "Collective submissions folded into this rank's verified "
+                "schedule stream").inc()
+
     def _tuner_update(self, nbytes: int, now: float) -> None:
         with self._tuner_lock:
             self.tuner.update(nbytes, now)
@@ -481,6 +682,8 @@ class Runtime:
     def _exchange(self, mine: RequestList) -> ResponseList:
         if self.size == 1:
             return self._answer([mine])
+        if self.tree is not None:
+            return self._tree_exchange(mine)
         root = self.global_ranks[0]
         if self.rank == 0:
             lists = [None] * self.size
@@ -492,9 +695,48 @@ class Runtime:
         dist.broadcast_object_list(box, src=root, group=self.ctrl_group)
         return box[0]
 
-    def _answer(self, lists) -> ResponseList:
+    def _tree_exchange(self, mine: RequestList) -> ResponseList:
+        """Members to their host's leader, leaders to the master, and the
+        master's list back down unchanged (``Cycle``, ``LeaderCycle``,
+        ``controller.cc:421-500``).  A leader folds its host's lists into
+        one, moving each list's shutdown bit and cache bits into the
+        per-rank fields."""
+        t, g = self.tree, self.global_ranks
+        box: List[Optional[ResponseList]] = [None]
+        if self.rank != t.leader:
+            dist.gather_object(mine, None, dst=g[t.leader],
+                               group=t.host_group)
+            dist.broadcast_object_list(box, src=g[t.leader],
+                                       group=t.host_group)
+            return box[0]
+        host = [mine]
+        if t.members:
+            host = [None] * (len(t.members) + 1)
+            dist.gather_object(mine, host, dst=g[self.rank],
+                               group=t.host_group)
+        if self.rank == 0:
+            up = [None] * len(t.plan.leaders)
+            dist.gather_object(None, up, dst=g[0], group=t.leaders_group)
+            ranks = [0] + t.members + t.plan.leaders[1:]
+            box[0] = self._answer(host + up[1:], ranks)
+        else:
+            agg = RequestList()
+            for r, rl in zip([self.rank] + t.members, host):
+                if rl.shutdown:
+                    agg.shutdown_ranks.append(r)
+                if rl.cache_hits:
+                    agg.member_cache_hits.append((r, rl.cache_hits))
+                agg.requests += rl.requests
+            dist.gather_object(agg, None, dst=g[0], group=t.leaders_group)
+        dist.broadcast_object_list(box, src=g[0], group=t.leaders_group)
+        if t.members:
+            dist.broadcast_object_list(box, src=g[self.rank],
+                                       group=t.host_group)
+        return box[0]
+
+    def _answer(self, lists, ranks=None) -> ResponseList:
         """Rank 0: the coordinator's list, with the tuner's parameters."""
-        out = self.controller.cycle(lists)
+        out = self.controller.cycle(lists, ranks)
         if self.tuner is not None:
             with self._tuner_lock:
                 out.params = self.tuner.current()

@@ -70,6 +70,12 @@ class TensorEntry:
         self.on_timeout: Optional[Callable[[str, float],
                                            BaseException]] = None
         self.submitted_at = 0.0
+        # With telemetry on, the runtime that records this entry's wait
+        # (``op_done``/``op_failed``), when it was filed and its trace
+        # occurrence; None costs a wait one identity test.
+        self.telemetry = None
+        self.enqueued_at = 0.0
+        self.trace_seq = -1
 
     def request(self, rank: int) -> Request:
         t = self.tensor
@@ -128,21 +134,29 @@ class TensorEntry:
         raises when it passes; the entry stays with the runtime, and its
         late result goes into buffers of the runtime's own (the data
         plane copies every input), never into a tensor of the caller."""
+        hook = self.telemetry
+        t_wait = time.monotonic() if hook is not None else 0.0
         if self.timeout is not None:
             self._wait_bounded()
         self._launched.wait()
         if self.error is not None:
+            if hook is not None:
+                hook.op_failed(self)
             raise self.error
         try:
             for w in self.works:
                 w.wait()
         except Exception as exc:
+            if hook is not None:
+                hook.op_failed(self)
             changed = None if self.on_error is None else self.on_error(exc)
             if changed is None:
                 raise
             raise changed from exc
         if self.done_event is not None:
             torch.cuda.current_stream().wait_event(self.done_event)
+        if hook is not None:
+            hook.op_done(self, t_wait, time.monotonic())
         return self.output()
 
 

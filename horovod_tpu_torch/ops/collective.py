@@ -14,6 +14,11 @@ lies on the device of its input and has its dtype.  (The counterpart of
 the SPMD plane, ``fusion.fused_psum``, issues straight onto the job's
 group in program order and never negotiates.)
 
+Telemetry: every op, at every size, goes through the runtime, whose
+wait records it once (``native/runtime.py``); there is no one-rank path
+around it here, so nothing is counted twice.  The async handles are
+counted in ``hvd_eager_handle_queue_depth``.
+
 The arithmetic is the reference's, whose eager plane computes in numpy.
 The prescale is applied before the tensor is submitted; ``Average`` is a
 sum, then a divide by the set size, then the postscale.  Scale factors
@@ -34,7 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from horovod_tpu_torch import basics, faults
+from horovod_tpu_torch import basics, faults, telemetry
 from horovod_tpu_torch.native.data_plane import (  # noqa: F401
     calls, divide, scaled)
 from horovod_tpu_torch.native.message import OpType
@@ -242,7 +247,10 @@ class HandleManager:
             self._next += 1
             self._handles[h.id] = h
             self._inflight[name] = h
-            return h.id
+        telemetry.gauge("hvd_eager_handle_queue_depth",
+                        "Async eager handles allocated and not yet "
+                        "completed").inc()
+        return h.id
 
     def get(self, hid) -> _Handle:
         with self._lock:
@@ -254,9 +262,13 @@ class HandleManager:
 
     def clear(self, h: _Handle) -> None:
         with self._lock:
-            self._handles.pop(h.id, None)
+            if self._handles.pop(h.id, None) is None:
+                return
             if self._inflight.get(h.name) is h:
                 del self._inflight[h.name]
+        telemetry.gauge("hvd_eager_handle_queue_depth",
+                        "Async eager handles allocated and not yet "
+                        "completed").dec()
 
 
 _handles = HandleManager()

@@ -50,12 +50,13 @@ from __future__ import annotations
 import dataclasses
 import logging
 import re
+import time
 from typing import Callable, ClassVar, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import config
+from horovod_tpu_torch import config, telemetry
 from horovod_tpu_torch.ops import _threefry, fusion
 
 log = logging.getLogger(__name__)
@@ -734,6 +735,36 @@ def as_legacy(codec: BucketCodec):
 # The plan-wide compressed wire.
 # ---------------------------------------------------------------------------
 
+def _record_compression(codec_name: str, bytes_in: int, bytes_out: int,
+                        seconds: float) -> None:
+    """The codec series (reference ``_record_compression``), once per
+    call: bytes in and out, their ratio for the latest application, and
+    the host seconds spent issuing the compressed collective."""
+    if not telemetry.enabled() or not bytes_in:
+        return
+    telemetry.counter(
+        "hvd_compression_bytes_in_total",
+        "Uncompressed payload bytes entering wire codecs (trace-time)",
+        codec=codec_name).inc(bytes_in)
+    telemetry.counter(
+        "hvd_compression_bytes_out_total",
+        "Compressed payload bytes leaving wire codecs (trace-time)",
+        codec=codec_name).inc(bytes_out)
+    telemetry.gauge(
+        "hvd_compression_ratio",
+        "bytes_in / bytes_out of the most recent codec application",
+        codec=codec_name).set(bytes_in / max(bytes_out, 1))
+    telemetry.counter(
+        "hvd_compression_encode_seconds_total",
+        "Host seconds spent building compressed collectives (trace-time)",
+        codec=codec_name).inc(max(seconds, 0.0))
+
+
+def _padded_bytes(plan) -> int:
+    return sum(plan.padded_size(b) * plan.bucket_dtype(b).itemsize
+               for b in range(len(plan.buckets)))
+
+
 def compressed_reduce_scatter(leaves, group, codec: BucketCodec, *, plan,
                               state: Optional[CodecState] = None,
                               mean: bool = True):
@@ -745,6 +776,7 @@ def compressed_reduce_scatter(leaves, group, codec: BucketCodec, *, plan,
         shards, _ = fusion.fused_reduce_scatter(leaves, group, mean=mean,
                                                 plan=plan)
         return shards, state
+    t0 = time.perf_counter() if telemetry.enabled() else 0.0
     flats = plan.concat(list(leaves))
     nb = len(plan.buckets)
     rs = list(state.rs) if state is not None else [None] * nb
@@ -767,7 +799,11 @@ def compressed_reduce_scatter(leaves, group, codec: BucketCodec, *, plan,
         if new_f is not None:
             factors[b] = new_f
         wire_bytes += wire
+    fusion.record_plan("reduce_scatter", plan)
     fusion.record_collective_bytes("reduce_scatter", codec.name, wire_bytes)
+    if telemetry.enabled():
+        _record_compression(codec.name, _padded_bytes(plan), wire_bytes,
+                            time.perf_counter() - t0)
     return shards, (CodecState(rs, ag, factors) if codec.stateful else None)
 
 
@@ -783,6 +819,7 @@ def compressed_all_gather(shards, plan, group, codec: BucketCodec,
     if len(shards) != len(plan.buckets):
         raise ValueError(f"plan has {len(plan.buckets)} buckets, got "
                          f"{len(shards)} shards")
+    t0 = time.perf_counter() if telemetry.enabled() else 0.0
     nb = len(plan.buckets)
     ag = list(state.ag) if state is not None else [None] * nb
     pending = [codec.start_all_gather_bucket(b, shard, plan, group, ag[b])
@@ -797,6 +834,9 @@ def compressed_all_gather(shards, plan, group, codec: BucketCodec,
             ag[b] = new_r
         wire_bytes += wire
     fusion.record_collective_bytes("all_gather", codec.name, wire_bytes)
+    if telemetry.enabled():
+        _record_compression(codec.name, _padded_bytes(plan), wire_bytes,
+                            time.perf_counter() - t0)
     new_state = None
     if codec.stateful:
         new_state = CodecState(

@@ -29,7 +29,13 @@ The counters: ``allreduce_calls``, ``reduce_scatter_calls``,
 (the wire codecs' too); ``collective_bytes``
 the logical payload bytes a rank puts on the wire, by kind, codec and
 level (the reference counts them once per trace, the port once per
-call).
+call).  The telemetry series (``hvd_fusion_*``,
+``hvd_collective_bytes_total``) carry the reference's names, labels and
+bounds, and are likewise recorded once per call: in the port every call
+is a fusion walk, so per-step traffic is the series itself.  The eager
+plane's fused responses count as ``kind="eager"`` walks of one bucket
+each, so ``hvd_fusion_buckets_total`` over every kind equals
+``allreduce_calls`` for the all-reduce paths.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import config
+from horovod_tpu_torch import config, telemetry
 from horovod_tpu_torch.config import (max_bucket_bytes,  # noqa: F401
                                       parse_size_bytes)
 from horovod_tpu_torch.ops._build import CallCounter
@@ -92,12 +98,85 @@ collective_bytes = WireBytes()
 
 
 def record_collective_bytes(kind: str, codec: str, nbytes: int,
-                            level: Optional[str] = None) -> None:
+                            level: Optional[str] = None,
+                            plane: str = "spmd") -> None:
     """Count ``nbytes`` of logical wire payload for one collective call
     (per rank), labelled by the wire codec that produced them: the
-    none/int8 ratio of two runs' counts is the wire compression ratio."""
-    if nbytes:
+    none/int8 ratio of two runs' counts is the wire compression ratio.
+    The eager plane's all-reduces count as ``plane="eager"`` in the
+    series only."""
+    if not nbytes:
+        return
+    if plane == "spmd":
         collective_bytes.add(kind, codec, nbytes, level)
+    if telemetry.enabled():
+        labels = dict(plane=plane, kind=kind, codec=codec)
+        if level is not None:
+            labels["level"] = level
+        telemetry.counter(
+            "hvd_collective_bytes_total",
+            "Logical wire payload bytes of SPMD collectives (trace-time)",
+            **labels).inc(int(nbytes))
+
+
+def record_buckets(kind: str, tensors, buckets, pad_bytes: int = 0) -> None:
+    """One fusion walk's series (reference ``_record_buckets``):
+    ``buckets`` are lists of indices into ``tensors``."""
+    if not telemetry.enabled():
+        return
+    telemetry.counter(
+        "hvd_fusion_requests_total",
+        "Fusion walks (trace-time bucketing decisions)", kind=kind).inc()
+    telemetry.counter(
+        "hvd_fusion_buckets_total",
+        "Fusion buckets produced across all fusion walks", kind=kind).inc(
+        len(buckets))
+    telemetry.counter(
+        "hvd_fusion_tensors_total",
+        "Tensors routed through the fusion walks", kind=kind).inc(
+        len(tensors))
+    hist = telemetry.histogram(
+        "hvd_fusion_bucket_bytes",
+        "Per-bucket payload size produced by the fusion walk",
+        bounds=telemetry.DEFAULT_BYTE_BUCKETS)
+    for bucket in buckets:
+        hist.observe(float(sum(tensors[i].numel() * tensors[i].element_size()
+                               for i in bucket)))
+    if pad_bytes:
+        telemetry.counter(
+            "hvd_fusion_pad_bytes_total",
+            "Bytes of axis-size padding added to reduce-scatter buckets "
+            "(padding waste)", kind=kind).inc(pad_bytes)
+
+
+def record_plan(kind: str, plan: "ReduceScatterPlan") -> None:
+    """A reduce-scatter plan's series (reference ``_record_plan``)."""
+    if not telemetry.enabled():
+        return
+    telemetry.counter(
+        "hvd_fusion_requests_total",
+        "Fusion walks (trace-time bucketing decisions)", kind=kind).inc()
+    telemetry.counter(
+        "hvd_fusion_buckets_total",
+        "Fusion buckets produced across all fusion walks", kind=kind).inc(
+        len(plan.buckets))
+    telemetry.counter(
+        "hvd_fusion_tensors_total",
+        "Tensors routed through the fusion walks", kind=kind).inc(
+        plan.n_leaves)
+    hist = telemetry.histogram(
+        "hvd_fusion_bucket_bytes",
+        "Per-bucket payload size produced by the fusion walk",
+        bounds=telemetry.DEFAULT_BYTE_BUCKETS)
+    for b in range(len(plan.buckets)):
+        hist.observe(float(plan.bucket_size(b)
+                           * plan.bucket_dtype(b).itemsize))
+    pad = plan.total_pad_bytes()
+    if pad:
+        telemetry.counter(
+            "hvd_fusion_pad_bytes_total",
+            "Bytes of axis-size padding added to reduce-scatter buckets "
+            "(padding waste)", kind=kind).inc(pad)
 
 _warned_bad_threshold = False
 
@@ -245,12 +324,14 @@ def fused_psum(tensors: Sequence[torch.Tensor], group=None,
         return []
     threshold = fusion_threshold_bytes() if threshold is None else threshold
     n = dist.get_world_size(group)
+    buckets = _bucket_leaves(tensors, threshold)
+    record_buckets("psum", tensors, buckets)
     record_collective_bytes("psum", "none", sum(
         t.numel() * t.element_size() for t in tensors))
     started = [(bucket, start_bucket(
         [tensors[i] for i in bucket], group, n, mean=mean,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor))
-        for bucket in _bucket_leaves(tensors, threshold)]
+        for bucket in buckets]
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for bucket, (work, finish) in started:
         if work is not None:
@@ -441,15 +522,21 @@ def make_reduce_scatter_plan(leaves, axis_size: int,
     span_buckets = [[(rest_idx[j], 0, leaves[rest_idx[j]].numel())
                      for j in bucket] for bucket in walk]
     if cap:
-        out_buckets = []
+        out_buckets, chunked = [], 0
         for spans in span_buckets:
             itemsize = leaves[spans[0][0]].element_size()
             nbytes = sum((stop - start) * itemsize
                          for _, start, stop in spans)
             if nbytes > cap:
+                chunked += 1
                 out_buckets.extend(_chunk_spans(spans, itemsize, cap))
             else:
                 out_buckets.append(spans)
+        if chunked and telemetry.enabled():
+            telemetry.counter(
+                "hvd_fusion_chunked_buckets_total",
+                "Fusion buckets split because they exceeded "
+                "HOROVOD_MAX_BUCKET_BYTES").inc(chunked)
         span_buckets = out_buckets
     lowrank = tuple(range(len(span_buckets), len(span_buckets) + len(solo)))
     for i in solo:
@@ -531,6 +618,7 @@ def fused_reduce_scatter(tensors: Sequence[torch.Tensor], group=None,
         plan = make_reduce_scatter_plan(tensors, n, threshold)
     if not tensors:
         return [], plan
+    record_plan("reduce_scatter", plan)
     record_collective_bytes("reduce_scatter", "none",
                             plan.total_padded_bytes())
     shards = wait_all([start_reduce_scatter(flat, group)
@@ -559,6 +647,7 @@ def fused_hierarchical_reduce_scatter(
         plan = make_reduce_scatter_plan(tensors, ici, threshold)
     if not tensors:
         return [], plan
+    record_plan("hier_reduce_scatter", plan)
     record_collective_bytes("hier_reduce_scatter", "none",
                             plan.total_padded_bytes(), level="ici")
     record_collective_bytes("hier_reduce_scatter", "none",

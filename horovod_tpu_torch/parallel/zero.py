@@ -45,7 +45,7 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import optim
+from horovod_tpu_torch import optim, telemetry
 from horovod_tpu_torch.ops import compression as compression_mod
 from horovod_tpu_torch.ops import fusion
 from horovod_tpu_torch.tree import children
@@ -236,6 +236,7 @@ class ShardedOptimizer:
                 f"axis {self.axis_name!r} has size {n} here but the "
                 f"optimizer state was sharded {plan.axis_size}-way — "
                 f"re-init (or re-shard the checkpoint) for this mesh")
+        self._record(plan)
 
         if self.cross_axis_name is not None:
             # Two-level: the intra-host reduce-scatter (unscaled), each
@@ -265,6 +266,31 @@ class ShardedOptimizer:
         return (tree_unflatten(state.treedef, upd_leaves),
                 dataclasses.replace(state, inner=new_inner, wire=wire,
                                     group=group))
+
+    def _record(self, plan: fusion.ReduceScatterPlan) -> None:
+        """The ``hvd_zero_*`` series (reference ``zero.py:242-263``), once
+        per update."""
+        if not telemetry.enabled():
+            return
+        telemetry.counter(
+            "hvd_zero_updates_total",
+            "Sharded (ZeRO-1) optimizer updates traced").inc()
+        if self.cross_axis_name is not None:
+            telemetry.counter(
+                "hvd_zero_hier_updates_total",
+                "ZeRO-1 updates using the two-level (ICI+DCN) reduce "
+                "path").inc()
+        telemetry.counter(
+            "hvd_zero_buckets_total",
+            "Flat buckets in sharded optimizer updates").inc(
+            len(plan.buckets))
+        hist = telemetry.histogram(
+            "hvd_zero_shard_bytes",
+            "Per-rank shard size of each sharded-update bucket",
+            bounds=telemetry.DEFAULT_BYTE_BUCKETS)
+        for b in range(len(plan.buckets)):
+            hist.observe(float(plan.shard_size(b)
+                               * plan.bucket_dtype(b).itemsize))
 
 
 class ShardedUpdate:
@@ -380,6 +406,10 @@ def reshard_state(state: ZeroShardedState, like: ZeroShardedState
     is gathered over ``state``'s group, re-bucketed for ``like``'s plan
     (:meth:`~horovod_tpu_torch.ops.compression.BucketCodec.reshard_state`)
     and cut to ``like``'s shard."""
+    if telemetry.enabled():
+        telemetry.counter(
+            "hvd_zero_reshards_total",
+            "ZeRO-1 states re-bucketed for a different axis size").inc()
     out = scatter_full_state(gather_full_state(state), like=like)
     codec = like.codec if like.codec is not None else state.codec
     if codec is not None and codec.stateful and state.wire is not None:

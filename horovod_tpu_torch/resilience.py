@@ -83,7 +83,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import basics, config, faults
+from horovod_tpu_torch import basics, config, faults, telemetry
 from horovod_tpu_torch.parallel.sequence import axis_mean
 from horovod_tpu_torch.tree import tree_leaves, tree_map
 
@@ -168,6 +168,11 @@ def apply_step_guard(do_update: Callable[[], None], *, loss: torch.Tensor,
     if policy == "off":
         do_update()
         return mean_loss
+    if telemetry.enabled():  # once per guarded step (the port has no trace)
+        telemetry.counter(
+            "hvd_guard_traces_total",
+            "training-step traces built with the step guard enabled",
+            policy=policy).inc()
     agree = group if agree_group is None else agree_group
     if bool(all_finite(loss, grads, agree)):
         do_update()
@@ -347,6 +352,11 @@ class LastKnownGood:
         leaves = tree_leaves(_open_zero(tree))
         if not _all_finite_leaves(leaves):
             self._staged = None
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_rollback_snapshot_rejected_total",
+                    "staged snapshots rejected for non-finite bytes").inc()
+                self._record_stage(t0)
             return False
         tensors = [t for t in leaves if torch.is_tensor(t)]
         buf = self._spare
@@ -361,7 +371,16 @@ class LastKnownGood:
                   if not torch.is_tensor(leaf)]
         self._staged = (int(step), tree, buf, others)
         self.last_stage_seconds = time.perf_counter() - t0
+        if telemetry.enabled():
+            self._record_stage(t0)
         return True
+
+    @staticmethod
+    def _record_stage(t0: float) -> None:
+        telemetry.histogram(
+            "hvd_rollback_snapshot_seconds",
+            "host pull + validation time per staged snapshot",
+        ).observe(time.perf_counter() - t0)
 
     def commit(self) -> None:
         if self._staged is None:
@@ -370,6 +389,10 @@ class LastKnownGood:
         self._committed, self._staged = self._staged, None
         if old is not None:
             self._spare = old[2]
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_rollback_snapshots_total",
+                "last-known-good snapshots committed").inc()
 
     def discard_stage(self) -> None:
         if self._staged is not None:
@@ -400,6 +423,10 @@ class LastKnownGood:
         those tensors (and returned)."""
         state = self.host_state()
         step, template = self._committed[:2]
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_rollback_restores_total",
+                "in-process restores from last-known-good").inc()
         if into is not None:
             params, opt_state = _write_into(tuple(into), state)
             return params, opt_state, step
@@ -496,6 +523,10 @@ class StepGuard:
         """Min/max digest agreement; on a mismatch, name the diverged
         ranks, then heal (``rollback``) or raise."""
         from horovod_tpu_torch.ops import collective as _c
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_sentinel_checks_total",
+                "divergence sentinel digest comparisons").inc()
         digest = torch.from_numpy(self._digests(params, opt_state))
         lo = _c.allreduce(digest, op=_c.Min,
                           name="hvd.resilience.sentinel.min")
@@ -506,6 +537,10 @@ class StepGuard:
         gathered = _c.allgather(digest.reshape(1, -1),
                                 name="hvd.resilience.sentinel.digests")
         bad = _divergent_ranks(gathered.numpy())
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_sentinel_divergence_total",
+                "sentinel checks that found diverged replicas").inc()
         message = (f"divergence sentinel at step {step}: replica digests "
                    f"disagree; diverging rank(s): {bad}")
         if self.policy != "rollback":
@@ -515,6 +550,10 @@ class StepGuard:
         log.error("%s; healing by re-broadcasting state from rank %d",
                   message, source)
         params, opt_state = _broadcast_state(params, opt_state, source)
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_sentinel_heals_total",
+                "in-process divergence heals (state re-broadcast)").inc()
         return params, opt_state, GuardEvent("heal", step)
 
     def after_step(self, params, opt_state, step: int, loss):
@@ -524,6 +563,10 @@ class StepGuard:
         report_progress(step)
         if self.policy == "off" and self.sentinel_interval == 0:
             return params, opt_state, GuardEvent("ok", step)
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_guard_checks_total",
+                "host-side step-boundary guard evaluations").inc()
         local_ok = bool(np.isfinite(np.asarray(
             loss.detach().float().cpu() if torch.is_tensor(loss) else loss,
             np.float64)).all())
@@ -553,6 +596,10 @@ class StepGuard:
         # A bad step (on at least one rank: every rank agrees it was).
         self.lkg.discard_stage()
         self._bad_streak += 1
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_guard_nonfinite_steps_total",
+                "steps rejected by the guard (non-finite loss/grads)").inc()
         if self.policy == "abort":
             raise GuardAbort(f"step guard: non-finite loss/grads at step "
                              f"{step} (policy abort)")
@@ -569,6 +616,10 @@ class StepGuard:
                 log.warning("step guard: rollback requested at step %d but "
                             "no last-known-good snapshot exists yet; "
                             "skipping instead", step)
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_guard_skipped_steps_total",
+                "bad steps skipped (old state kept)").inc()
         log.warning("step guard: non-finite step %d skipped (streak %d)",
                     step, self._bad_streak)
         return params, opt_state, GuardEvent("skip", step)
@@ -587,6 +638,10 @@ class StepGuard:
         except Exception as e:  # noqa: BLE001 (degrade, do not die)
             log.warning("warm-restart spill at step %d FAILED (%s: %s); "
                         "continuing without it", step, type(e).__name__, e)
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_warm_restart_spill_failures_total",
+                    "spill writes that raised (degraded, not fatal)").inc()
 
 
 def _broadcast_state(params, opt_state, root_rank: int):
@@ -754,6 +809,13 @@ def write_spill(directory: str, params, opt_state, step: int, *,
     os.replace(tmp, path)
     t3 = time.perf_counter()
     faults.mangle_spill(path, rank)
+    if telemetry.enabled():
+        telemetry.counter(
+            "hvd_warm_restart_spills_total",
+            "warm-restart spill files written").inc()
+        telemetry.histogram(
+            "hvd_warm_restart_spill_seconds",
+            "host serialization + fsync time per spill").observe(t3 - t0)
     last_spill.clear()
     last_spill.update(
         bytes=sink.nbytes + _SPILL_HEADER.size, host_copy_s=t1 - t0,
@@ -774,6 +836,11 @@ def read_spill(path: str) -> Optional[Dict[str, Any]]:
 
     def _reject(why: str) -> None:
         log.warning("rejecting spill %s: %s", path, why)
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_warm_restart_spill_rejected_total",
+                "spill files rejected by validation (torn write / CRC / "
+                "version mismatch)").inc()
         return None
 
     try:
@@ -931,6 +998,11 @@ def _peer_recover(params, opt_state, local: Optional[Dict[str, Any]],
             "warm restart: spill at step %d (rank %d) does not match the "
             "live state layout; falling back down the recovery ladder",
             best, src)
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_warm_restart_layout_mismatch_total",
+                "peer recoveries abandoned because the spilled layout "
+                "disagreed with the live template").inc()
         return None
     t0 = time.perf_counter()
     values = []
@@ -992,6 +1064,10 @@ def warm_restore(params, opt_state, *, ckpt_dir: Optional[str] = None,
         recovered = _peer_recover(params, opt_state, local, local_step,
                                   best)
         if recovered is not None:
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_warm_restart_peer_recoveries_total",
+                    "warm restarts recovered from a peer spill").inc()
             log.info("warm restart: recovered committed step %d from a "
                      "peer spill (no disk checkpoint read)", best)
             return done(recovered[:2], best, "spill", recovered[2])
@@ -1007,6 +1083,11 @@ def warm_restore(params, opt_state, *, ckpt_dir: Optional[str] = None,
         if int(found[0]):
             template = {"params": params, "opt_state": opt_state, "step": 0}
             state = checkpoint.restore(ckpt_dir, template)
+            if telemetry.enabled():
+                telemetry.counter(
+                    "hvd_warm_restart_disk_fallbacks_total",
+                    "warm restarts that fell back to the disk "
+                    "checkpoint").inc()
             step = int(state["step"])
             log.info("warm restart: no usable peer spill; restored disk "
                      "checkpoint step %d", step)
@@ -1014,6 +1095,10 @@ def warm_restore(params, opt_state, *, ckpt_dir: Optional[str] = None,
                          _write_into(opt_state, state["opt_state"])),
                         step, "disk", {})
 
+    if telemetry.enabled():
+        telemetry.counter(
+            "hvd_warm_restart_fresh_inits_total",
+            "warm restarts with nothing to recover (fresh init)").inc()
     log.info("warm restart: nothing to recover; fresh init")
     return done((params, opt_state), -1, "fresh", {})
 
@@ -1075,12 +1160,22 @@ class HeartbeatSender:
                f"{PREEMPTION_RC}")
         log.error(msg)
         print(f"horovod_tpu_torch: {msg}", file=sys.stderr, flush=True)
+        if telemetry.enabled():
+            telemetry.counter(
+                "hvd_partition_fences_total",
+                "Ranks that self-fenced after losing launcher contact "
+                "past the partition grace").inc()
+            telemetry.flush()
         os._exit(PREEMPTION_RC)
 
     def _run(self) -> None:
         from horovod_tpu_torch.runner import rpc
         while not self._stop.wait(self.interval):
             if faults.drop_heartbeat(self.rank):
+                if telemetry.enabled():
+                    telemetry.counter(
+                        "hvd_heartbeat_dropped_total",
+                        "heartbeats suppressed by fault injection").inc()
                 continue
             step, ts = progress()
             self._seq += 1
@@ -1093,14 +1188,29 @@ class HeartbeatSender:
                      "world_epoch": self.world_epoch},
                     self.key, timeout=max(1.0, self.interval), retries=0)
                 self._last_ok = time.monotonic()
+                if telemetry.enabled():
+                    telemetry.counter(
+                        "hvd_heartbeat_sent_total",
+                        "heartbeats delivered to the launcher").inc()
+                    if self.rank == 0:
+                        telemetry.counter(
+                            "hvd_coord_lease_renewals_total",
+                            "Coordinator lease renewals (rank 0 "
+                            "heartbeats that reached the launcher)").inc()
                 if isinstance(resp, dict) and resp.get("reform"):
                     _deliver_reform_spec(resp["reform"])
                 if (isinstance(resp, dict) and resp.get("preempt")
                         and not _preempt_event.is_set()):
                     log.warning("launcher requested preemption via the "
                                 "health plane")
+                    _count_preempt_request()
                     request_preemption()
             except Exception as e:  # noqa: BLE001 (never stall training)
+                if telemetry.enabled():
+                    telemetry.counter(
+                        "hvd_heartbeat_send_failures_total",
+                        "heartbeat sends that failed (launcher slow, "
+                        "restarting, or gone)").inc()
                 log.debug("heartbeat send failed: %s: %s",
                           type(e).__name__, e)
                 self._fence_check(time.monotonic())
@@ -1223,6 +1333,7 @@ def reform_world(params, opt_state, *, ckpt_dir: Optional[str] = None,
             f"no reformation spec from the launcher within {timeout:g}s "
             f"(HOROVOD_REFORM_TIMEOUT); falling back to the restart path")
     on_cpu = basics.is_initialized() and basics.device().type == "cpu"
+    pre_step = progress()[0]
     basics.shutdown()
     env = {
         "HOROVOD_ELASTIC_PREV_SIZE": spec.get("prev_size",
@@ -1244,6 +1355,24 @@ def reform_world(params, opt_state, *, ckpt_dir: Optional[str] = None,
     os.environ.update({k: str(v) for k, v in env.items()})
     basics.init(device="cpu" if on_cpu else None)
     out = warm_restore(params, opt_state, ckpt_dir=ckpt_dir)
+    if telemetry.enabled():
+        telemetry.histogram(
+            "hvd_failinplace_reformation_seconds",
+            "Wall time from membership-change detection to the reformed "
+            "world's state recovery completing",
+            bounds=telemetry.DEFAULT_TIME_BUCKETS).observe(
+            time.monotonic() - t0)
+        telemetry.gauge(
+            "hvd_failinplace_world_epoch",
+            "Membership epoch this rank is running under (0 = never "
+            "reformed)").set(int(spec["epoch"]))
+        if basics.rank() == 0 and pre_step >= 0 and out[2] >= 0:
+            # The new rank 0 only: the merged summary books it once.
+            telemetry.counter(
+                "hvd_failinplace_steps_lost_total",
+                "Steps rolled back by in-process reformations (progress "
+                "high-water minus the recovered committed step)").inc(
+                max(pre_step - out[2], 0))
     log.info("fail-in-place: reformed world epoch %s as rank %d/%d in "
              "%.2fs (recovered step %d from %s)", spec["epoch"],
              basics.rank(), basics.size(), time.monotonic() - t0, out[2],
@@ -1291,9 +1420,17 @@ def install_preemption_handler(signum: int = signal.SIGTERM) -> None:
 
         def _on_signal(sig, frame):  # noqa: ARG001
             _preempt_event.set()
+            _count_preempt_request()
 
         signal.signal(signum, _on_signal)
         _handler_installed = True
+
+
+def _count_preempt_request() -> None:
+    if telemetry.enabled():
+        telemetry.counter(
+            "hvd_preempt_requests_total",
+            "preemption signals received").inc()
 
 
 def preemption_requested() -> bool:
@@ -1327,6 +1464,10 @@ def maybe_save_and_exit(ckpt_dir: str, state, step: int) -> bool:
     report_progress(step)
     checkpoint.wait_for_async_save()
     checkpoint.save(ckpt_dir, state, step=step)
+    if telemetry.enabled():
+        telemetry.counter(
+            "hvd_preempt_saves_total",
+            "coordinated preemption saves completed").inc()
     exit_preempted()
     return True  # pragma: no cover (sys.exit above)
 

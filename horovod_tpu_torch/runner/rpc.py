@@ -9,8 +9,10 @@ HMAC-SHA256 digest of the payload under the job's key
 the reference launcher's ``RpcServer`` reads, so the port's heartbeat
 sender talks to ``hvdrun``'s health plane.  A reply's digest is checked
 before anything in it is unpickled.  No server lives here: the launcher
-is the server.  The reference's per-call counters and spans are left
-out (the port has no telemetry registry yet).
+is the server.  ``measure_clock_offset`` (``:212``) is the client half
+of the launcher's time-sync handshake.  The reference's client-side
+series (``hvd_rpc_calls_total``, ``_connect_retries_total``,
+``_connect_failures_total``) and the ``rpc`` span are recorded here.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import socket
 import struct
 import time
 from typing import Any, Callable, Optional
+
+from horovod_tpu_torch import telemetry
 
 
 class AuthError(RuntimeError):
@@ -98,7 +102,14 @@ def connect_with_retry(addr: str, port: int, timeout: float = 30.0,
                      * (0.5 + rng()))
             if clock() - started + delay >= deadline:
                 break
+            telemetry.counter(
+                "hvd_rpc_connect_retries_total",
+                "RPC dial attempts that failed and were retried with "
+                "backoff").inc()
             sleep(delay)
+    telemetry.counter(
+        "hvd_rpc_connect_failures_total",
+        "RPC dials that exhausted every retry").inc()
     raise ConnectionError(
         f"could not connect to {addr}:{port} after {attempts} attempts "
         f"within {deadline:.1f}s: {last_err}")
@@ -107,11 +118,47 @@ def connect_with_retry(addr: str, port: int, timeout: float = 30.0,
 def rpc_call(addr: str, port: int, request: Any, key: bytes,
              timeout: float = 30.0, retries: int = 4) -> Any:
     """One authenticated request/response round trip (``retries=0``: a
-    single dial)."""
+    single dial).  The time-sync probe records no span: it runs during
+    the span export itself."""
+    kind = (str(request.get("kind")) if isinstance(request, dict)
+            else "raw")
+    telemetry.counter("hvd_rpc_calls_total",
+                      "Authenticated RPC round trips issued",
+                      kind=kind).inc()
+    sp = telemetry.spans() if kind != "time_sync" else None
+    t0 = time.monotonic() if sp is not None else 0.0
     with connect_with_retry(addr, port, timeout=timeout,
                             retries=retries) as sock:
         _send_msg(sock, pickle.dumps(request), key)
-        return pickle.loads(_recv_msg(sock, key))
+        reply = pickle.loads(_recv_msg(sock, key))
+    if sp is not None:
+        sp.event(f"rpc/{kind}", "rpc", t0, time.monotonic())
+    return reply
+
+
+def measure_clock_offset(addr: str, port: int, key: bytes,
+                         samples: int = 5,
+                         timeout: float = 5.0) -> Optional[tuple]:
+    """This process's monotonic-clock offset against the server at
+    ``addr:port`` (Cristian's algorithm): ``(server - local, rtt)`` from
+    the probe with the least round trip, or None when the server is
+    unreachable or does not answer the ``time_sync`` kind."""
+    best: Optional[tuple] = None
+    for _ in range(max(samples, 1)):
+        t0 = time.monotonic()
+        try:
+            reply = rpc_call(addr, port, {"kind": "time_sync"}, key,
+                             timeout=timeout, retries=0)
+        except Exception:
+            continue
+        t1 = time.monotonic()
+        if not isinstance(reply, dict) or "server_time" not in reply:
+            return None
+        rtt = t1 - t0
+        offset = float(reply["server_time"]) - (t0 + t1) / 2.0
+        if best is None or rtt < best[1]:
+            best = (offset, rtt)
+    return best
 
 
 def job_key_bytes(env_value: Optional[str]) -> bytes:

@@ -410,7 +410,8 @@ def test_stall_warns_then_fails_the_name(caplog):
     assert out[0].error_message == (
         "Stalled collective: tensor s exceeded "
         "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS without being submitted on all "
-        "ranks.")
+        "ranks. Rerun with HOROVOD_SCHEDULE_CHECK=1 to pinpoint the first "
+        "diverging submission (rank, call index, field).")
     assert c.table == {}
 
 

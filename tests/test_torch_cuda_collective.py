@@ -526,3 +526,57 @@ def test_warm_restore_of_a_two_rank_zero_state_nccl_matches_gloo(tmp_path):
     for key in ("params", "trace"):
         for a, b in zip(out["nccl"][key], out["gloo"][key]):
             assert torch.equal(a, b), key
+
+
+def _tree_worker(rank, size, addr, backend, mode, out_dir):
+    import os
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank % 2),
+                      HOROVOD_LOCAL_SIZE="2", HOROVOD_COORDINATOR_ADDR=addr,
+                      HOROVOD_FUSION_THRESHOLD="64",
+                      HOROVOD_TOPOLOGY="hostA:2,hostB:2",
+                      HOROVOD_COORD_TREE="1" if mode == "tree" else "0")
+    hvd.init(device=f"cuda:{rank}" if backend == "nccl" else "cpu")
+    try:
+        res = _multi_rank_ops(rank, size)
+        res["tree"] = hvd.basics.runtime().coord_tree_enabled()
+        res["cache_hits"] = hvd.basics.runtime().cache_hits
+        torch.save(res, f"{out_dir}/{mode}_{backend}{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def run_tree(backend: str, mode: str, out_dir: str) -> list:
+    """Four ranks on ``backend`` as two faked hosts of two, coordinated
+    through the tree (``mode="tree"``) or flat; each rank's results."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    mp.start_processes(_tree_worker, args=(4, addr, backend, mode, out_dir),
+                       nprocs=4, start_method="spawn")
+    return [torch.load(f"{out_dir}/{mode}_{backend}{r}.pt")
+            for r in range(4)]
+
+
+@pytest.mark.cuda
+def test_tree_coordination_over_nccl_equals_flat_bit_for_bit(tmp_path):
+    """``HOROVOD_COORD_TREE=1`` under a faked 2 hosts x 2
+    ``HOROVOD_TOPOLOGY``, one card a rank: every rank coordinates through
+    the tree (members -> host leader -> rank 0) and every result of
+    :func:`_multi_rank_ops` is bit for bit the flat job's on the same
+    cards (``-k tree``)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    tree = run_tree("nccl", "tree", str(tmp_path))
+    flat = run_tree("nccl", "flat", str(tmp_path))
+    for r in range(4):
+        assert tree[r].pop("tree") and not flat[r].pop("tree"), r
+        tree[r].pop("cache_hits")
+        flat[r].pop("cache_hits")
+        assert tree[r].keys() == flat[r].keys()
+        assert tree[r].pop("objects") == flat[r].pop("objects")
+        for key, want in flat[r].items():
+            assert torch.equal(tree[r][key], want), (r, key)

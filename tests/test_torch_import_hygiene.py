@@ -34,7 +34,13 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
             "horovod_tpu_torch.tree, horovod_tpu_torch.runner.rpc, "
             "horovod_tpu_torch.native.runtime, "
             "horovod_tpu_torch.native.timeline, "
-            "horovod_tpu_torch.native.autotune\n"
+            "horovod_tpu_torch.native.autotune, "
+            "horovod_tpu_torch.native.coord_tree, "
+            "horovod_tpu_torch.telemetry, "
+            "horovod_tpu_torch.telemetry.registry, "
+            "horovod_tpu_torch.telemetry.exporter, "
+            "horovod_tpu_torch.telemetry.spans, "
+            "horovod_tpu_torch.telemetry.eager_timeline\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
