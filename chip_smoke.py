@@ -170,18 +170,45 @@ any failure ends the run with a traceback and a non-zero exit:
    plan's buckets.  The tree needs 4 cards: ``-k tree`` of
    ``tests/test_torch_cuda_collective.py``.
 
+18. the reference's other headline models, ResNet remat, synchronized
+   BatchNorm and the two benchmark lanes: (a) phase 5's comparison for
+   VGG-11 (GAP and classic head) at 32x32, batch 4, and Inception-v3 at
+   139x139, batch 16, one train step on the card and in the CPU port at
+   f64 and f32: the f64 steps within phase 5's limits, the card's f32
+   step within them of the f64 step (Inception-v3's, whose stem kernels
+   are ill conditioned, within a bound of the CPU's f32 step's distance,
+   with and without cuDNN), the f32 eval logits within the state limit;
+   (b) VGG-16
+   and Inception-v3 at the reference harness's defaults (batch 64,
+   224x224, 1000 classes, bf16 input) and ResNet-101
+   at ``bench.py``'s batch 128 (conv7 stem), 3 warmup and 10 timed steps
+   each: img/s, ms/step, MFU and peak memory, finite losses, and a
+   ``run_profile`` breakdown of VGG-16 and Inception-v3; (c) phase 4's
+   step under ``remat="lean"`` and ``"full"`` (and ``None`` again, for
+   its final statistics): losses equal to phase 4's and final running
+   statistics to ``None``'s bit for bit, one fused-stem launch a step,
+   ms/step and peak memory; (d) phase 4's step with BatchNorm
+   synchronized over the NCCL group of size 1, alone and under each
+   ``remat``: losses bitwise phase 4's, 53 statistics all-reduces a step
+   (none in a recompute); (e) ``run_step_guard_benchmark``
+   on phase 4's step, the overhead printed, not gated; (f) with 2 or
+   more cards, ``run_scaling_efficiency`` for ResNet-50 and two
+   synchronized-BN steps of a small ResNet over NCCL against gloo on the
+   CPU, else one line saying why it did not run.
+
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
 (b), 13 (a), 14 (b, c), 15, 17 (b) and, for the forward kernel, 12 (a);
 the fused stem's add phase 16's 73 or more (36 under the timeline, 36
-to 72 under the tuner, 1 bucketed step) and phase 17's 39 forward
-passes to phase 4's.  It prints
-one JSON line of
-kernel numbers and, last, one JSON line naming the device.  With no GPU
+to 72 under the tuner, 1 bucketed step), phase 17's 39 and phase 18's
+104 forward passes ((c) 3 x 13, (d) 3 x 13, (e) 2 x 13) to phase 4's.
+It prints one JSON line of kernel numbers and, last, one JSON line
+naming the device.  With no GPU
 it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -425,6 +452,40 @@ CONTROL_STEPS_MAX = 72
 CONTROL_TRIALS = 8
 DEADLINE_S = 3.0
 DEADLINE_JOB_S = 180
+# Phase 18: the reference's other headline models at the reference
+# harness's defaults (batch 64 a rank, 224x224, 1000 classes; bf16 input
+# as bench.py feeds it) and ResNet-101 at bench.py's _r101_bench (batch
+# 128, the conv7 stem): (name, batch).  (a) holds small ones, card against
+# the CPU, as phase 5 holds its small ResNet (SMALL_ZOO below).
+ZOO = (("vgg16", 64), ("inception3", 64), ("resnet101", 128))
+ZOO_PROFILED = ("vgg16", "inception3")
+ZOO_PROFILE_STEPS = 5
+# Phase 5's limits: relative loss, absolute state after one SGD step.
+SMALL_LOSS_RTOL = 1e-5
+SMALL_STATE_ATOL = 1e-4
+# Inception-v3's f32 train step is ill conditioned in its stem's kernels:
+# an f64 step whose input moves by f32's unit roundoff lands 0.0125 from
+# the unmoved one at 139x139 batch 16, so no f32 step comes within phase
+# 5's state limit of the f64 step.  On the H100 (TF32 off) the CPU port's
+# f32 step lands 0.023-0.106 from it at the INCEPTION_READINGS shapes but
+# the last, the card's with cuDNN off 0.78-1.12 times as far, with cuDNN
+# (as the model runs) 22.0-27.1 times as far: cuDNN's f32 convolutions
+# round more.  At 75x75 batch 4 (4 samples a channel in the last
+# BatchNorms) the ratios are 2.87 and 23.7.  ``python3 chip_smoke.py
+# --inception-readings`` prints the readings.
+# So phase 18 (a) holds Inception-v3's f32 step to the CPU's f32 step's
+# distance: with cuDNN off within INCEPTION_PLAIN_RATIO times it, with
+# cuDNN within INCEPTION_CUDNN_RATIO times it (about twice the largest
+# readings).
+INCEPTION_PLAIN_RATIO = 2.0
+INCEPTION_CUDNN_RATIO = 50.0
+# (batch, image size, seed of the images)
+INCEPTION_READINGS = ((16, 139, 3), (16, 139, 4), (16, 139, 5),
+                      (32, 107, 3), (8, 203, 3), (16, 75, 3), (4, 75, 3))
+# ResNet-50's BatchNorms: the stem's, 3 a bottleneck (16) and 4
+# projections; each issues one statistics all-reduce a synchronized step.
+RESNET50_BN_LAYERS = 53
+REMATS = ("lean", "full")
 # Phase 9 runs phase 4's step (same seed, batch and SGD) through
 # hvd.DistributedOptimizer, which at size 1 adds no hook and no
 # collective, after broadcast_optimizer_state's zero-gradient fill (which
@@ -622,41 +683,160 @@ def phase_main_path(smi: str) -> tuple:
     return launches, calls // steps, summary
 
 
-def phase_reference() -> None:
-    """A small ResNet's train step on the GPU against the CPU."""
+def _reference_resnet(**kw):
+    from horovod_tpu_torch.models.resnet import BasicBlock, ResNet
+    return ResNet(stage_sizes=[1, 1], block_cls=BasicBlock, num_classes=5,
+                  num_filters=16, stem="s2d_fused", **kw)
+
+
+def _registered(name, **extra):
+    from horovod_tpu_torch.models import get_model
+    return functools.partial(get_model, name, num_classes=5, **extra)
+
+
+def _state_vector(model) -> torch.Tensor:
+    return torch.cat([v.detach().double().cpu().reshape(-1)
+                      for v in model.state_dict().values()])
+
+
+# Small models' train steps, card against the CPU port: (label, model,
+# input shape, batch, truth, witness).  truth: the CPU step's dtype that
+# the card's f32 step is held to within phase 5's limits; at float64 the
+# f64 steps card and CPU are held to each other too.  witness: hold the
+# f32 state by the CPU's f32 distance instead (Inception-v3, above).
+REFERENCE = (("small s2d_fused ResNet", _reference_resnet, (8, 8, 12), 4,
+              torch.float32, False),)    # the fused stem takes no f64
+SMALL_ZOO = (("VGG-11", _registered("vgg11"), (32, 32, 3), 4,
+              torch.float64, False),
+             ("VGG-11 classic head", _registered(
+                 "vgg11", classic_head=True, image_size=32), (32, 32, 3), 4,
+              torch.float64, False),
+             ("Inception-v3", _registered("inception3"), (139, 139, 3), 16,
+              torch.float64, True))
+
+
+def _reference_step(build, dtype, dev, group, images, labels):
+    """One train step of a small model on ``dev``: its loss, its state
+    (parameters and statistics) as one f64 vector, and its eval-mode
+    logits before the step."""
+    from horovod_tpu_torch.benchmark import make_train_step
+    from horovod_tpu_torch.topology import build_mesh
+
+    model = build(dtype=dtype, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    model.eval()
+    with torch.no_grad():
+        eval_logits = model(images.to(dev)).double().cpu()
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    loss = make_train_step(model, opt, build_mesh(group, dev))(
+        images.to(dev), labels.to(dev))
+    return float(loss), _state_vector(model), eval_logits
+
+
+def _apart(run, truth) -> tuple:
+    """(relative loss, absolute state) between two steps."""
+    return (abs(run[0] - truth[0]) / max(1.0, abs(truth[0])),
+            (run[1] - truth[1]).abs().max().item())
+
+
+def inception_readings() -> None:
+    """The readings INCEPTION_PLAIN_RATIO and INCEPTION_CUDNN_RATIO were
+    set from: Inception-v3's f32 train step, on the CPU and on the card
+    with and without cuDNN, and an f64 step on an input moved by f32's
+    unit roundoff, each against the CPU's f64 step (``_apart``'s larger
+    number), at each INCEPTION_READINGS shape."""
     import torch.distributed as dist
 
-    from horovod_tpu_torch.benchmark import make_train_step
-    from horovod_tpu_torch.models.resnet import BasicBlock, ResNet
-    from horovod_tpu_torch.topology import build_mesh
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gloo = dist.new_group(backend="gloo")
+    build = _registered("inception3")
+    for batch, size, seed in INCEPTION_READINGS:
+        rng = torch.Generator().manual_seed(seed)
+        images = torch.randn(batch, size, size, 3, generator=rng)
+        labels = torch.randint(0, 5, (batch,), generator=rng)
+        moved = images.double() * (1 + 2.0 ** -24 * torch.randn(
+            images.shape, generator=rng, dtype=torch.float64))
+
+        def run(dtype, dev, x=images):
+            return _reference_step(build, dtype, dev,
+                                   gloo if dev == "cpu" else None, x, labels)
+
+        truth = run(torch.float64, "cpu")
+        cpu = max(_apart(run(torch.float32, "cpu"), truth))
+        card = max(_apart(run(torch.float32, "cuda"), truth))
+        with torch.backends.cudnn.flags(enabled=False):
+            plain = max(_apart(run(torch.float32, "cuda"), truth))
+        rounding = max(_apart(run(torch.float64, "cpu", moved), truth))
+        print(f"Inception-v3 {size}x{size} batch {batch} seed {seed}, from "
+              f"the CPU's f64 step: CPU f32 {cpu:.4g}; card f32 "
+              f"{card:.4g} ({card / cpu:.3g} x); card f32 without cuDNN "
+              f"{plain:.4g} ({plain / cpu:.3g} x); f64 on the input moved "
+              f"by f32's unit roundoff {rounding:.4g}", flush=True)
+    dist.destroy_process_group(gloo)
+    hvd.shutdown()
+
+
+def phase_reference(cases=REFERENCE, tag="reference") -> None:
+    """Small models' train steps on the card against the CPU port, TF32
+    off (phase 5 and, with SMALL_ZOO, phase 18 (a))."""
+    import torch.distributed as dist
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gloo = dist.new_group(backend="gloo")
-    rng = torch.Generator().manual_seed(3)
-    images = torch.randn(4, 8, 8, 12, generator=rng)
-    labels = torch.randint(0, 5, (4,), generator=rng)
-    out = {}
-    for dev, group in (("cuda", None), ("cpu", gloo)):
-        model = ResNet(stage_sizes=[1, 1], block_cls=BasicBlock,
-                       num_classes=5, num_filters=16, stem="s2d_fused",
-                       dtype=torch.float32,
-                       generator=torch.Generator().manual_seed(0),
-                       device=dev)
-        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
-        step = make_train_step(model, opt, build_mesh(group, dev))
-        loss = step(images.to(dev), labels.to(dev))
-        out[dev] = (float(loss), {k: v.detach().cpu()
-                                  for k, v in model.state_dict().items()})
-    (lg, sg), (lc, sc) = out["cuda"], out["cpu"]
-    check(abs(lg - lc) <= 1e-5 * max(1.0, abs(lc)),
-          f"small-model loss gpu {lg} vs cpu {lc}")
-    worst = max((sg[k] - sc[k]).abs().max().item() for k in sc)
-    check(worst <= 1e-4, f"small-model state after one step differs by "
-          f"{worst} between gpu and cpu")
-    print(f"reference: small s2d_fused ResNet step, gpu loss {lg:.6f} vs "
-          f"cpu {lc:.6f}; state max abs diff {worst:.3g} (tolerance 1e-4, "
-          f"TF32 off)", flush=True)
+    for label, build, shape, batch, truth_dtype, witness in cases:
+        rng = torch.Generator().manual_seed(3)
+        images = torch.randn((batch,) + shape, generator=rng)
+        labels = torch.randint(0, 5, (batch,), generator=rng)
+        runs = {(dev, dt): _reference_step(build, dt, dev, grp, images,
+                                           labels)
+                for dt in dict.fromkeys((truth_dtype, torch.float32))
+                for dev, grp in (("cuda", None), ("cpu", gloo))}
+        truth = runs["cpu", truth_dtype]
+        card = runs["cuda", torch.float32]
+        what = f"{tag} {label} {list(shape)} batch {batch}"
+        notes = []
+
+        def held(run, name):
+            loss, state = _apart(run, truth)
+            check(loss <= SMALL_LOSS_RTOL and state <= SMALL_STATE_ATOL,
+                  f"{what}: {name} is {loss:.3g} (loss) and {state:.3g} "
+                  f"(state) from the CPU's {str(truth_dtype)[6:]} step")
+            notes.append(f"{name} loss {loss:.3g} state {state:.3g}")
+
+        if truth_dtype == torch.float64:
+            held(runs["cuda", torch.float64], "card f64")
+        if not witness:
+            held(card, "card f32")
+        else:
+            cpu = max(_apart(runs["cpu", torch.float32], truth))
+            with torch.backends.cudnn.flags(enabled=False):
+                plain = _reference_step(build, torch.float32, "cuda", None,
+                                        images, labels)
+            for name, run, ratio in (
+                    ("card f32 without cuDNN", plain, INCEPTION_PLAIN_RATIO),
+                    ("card f32", card, INCEPTION_CUDNN_RATIO)):
+                d = max(_apart(run, truth))
+                check(d <= ratio * cpu, f"{what}: {name} is {d:.3g} from "
+                      f"the f64 step, {d / cpu:.3g} times the CPU's f32 "
+                      f"step's {cpu:.3g} (bound {ratio})")
+                notes.append(f"{name} {d:.3g} ({d / cpu:.3g} x the CPU "
+                             f"f32 step's {cpu:.3g})")
+        # Eval mode normalizes with the running statistics: nothing
+        # amplifies, so the f32 logits agree within the state limit.
+        ev = (card[2] - runs["cpu", torch.float32][2]).abs().max().item()
+        check(ev <= SMALL_STATE_ATOL, f"{what}: f32 eval logits card vs "
+              f"CPU differ by {ev:.3g}")
+        print(f"{what}: card f32 loss {card[0]:.6f}, CPU "
+              f"{str(truth_dtype)[6:]} {truth[0]:.6f}; from the CPU's "
+              f"{str(truth_dtype)[6:]} step: " + "; ".join(notes)
+              + f"; f32 eval logits card vs CPU {ev:.3g} (limits: loss "
+              f"{SMALL_LOSS_RTOL}, state {SMALL_STATE_ATOL}, TF32 off)",
+              flush=True)
     dist.destroy_process_group(gloo)
 
 
@@ -1672,21 +1852,26 @@ def _parallel_step_worker(rank, size, addr, backend, shape, out_dir):
         hvd.shutdown()
 
 
-def run_parallel_lm_step(backend: str, shape, out_dir: str) -> list:
-    """Two dp x tp x sp steps of a small bf16 LM (ring-flash) on a mesh of
-    ``shape`` over ``backend`` (NCCL: one card a rank; gloo: the CPU);
-    each rank's losses and gathered parameters."""
-    import math
+def _spawn(fn, size, args, out_dir):
+    """``fn(rank, size, addr, *args, out_dir)`` in ``size`` spawned
+    processes that meet at a free local address; waits for them."""
     import socket
 
     import torch.multiprocessing as mp
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         addr = f"127.0.0.1:{sock.getsockname()[1]}"
-    size = math.prod(shape)
-    mp.start_processes(_parallel_step_worker,
-                       args=(size, addr, backend, tuple(shape), out_dir),
+    mp.start_processes(fn, args=(size, addr) + tuple(args) + (out_dir,),
                        nprocs=size, start_method="spawn")
+
+
+def run_parallel_lm_step(backend: str, shape, out_dir: str) -> list:
+    """Two dp x tp x sp steps of a small bf16 LM (ring-flash) on a mesh of
+    ``shape`` over ``backend`` (NCCL: one card a rank; gloo: the CPU);
+    each rank's losses and gathered parameters."""
+    import math
+    size = math.prod(shape)
+    _spawn(_parallel_step_worker, size, (backend, tuple(shape)), out_dir)
     return [torch.load(f"{out_dir}/{backend}{r}.pt", weights_only=False)
             for r in range(size)]
 
@@ -2144,16 +2329,8 @@ def run_pipeline_lm_step(backend: str, shape, out_dir: str) -> list:
     a (data, pipe) mesh of ``shape`` over ``backend`` (NCCL: one card a
     rank; gloo: the CPU); each rank's losses and gathered parameters."""
     import math
-    import socket
-
-    import torch.multiprocessing as mp
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{sock.getsockname()[1]}"
     size = math.prod(shape)
-    mp.start_processes(_pipeline_step_worker,
-                       args=(size, addr, backend, tuple(shape), out_dir),
-                       nprocs=size, start_method="spawn")
+    _spawn(_pipeline_step_worker, size, (backend, tuple(shape)), out_dir)
     return [torch.load(f"{out_dir}/pp_{backend}{r}.pt", weights_only=False)
             for r in range(size)]
 
@@ -2424,16 +2601,8 @@ def run_zero_step(backend: str, shape, out_dir: str) -> list:
     """Phase 13 (b)'s program on ``prod(shape)`` ranks over ``backend``
     (NCCL: one card a rank; gloo: the CPU)."""
     import math
-    import socket
-
-    import torch.multiprocessing as mp
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{sock.getsockname()[1]}"
     size = math.prod(shape)
-    mp.start_processes(_zero_step_worker,
-                       args=(size, addr, backend, tuple(shape), out_dir),
-                       nprocs=size, start_method="spawn")
+    _spawn(_zero_step_worker, size, (backend, tuple(shape)), out_dir)
     return [torch.load(f"{out_dir}/zero_{backend}{r}.pt", weights_only=False)
             for r in range(size)]
 
@@ -3419,15 +3588,7 @@ def _ragged_payload(size: int):
 def run_moe_processes(backend: str, size: int, out_dir: str) -> list:
     """Phase 14 (e)'s program on ``size`` ranks over ``backend`` (NCCL:
     one card a rank; gloo: the CPU)."""
-    import socket
-
-    import torch.multiprocessing as mp
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{sock.getsockname()[1]}"
-    mp.start_processes(_moe_process_worker,
-                       args=(size, addr, backend, out_dir), nprocs=size,
-                       start_method="spawn")
+    _spawn(_moe_process_worker, size, (backend,), out_dir)
     return [torch.load(f"{out_dir}/moe_{backend}{r}.pt", weights_only=False)
             for r in range(size)]
 
@@ -4134,6 +4295,314 @@ def phase_telemetry(smi: str, main: dict, ctl: dict) -> tuple:
     return launches, flash
 
 
+# ---------------------------------------------------------------------------
+# The model zoo, ResNet remat, synchronized BatchNorm and the two lanes
+# ---------------------------------------------------------------------------
+
+def _phase_zoo_full_width(smi: str) -> dict:
+    """Phase 18 (b): VGG-16, Inception-v3 and ResNet-101 at full width
+    through ``run_synthetic_benchmark`` (3 warmup and 10 timed steps),
+    then ``run_profile``'s category breakdown of VGG-16 and Inception-v3."""
+    from horovod_tpu_torch.benchmark import run_profile, run_synthetic_benchmark
+
+    out = {}
+    for name, batch in ZOO:
+        torch.cuda.empty_cache()
+        res = run_synthetic_benchmark(
+            name, batch_size=batch, image_size=IMAGE, input_dtype="bfloat16",
+            num_warmup_batches=WARMUP_STEPS, num_batches_per_iter=1,
+            num_iters=TIMED_STEPS, verbose=False)
+        losses = res["step_losses"]
+        check(len(losses) == TIMED_STEPS and all(
+            x == x and abs(x) != float("inf") for x in losses),
+            f"phase 18 (b) {name}: losses {losses}")
+        keep = {k: res[k] for k in (
+            "model", "batch_size_per_chip", "stem", "img_sec_total",
+            "img_sec_conf", "ms_per_step", "flops_per_step",
+            "tflops_per_chip", "mfu", "max_memory_allocated")}
+        keep["losses"] = [losses[0], losses[-1]]
+        out[name] = keep
+        print(f"phase 18 (b) {name} batch {batch} {IMAGE}x{IMAGE} bf16 on "
+              f"{smi}: {res['img_sec_total']:.1f} +-{res['img_sec_conf']:.1f}"
+              f" img/s, {res['ms_per_step']:.2f} ms/step, MFU "
+              f"{res['mfu'] * 100:.2f}% ({res['flops_per_step'] / 1e12:.3f} "
+              f"TFLOP a step over 989 TFLOP/s), peak "
+              f"{res['max_memory_allocated']} bytes; losses finite, "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f}", flush=True)
+        del res
+    batches = dict(ZOO)
+    for name in ZOO_PROFILED:
+        torch.cuda.empty_cache()
+        prof = run_profile(name, batches[name], image_size=IMAGE,
+                           steps=ZOO_PROFILE_STEPS, top=8)
+        out[name]["profile"] = {k: prof[k] for k in (
+            "wall_ms_per_step", "kernel_ms_per_step", "device_busy_share",
+            "kernels_per_step", "ms_per_step_by_category",
+            "top_kernels_ms_per_step")}
+        print(f"phase 18 (b) profile {name}: "
+              + json.dumps(out[name]["profile"]), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resnet50_run(remat=None, axis_name=None) -> dict:
+    """Phase 4's ResNet-50 ``s2d_fused`` step (same seed, batch, input and
+    SGD), under ``remat`` or with BatchNorm synchronized over
+    ``axis_name``, for phase 4's warmup and timed steps: the timed losses,
+    ms/step, peak memory, the final running statistics and the fused-stem
+    launches and statistics all-reduces of the run."""
+    from horovod_tpu_torch.benchmark import make_bench_state, make_train_step
+    from horovod_tpu_torch.models import get_model, resnet
+    from horovod_tpu_torch.models.convert import flax_ordered_parameters
+    from horovod_tpu_torch.ops import fused_stem
+
+    torch.cuda.empty_cache()
+    st = make_bench_state("resnet50", batch_size=BATCH, image_size=IMAGE,
+                          stem="s2d_fused", input_dtype="bfloat16",
+                          remat=remat)
+    if axis_name is not None:
+        model = get_model("resnet50", num_classes=1000, stem="s2d_fused",
+                          axis_name=axis_name, remat=remat,
+                          device=st.mesh.device,
+                          generator=torch.Generator().manual_seed(0))
+        opt = torch.optim.SGD([p for _, p in flax_ordered_parameters(model)],
+                              lr=0.01, momentum=0.9)
+        st = st._replace(model=model, optimizer=opt)
+    step = make_train_step(st.model, st.optimizer, st.mesh, st.axis)
+    fused_stem.launches.reset()
+    resnet.stats_allreduce_calls.reset()
+    for _ in range(WARMUP_STEPS):
+        step(st.images, st.labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    losses = [step(st.images, st.labels) for _ in range(TIMED_STEPS)]
+    t1.record()
+    torch.cuda.synchronize()
+    out = {"losses": [float(x) for x in losses],
+           "ms_per_step": t0.elapsed_time(t1) / TIMED_STEPS,
+           "peak": torch.cuda.max_memory_allocated(),
+           "stats": [b.detach().clone() for b in st.model.buffers()],
+           "stem_launches": fused_stem.launches.count,
+           "stats_allreduces": resnet.stats_allreduce_calls.count}
+    del st, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_and_lanes(smi: str, main: dict) -> int:
+    """Phase 18: (a) small VGG and Inception steps, card against the CPU;
+    (b) VGG-16, Inception-v3 and ResNet-101 at full width with profiles;
+    (c) phase 4's step under remat "lean" and "full"; (d) with BatchNorm
+    synchronized over the NCCL group of size 1, alone and under each
+    remat; (e) the step-guard lane;
+    (f) across cards, the scaling-efficiency lane and a synchronized step
+    over NCCL against gloo.  Returns the fused-stem launches of (c), (d)
+    and (e)."""
+    from horovod_tpu_torch.benchmark import run_step_guard_benchmark
+    from horovod_tpu_torch.ops import fused_stem
+
+    t_start = time.perf_counter()
+    phase_reference(SMALL_ZOO, "phase 18 (a)")
+    zoo = _phase_zoo_full_width(smi)
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    want = main["step_losses"]
+    base = _resnet50_run()
+    runs = {"none": base}
+    for remat in REMATS:
+        runs[remat] = _resnet50_run(remat=remat)
+    runs["sync"] = _resnet50_run(axis_name="data")
+    for remat in REMATS:
+        runs["sync " + remat] = _resnet50_run(remat=remat, axis_name="data")
+    for label, r in runs.items():
+        check(r["losses"] == want, f"phase 18 {label}: timed losses "
+              f"{r['losses']} differ from phase 4's {want}")
+        check(all(torch.equal(a, b) for a, b in zip(r["stats"],
+                                                    base["stats"])),
+              f"phase 18 {label}: final running statistics differ from "
+              f"remat=None's")
+        check(r["stem_launches"] == steps, f"phase 18 {label}: fused_stem "
+              f"launched {r['stem_launches']} times in {steps} steps")
+    for label, r in runs.items():
+        want_calls = RESNET50_BN_LAYERS * steps if "sync" in label else 0
+        check(r["stats_allreduces"] == want_calls, f"phase 18 {label}: "
+              f"{r['stats_allreduces']} statistics all-reduces in {steps} "
+              f"steps; expected {want_calls}")
+    sync = runs["sync"]
+    for label in REMATS:
+        r = runs[label]
+        print(f"phase 18 (c) ResNet-50 s2d_fused batch {BATCH} "
+              f"remat={label!r} on {smi}: {r['ms_per_step']:.2f} ms/step, "
+              f"peak {r['peak']} bytes (remat=None here: "
+              f"{base['ms_per_step']:.2f} ms/step, peak {base['peak']} "
+              f"bytes; phase 4: {main['ms_per_step']:.2f} ms/step, peak "
+              f"{main['max_memory_allocated']} bytes); the {TIMED_STEPS} "
+              f"timed losses equal phase 4's and the final running "
+              f"statistics remat=None's bit for bit; fused_stem "
+              f"{r['stem_launches']} launches in {steps} steps", flush=True)
+    print(f"phase 18 (d) ResNet-50 s2d_fused batch {BATCH}, BatchNorm "
+          f"synchronized over the NCCL group of size 1, on {smi}: "
+          f"{sync['ms_per_step']:.2f} ms/step (remat=None: "
+          f"{base['ms_per_step']:.2f}); {sync['stats_allreduces'] // steps}"
+          f" statistics all-reduces a step (one per BatchNorm); timed "
+          f"losses equal phase 4's and the final statistics remat=None's "
+          f"bit for bit", flush=True)
+    for label in REMATS:
+        r = runs["sync " + label]
+        print(f"phase 18 (d) the same under remat={label!r}: "
+              f"{r['ms_per_step']:.2f} ms/step, peak {r['peak']} bytes; "
+              f"{r['stats_allreduces'] // steps} statistics all-reduces a "
+              f"step (none in a recompute); timed losses equal phase 4's "
+              f"and the final statistics remat=None's bit for bit",
+              flush=True)
+
+    fused_stem.launches.reset()
+    guard = run_step_guard_benchmark(
+        "resnet50", BATCH, image_size=IMAGE, stem="s2d_fused",
+        input_dtype="bfloat16", num_warmup_batches=WARMUP_STEPS,
+        num_batches_per_iter=1, num_iters=TIMED_STEPS, verbose=False)
+    guard_launches = fused_stem.launches.count
+    check(guard_launches == 2 * steps, f"phase 18 (e): fused_stem launched "
+          f"{guard_launches} times in two runs of {steps} steps")
+    print(f"phase 18 (e) step guard ResNet-50 s2d_fused batch {BATCH} on "
+          f"{smi}: overhead {guard['value']:.3f}% ({guard['baseline_img_sec']}"
+          f" -> {guard['guarded_img_sec']} img/s; not gated)", flush=True)
+    phase_zoo_processes(smi)
+    summary = {"zoo": zoo, "step_guard": guard, "nvidia_smi": smi}
+    summary.update({label: {k: r[k] for k in (
+        "ms_per_step", "peak", "stats_allreduces")}
+        for label, r in runs.items()})
+    print(f"phase 18: {time.perf_counter() - t_start:.1f} s; "
+          + json.dumps(summary), flush=True)
+    return sum(r["stem_launches"] for r in runs.values()) + guard_launches
+
+
+def _scaling_worker(rank, size, addr, out_dir):
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.benchmark import run_scaling_efficiency
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    hvd.init()
+    try:
+        res = run_scaling_efficiency(
+            "resnet50", BATCH, image_size=IMAGE, stem="s2d_fused",
+            input_dtype="bfloat16", num_warmup_batches=WARMUP_STEPS,
+            num_batches_per_iter=1, num_iters=TIMED_STEPS, verbose=False)
+        torch.save(res, f"{out_dir}/scaling{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def run_scaling_processes(size: int, out_dir: str) -> dict:
+    """``run_scaling_efficiency`` for phase 4's ResNet-50 ``s2d_fused``
+    step on ``size`` NCCL ranks, one card a rank; rank 0's dict, checked
+    to be every rank's."""
+    _spawn(_scaling_worker, size, (), out_dir)
+    got = [torch.load(f"{out_dir}/scaling{r}.pt") for r in range(size)]
+    check(all(g == got[0] for g in got), f"scaling efficiency differs "
+          f"across ranks: {got}")
+    res = got[0]
+    check(res["n_devices"] == size and res["n_baseline_devices"] == 1
+          and 0 < res["scaling_efficiency"] <= 1.5,
+          f"scaling efficiency on {size} NCCL ranks: {res}")
+    return res
+
+
+def _sync_bn_worker(rank, size, addr, backend, out_dir):
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.benchmark import make_train_step
+    from horovod_tpu_torch.models.resnet import BasicBlock, ResNet
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(size),
+                      HOROVOD_COORDINATOR_ADDR=addr)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init(device=None if backend == "nccl" else "cpu")
+    try:
+        dev = hvd.device()
+        model = ResNet(stage_sizes=[1, 1], block_cls=BasicBlock,
+                       num_classes=5, num_filters=16, stem="s2d_fused",
+                       dtype=torch.float32, axis_name="data",
+                       generator=torch.Generator().manual_seed(0),
+                       device=dev)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        step = make_train_step(model, opt, hvd.mesh())
+        g = torch.Generator().manual_seed(3)
+        images = torch.randn(4 * size, 8, 8, 12, generator=g)
+        labels = torch.randint(0, 5, (4 * size,), generator=g)
+        rows = slice(4 * rank, 4 * rank + 4)
+        losses = [float(step(images[rows].to(dev), labels[rows].to(dev)))
+                  for _ in range(2)]
+        torch.save({"losses": losses, "state": _state_vector(model)},
+                   f"{out_dir}/{backend}{rank}.pt")
+    finally:
+        hvd.shutdown()
+
+
+def run_sync_bn_step(backend: str, size: int, out_dir: str) -> list:
+    """Two steps of a small ResNet whose BatchNorms average over ``size``
+    ranks of ``backend`` (NCCL: one card a rank; gloo: the CPU)."""
+    _spawn(_sync_bn_worker, size, (backend,), out_dir)
+    return [torch.load(f"{out_dir}/{backend}{r}.pt") for r in range(size)]
+
+
+def compare_sync_bn_step(nccl: list, gloo: list) -> dict:
+    """Phase 5's limits between the backends on every rank; each backend's
+    state one value on every rank (the statistics are synchronized, the
+    gradients averaged)."""
+    worst_loss, worst_state = 0.0, 0.0
+    for a, b in zip(nccl, gloo):
+        for x, y in zip(a["losses"], b["losses"]):
+            worst_loss = max(worst_loss, abs(x - y) / max(1.0, abs(y)))
+        worst_state = max(worst_state,
+                          (a["state"] - b["state"]).abs().max().item())
+    for runs in (nccl, gloo):
+        check(all(torch.equal(r["state"], runs[0]["state"]) for r in runs),
+              "synchronized-BN state differs across ranks")
+    check(worst_loss <= SMALL_LOSS_RTOL and worst_state <= SMALL_STATE_ATOL,
+          f"synchronized-BN steps nccl vs gloo: loss {worst_loss:.3g}, "
+          f"state {worst_state:.3g}")
+    return {"loss_rel": worst_loss, "state_abs": worst_state}
+
+
+def phase_zoo_processes(smi: str) -> None:
+    """Phase 18 (f): the lanes across NCCL processes, where the host has
+    the cards for them."""
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 18 (f) did not run: {n} CUDA device here, and the "
+              f"scaling-efficiency lane and a synchronized-BN step across "
+              f"NCCL processes need one card a rank (NCCL refuses two ranks "
+              f"on one card)", flush=True)
+        return
+    size = min(n, 4)
+    with tempfile.TemporaryDirectory() as out:
+        res = run_scaling_processes(size, out)
+        nccl = run_sync_bn_step("nccl", size, out)
+        gloo = run_sync_bn_step("gloo", size, out)
+    sync = compare_sync_bn_step(nccl, gloo)
+    print(f"phase 18 (f) on {size} cards ({smi}): ResNet-50 s2d_fused batch "
+          f"{BATCH} a rank, weak-scaling efficiency "
+          f"{res['scaling_efficiency'] * 100:.2f}% ({res['img_sec_1']:.1f} "
+          f"img/s on {res['n_baseline_devices']} rank, {res['img_sec_n']:.1f}"
+          f" on {res['n_devices']}); two synchronized-BN steps of a small "
+          f"ResNet over NCCL against gloo: " + json.dumps(sync), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4166,6 +4635,7 @@ def main() -> int:
                                                       control)
     tele_stem, tele_flash = phase_telemetry(smi, main_summary, control)
     stem_row["launches"] += tele_stem
+    stem_row["launches"] += phase_zoo_and_lanes(smi, main_summary)
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
                            zero, guard, warm, tele_flash):
@@ -4195,6 +4665,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--control-worker"]:
         _control_worker(*sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--inception-readings"]:
+        inception_readings()
         sys.exit(0)
     if sys.argv[1:2] == ["--telemetry-worker"]:
         _telemetry_worker(*sys.argv[2:4])

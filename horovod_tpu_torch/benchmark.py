@@ -3,7 +3,10 @@
 Counterpart of ``horovod_tpu/benchmark.py``: ``make_train_step``
 (``:100``), ``make_bench_state`` (``:171``), ``run_synthetic_benchmark``
 (``:241``), the analytic ``_step_flops`` (``:75``) and
-``device_peak_tflops`` (``:60``).  The protocol is the reference
+``device_peak_tflops`` (``:60``), and the lanes built on them:
+``run_scaling_efficiency`` (``:644``, weak scaling from one rank a host
+to every rank) and ``run_step_guard_benchmark`` (``:745``, the step
+guard's overhead).  The protocol is the reference
 harness's: a fixed synthetic batch, warmup steps, then ``num_iters``
 rounds of ``num_batches_per_iter`` steps, img/s as mean +- 1.96 sigma over
 rounds.  A step is eager PyTorch: forward in train mode, mean softmax
@@ -45,7 +48,8 @@ from horovod_tpu_torch.models.transformer import (
 from horovod_tpu_torch.ops import fusion
 from horovod_tpu_torch.ops.fusion import fused_pytree_mean
 from horovod_tpu_torch.optim import SGD
-from horovod_tpu_torch.topology import Mesh, data_axis, mesh_size
+from horovod_tpu_torch.topology import (Mesh, build_mesh, data_axis,
+                                        mesh_size)
 
 # Peak dense bf16 TFLOP/s per card by device-name substring (NVIDIA's data
 # sheets, SXM parts, without sparsity), for MFU.  Override with
@@ -60,6 +64,11 @@ PEAK_TFLOPS_BY_KIND = {
 _FWD_GFLOPS_224 = {
     "resnet18": 1.82, "resnet34": 3.67, "resnet50": 4.09,
     "resnet101": 7.80, "resnet152": 11.52,
+    # VGG-BN conv stacks (GAP head; the convs are >99% of FLOPs).
+    "vgg11": 7.6, "vgg13": 11.3, "vgg16": 15.5, "vgg19": 19.6,
+    # Inception V3: 5.7 GFLOPs at its canonical 299x299, ~3.2 at 224
+    # under the quadratic spatial scaling applied below.
+    "inception3": 3.2, "inceptionv3": 3.2,
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -153,13 +162,15 @@ class BenchState(NamedTuple):
 def make_bench_state(model_name: str = "resnet50", batch_size: int = 64,
                      image_size: int = 224, num_classes: int = 1000,
                      input_dtype: str = "float32", stem: str = "conv7",
+                     remat: Optional[str] = None,
                      mesh: Optional[Mesh] = None,
                      learning_rate: float = 0.01, device=None,
                      seed: int = 0) -> BenchState:
     """The benchmark-state recipe: model, optimizer and this rank's shard
     of the fixed synthetic batch.  ``batch_size`` is per rank.  Runs on
     ``cuda:<local_rank>`` unless ``device`` (or an initialized CPU world)
-    says otherwise; with no GPU and no device named it raises.
+    says otherwise; with no GPU and no device named it raises.  ``stem``
+    and ``remat`` apply to the ResNets only, as in the reference.
 
     The global batch is the reference's (numpy ``default_rng(0)`` images,
     ``default_rng(1)`` labels), and rank r takes rows ``[r*bs, (r+1)*bs)``,
@@ -184,6 +195,8 @@ def make_bench_state(model_name: str = "resnet50", batch_size: int = 64,
 
     s2d = stem in ("s2d", "s2d_fused") and model_name.startswith("resnet")
     extra = {"stem": stem} if s2d else {}
+    if remat and model_name.startswith("resnet"):
+        extra["remat"] = remat
     model = get_model(model_name, num_classes=num_classes,
                       generator=torch.Generator().manual_seed(seed),
                       device=mesh.device, **extra)
@@ -238,14 +251,15 @@ def run_synthetic_benchmark(model_name: str = "resnet50",
                             mesh: Optional[Mesh] = None,
                             input_dtype: str = "float32",
                             stem: str = "conv7",
+                            remat: Optional[str] = None,
                             device=None,
                             verbose: bool = True) -> dict:
     """Run the synthetic benchmark; returns a result dict.  ``batch_size``
     is per rank, as in the reference."""
     st = make_bench_state(model_name, batch_size, image_size=image_size,
                           num_classes=num_classes, input_dtype=input_dtype,
-                          stem=stem, mesh=mesh, learning_rate=learning_rate,
-                          device=device)
+                          stem=stem, remat=remat, mesh=mesh,
+                          learning_rate=learning_rate, device=device)
     dev = st.mesh.device
     n_chips = mesh_size(st.mesh)
     global_bs = batch_size * n_chips
@@ -315,6 +329,117 @@ def run_synthetic_benchmark(model_name: str = "resnet50",
             mfu_s = f", MFU {mfu * 100:.2f}%" if mfu is not None else ""
             print(f"Achieved {tflops_per_chip:.2f} TFLOP/s per rank"
                   f"{mfu_s}", flush=True)
+    return result
+
+
+def run_scaling_efficiency(model_name: str = "resnet50",
+                           batch_size: int = 64,
+                           n_devices: Optional[int] = None,
+                           verbose: bool = True,
+                           **bench_kwargs) -> dict:
+    """Weak-scaling efficiency (reference ``:644``): ``img_sec_n /
+    (growth * img_sec_base)`` at a fixed per-rank batch, the reference's
+    headline metric.
+
+    The reference's baseline is the first device of every process; the
+    port runs one process a card, so its baseline is one rank a host: the
+    ranks with local rank 0 (``topology().leaders``) among the first
+    ``n_devices``, on a mesh of their own while the others wait.  Growth
+    is ``n / n_base``.  Every rank of the job calls it (it makes groups
+    over the world) and gets rank 0's numbers."""
+    if not basics.is_initialized():
+        basics.init(device=bench_kwargs.get("device"))
+    if basics.process_group() is not None:
+        raise ValueError("scaling efficiency spans the whole world; a job "
+                         "restricted by init(ranks=...) has none")
+    world, rank = basics.size(), basics.rank()
+    n = n_devices or world
+    if n < 2:
+        raise ValueError(f"scaling efficiency needs >= 2 devices, have {n}")
+    base = [r for r in basics.topology().leaders if r < n]
+    n_base = len(base)
+    if n_base >= n:
+        raise ValueError(
+            f"scaling efficiency needs more total devices ({n}) than "
+            f"baseline devices ({n_base}; one per process)")
+    # Group creation is collective over the world: every rank makes both.
+    base_group = dist.new_group(base)
+    n_group = dist.new_group(list(range(n))) if n < world else None
+    res_1 = res_n = None
+    if rank in base:
+        res_1 = run_synthetic_benchmark(model_name, batch_size,
+                                        mesh=build_mesh(base_group),
+                                        verbose=False, **bench_kwargs)
+    dist.barrier()
+    if rank < n:
+        res_n = run_synthetic_benchmark(model_name, batch_size,
+                                        mesh=build_mesh(n_group),
+                                        verbose=False, **bench_kwargs)
+    dist.barrier()
+    nums = torch.tensor([res_1["img_sec_total"] if res_1 else 0.0,
+                         res_n["img_sec_total"] if res_n else 0.0],
+                        dtype=torch.float64, device=basics.device())
+    dist.broadcast(nums, src=0)
+    img_sec_1, img_sec_n = (float(v) for v in nums.cpu())
+    growth = n / n_base
+    efficiency = img_sec_n / (growth * img_sec_1)
+    if verbose:
+        print(f"{n_base} device(s): {img_sec_1:.1f} img/sec", flush=True)
+        print(f"{n} devices: {img_sec_n:.1f} img/sec "
+              f"(perfect: {growth * img_sec_1:.1f})", flush=True)
+        print(f"Scaling efficiency: {efficiency * 100:.1f}%", flush=True)
+    return {
+        "model": model_name,
+        "n_devices": n,
+        "n_baseline_devices": n_base,
+        "img_sec_1": img_sec_1,
+        "img_sec_n": img_sec_n,
+        "scaling_efficiency": efficiency,
+    }
+
+
+def run_step_guard_benchmark(model_name: str = "resnet50",
+                             batch_size: int = 64,
+                             verbose: bool = True,
+                             **kwargs) -> dict:
+    """The step guard's overhead (reference ``:745``): the synthetic
+    benchmark with ``HOROVOD_STEP_GUARD`` unset, then with ``skip``, and
+    the throughput delta.  ``make_train_step`` reads the policy once, so
+    each run builds its own step; the environment is restored after.
+    Target: < 2 % step time.  Prints one ``BENCH`` JSON line
+    (``{"metric": "step_guard_overhead_pct", ...}``) and returns the same
+    dict."""
+    import json
+
+    prev = os.environ.pop("HOROVOD_STEP_GUARD", None)
+    try:
+        base = run_synthetic_benchmark(model_name, batch_size,
+                                       verbose=False, **kwargs)
+        os.environ["HOROVOD_STEP_GUARD"] = "skip"
+        guarded = run_synthetic_benchmark(model_name, batch_size,
+                                          verbose=False, **kwargs)
+    finally:
+        if prev is None:
+            os.environ.pop("HOROVOD_STEP_GUARD", None)
+        else:
+            os.environ["HOROVOD_STEP_GUARD"] = prev
+    overhead_pct = ((base["img_sec_total"] - guarded["img_sec_total"])
+                    / base["img_sec_total"] * 100.0)
+    result = {
+        "metric": "step_guard_overhead_pct",
+        "value": round(overhead_pct, 3),
+        "unit": "%",
+        "target_pct": 2.0,
+        "model": model_name,
+        "baseline_img_sec": round(base["img_sec_total"], 1),
+        "guarded_img_sec": round(guarded["img_sec_total"], 1),
+    }
+    if verbose:
+        print(f"Step guard overhead: {overhead_pct:.2f}% "
+              f"({base['img_sec_total']:.1f} -> "
+              f"{guarded['img_sec_total']:.1f} img/sec; target < 2%)",
+              flush=True)
+    print("BENCH " + json.dumps(result), flush=True)
     return result
 
 
@@ -718,14 +843,18 @@ def _trace_steps(step_once, dev: torch.device, steps: int,
 def run_profile(model_name: str = "resnet50", batch_size: int = 64,
                 image_size: int = 224, steps: int = 5,
                 input_dtype: str = "bfloat16", stem: str = "s2d_fused",
-                device=None, top: int = 15) -> dict:
-    """Trace ``steps`` ResNet training steps (see :func:`_trace_steps`).
-    Same state recipe as the throughput run, so the trace explains the
-    program the benchmark measures.  Needs a CUDA device."""
+                remat: Optional[str] = None, device=None,
+                top: int = 15) -> dict:
+    """Trace ``steps`` training steps of a registered model (see
+    :func:`_trace_steps`).  Same state recipe as the throughput run, so
+    the trace explains the program the benchmark measures.  Needs a CUDA
+    device."""
     st = make_bench_state(model_name, batch_size, image_size=image_size,
-                          input_dtype=input_dtype, stem=stem, device=device)
+                          input_dtype=input_dtype, stem=stem, remat=remat,
+                          device=device)
     step = make_train_step(st.model, st.optimizer, st.mesh, st.axis)
-    out = {"model": model_name, "stem": stem, "batch_size": batch_size}
+    out = {"model": model_name, "stem": stem if st.s2d else "conv7",
+           "remat": remat, "batch_size": batch_size}
     out.update(_trace_steps(lambda: step(st.images, st.labels),
                             st.mesh.device, steps, top))
     return out

@@ -11,7 +11,42 @@ to the compute dtype at each conv and dense layer; BatchNorm computes its
 statistics and its normalisation in float32 and casts the result; the head
 is computed in the compute dtype and returned as float32.  BatchNorm keeps
 per-replica statistics (data-parallel semantics: gradients are averaged,
-statistics are not).
+statistics are not) unless ``axis_name`` names a group to synchronize
+them over.
+
+Synchronized BatchNorm (``axis_name``, reference ``resnet.py:195``): in
+train mode each BatchNorm averages its f32 ``[mean, E[x^2]]`` over the
+group in ONE all-reduce of their concatenation, as flax's
+``_compute_stats`` does with one ``lax.pmean``, then forms ``var =
+max(E[x^2] - mean^2, 0)`` and updates the running statistics once.  The
+all-reduce is a ``torch.distributed`` call inside the step
+(:class:`_StatsMean`), counted in :data:`stats_allreduce_calls`; eval mode
+issues none.  Its backward is what JAX's transpose of that ``pmean`` is
+inside the reference's ``shard_map(..., check_vma=False)``: the cotangent
+divided by the group size, then summed over the group (a ``pmean`` of
+the cotangent), so each rank's statistics receive the mean of every
+rank's cotangent.  At group size 1 the result is bitwise the
+unsynchronized one.
+
+``remat`` (reference ``resnet.py:205``, ``:242-254``) applies to each
+residual block; the stem stays outside.  ``"full"`` checkpoints the block:
+it saves only the block's input and recomputes the block in the backward.
+A recompute updates no running statistic and issues no statistics
+all-reduce: the first pass queues the updates (applied once the block
+returns) and keeps the synchronized statistics, which the recompute
+reuses.  ``"lean"`` is the reference's "save anything except the tensors
+tagged ``act``": the backward keeps everything it keeps without remat
+except the post-BN/ReLU activations inside a block, which it recomputes
+from the f32 centred input that BatchNorm's backward keeps anyway
+(:class:`_LeanActs`, saved-tensor hooks, no checkpoint: the forward runs
+once).  So each such activation's bf16 copy is not held between forward
+and backward, at the cost of one elementwise pass per activation in the
+backward.  The block's output ReLU, also tagged ``act`` in the reference,
+stays saved: its recompute would keep the pre-ReLU sum, as many bytes.
+Under either the running statistics change once a step, and every value
+is bitwise the one without remat.  flax's ``nn.remat`` renames a block
+``CheckpointBottleneckBlock_<k>``; the port keeps ``BottleneckBlock_<k>``,
+so one state dict serves every ``remat``.
 
 Submodules carry flax's names (``conv_init``, ``norm_init``,
 ``BottleneckBlock_3``, ``Conv_1``, ``BatchNorm_2``, ``conv_proj``,
@@ -22,19 +57,31 @@ flax path joined with dots (see :mod:`horovod_tpu_torch.models.convert`).
 
 from __future__ import annotations
 
+import contextvars
 import functools
 import math
+import weakref
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops.fused_stem import fused_bn_relu_maxpool
 
 Padding = Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]
 
 STEMS = ("conv7", "s2d", "s2d_fused")
+REMATS = (None, "lean", "full")
+
+# Forward statistics all-reduces of synchronized BatchNorm: one per layer
+# and train-mode forward pass (none in a recompute).
+stats_allreduce_calls = _build.CallCounter("bn_stats_allreduce")
+# Post-BN/ReLU activations that remat="lean" recomputed in a backward.
+act_recomputes = _build.CallCounter("resnet_lean_act_recompute")
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
@@ -86,7 +133,7 @@ def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 class Conv(nn.Module):
     """flax ``nn.Conv(use_bias=False)``: kernel ``[O, I, kh, kw]`` in f32,
     cast with the input to ``dtype``.  ``padding`` is ``"SAME"`` (flax's
-    default) or explicit ``((top, bottom), (left, right))``."""
+    default), ``"VALID"`` or explicit ``((top, bottom), (left, right))``."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, int],
@@ -110,6 +157,8 @@ class Conv(nn.Module):
         if self.padding == "SAME":
             pads = (_same_pads(x.shape[2], kh, self.strides[0]),
                     _same_pads(x.shape[3], kw, self.strides[1]))
+        elif self.padding == "VALID":
+            pads = ((0, 0), (0, 0))
         else:
             pads = self.padding
         (top, bottom), (left, right) = pads
@@ -144,19 +193,155 @@ class Dense(nn.Module):
                 + self.bias.to(self.dtype))
 
 
+def resolve_axis(axis_name):
+    """The group a synchronized BatchNorm averages over: None (per-replica
+    statistics), a process group, or an axis name that the default mesh
+    (``hvd.mesh()``) resolves; the default world group comes back as
+    ``dist.group.WORLD``, since None means no synchronization here."""
+    if not isinstance(axis_name, str):
+        return axis_name
+    from horovod_tpu_torch import basics
+    group = basics.mesh().axis(axis_name)
+    return group if group is not None else dist.group.WORLD
+
+
+class _StatsMean(torch.autograd.Function):
+    """``lax.pmean`` of a BatchNorm's concatenated f32 ``[mean, E[x^2]]``
+    over ``group``: one all-reduce (a sum, then a divide by the group
+    size).  Backward: JAX's transpose of that ``pmean`` under
+    ``check_vma=False``, the cotangent divided by the group size, then
+    summed over the group.
+
+    ``cached`` is the result of the same call in a block's first pass,
+    handed back by a ``"full"`` recompute, which then issues no
+    all-reduce."""
+
+    @staticmethod
+    def forward(ctx, local, group, cached):
+        ctx.group = group
+        if cached is not None:
+            return cached.clone()
+        out = local.clone()
+        dist.all_reduce(out, group=group)
+        stats_allreduce_calls.add()
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad / dist.get_world_size(ctx.group)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None, None
+
+
+class _RematPass:
+    """One ``"full"`` checkpointed block call.  Its first pass queues the
+    running-statistic updates of the block's BatchNorms (applied once the
+    block returns) and keeps their synchronized statistics; the recompute
+    in the backward reuses those and updates nothing."""
+
+    def __init__(self):
+        self.recompute = False
+        self.updates = []      # (BatchNorm, mean, var) of the first pass
+        self.synced = {}       # BatchNorm -> its all-reduced statistics
+
+
+_REMAT_PASS: contextvars.ContextVar = contextvars.ContextVar(
+    "resnet_remat_pass", default=None)
+
+
+def _norm_apply(xc, mul, bias, dtype):
+    """BatchNorm's apply on the centred f32 input, cast to ``dtype``."""
+    return (xc * mul[:, None, None] + bias[:, None, None]).to(dtype)
+
+
+class _Recompute:
+    """How the backward gets a post-BN/ReLU activation back: ``relu`` of
+    the apply on tensors the backward keeps anyway.  Computed at the
+    first unpack and dropped after the last one it was packed for."""
+
+    def __init__(self, xc, mul, bias, dtype):
+        self.args = (xc, mul, bias, dtype)
+        self.packs = 0
+        self.value = None
+
+    def get(self) -> torch.Tensor:
+        if self.value is None:
+            with torch.no_grad():
+                self.value = torch.relu(_norm_apply(*self.args))
+            act_recomputes.add()
+        value = self.value
+        self.packs -= 1
+        if self.packs <= 0:
+            self.value = None
+        return value
+
+
+class _LeanActs:
+    """The saved-tensor hooks of ``remat="lean"`` over one forward of the
+    blocks: a tensor saved for the backward is kept as it is, unless it
+    is a post-BN/ReLU activation made by :meth:`act`; that one is saved
+    as its :class:`_Recompute`."""
+
+    def __init__(self):
+        self.acts = {}         # id(activation) -> (weakref, _Recompute)
+
+    def act(self, xc, mul, bias, dtype) -> torch.Tensor:
+        recipe = _Recompute(xc.detach(), mul.detach(), bias.detach(), dtype)
+        return _Act.apply(_norm_apply(xc, mul, bias, dtype), self, recipe)
+
+    def pack(self, t: torch.Tensor):
+        hit = self.acts.get(id(t))
+        if hit is None or hit[0]() is not t:
+            return t
+        hit[1].packs += 1
+        return hit[1]
+
+    @staticmethod
+    def unpack(saved):
+        return saved.get() if isinstance(saved, _Recompute) else saved
+
+
+class _Act(torch.autograd.Function):
+    """``relu(z)``, registered with the lean hooks before it is saved, so
+    that its own save, and the next convolution's, keep its recipe; the
+    backward is autograd's for relu, ``threshold_backward(g, y, 0)``."""
+
+    @staticmethod
+    def forward(ctx, z, acts, recipe):
+        y = torch.relu(z)
+        acts.acts[id(y)] = (weakref.ref(y), recipe)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, = ctx.saved_tensors
+        return torch.ops.aten.threshold_backward(grad, y, 0), None, None
+
+
+_LEAN_ACTS: contextvars.ContextVar = contextvars.ContextVar(
+    "resnet_lean_acts", default=None)
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.dtype:
+    """flax's statistics dtype: ``promote_types(x.dtype, float32)``."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over NCHW, per-replica statistics.
+    """flax ``nn.BatchNorm`` over NCHW.
 
     Train mode: mean and the fast variance ``max(E[x^2] - E[x]^2, 0)`` in
-    f32; running statistics updated with that (biased) variance as
-    ``ra = momentum*ra + (1-momentum)*batch``.  Eval mode: the running
-    statistics.  The normalisation runs in f32 and is cast to ``dtype``.
-    ``nn.BatchNorm2d`` differs on all three counts.
+    f32 (f64 for an f64 model), the two means averaged over ``axis_name``
+    when it is set (see the module docstring); running statistics updated
+    with that (biased) variance as ``ra = momentum*ra + (1-momentum)*batch``.
+    Eval mode: the running statistics.  The normalisation runs in f32 and
+    is cast to ``dtype``.  ``nn.BatchNorm2d`` differs on all three counts.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
                  epsilon: float = 1e-5, dtype: torch.dtype = torch.bfloat16,
-                 zero_scale: bool = False):
+                 zero_scale: bool = False, axis_name=None):
         super().__init__()
         self.scale = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -165,6 +350,7 @@ class BatchNorm(nn.Module):
         self.momentum, self.epsilon = momentum, epsilon
         self.dtype = dtype
         self.zero_scale = zero_scale
+        self.axis_name = axis_name
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():
@@ -173,27 +359,48 @@ class BatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
+    @torch.no_grad()
+    def update_statistics(self, mean: torch.Tensor,
+                          var: torch.Tensor) -> None:
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1 - m) * mean)
+        self.var.copy_(m * self.var + (1 - m) * var)
+
     def statistics(self, x: torch.Tensor):
         """(mean, var) to normalise with; updates the running statistics
-        in train mode."""
+        in train mode (under remat, once the block returns)."""
         if not self.training:
             return self.mean, self.var
-        xf = x.float()
+        xf = x.to(_at_least_f32(x))
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        rp = _REMAT_PASS.get()
+        if self.axis_name is not None:
+            cached = rp.synced[self] if rp is not None and rp.recompute \
+                else None
+            both = _StatsMean.apply(torch.cat([mean, mean2]),
+                                    self.axis_name, cached)
+            if rp is not None and not rp.recompute:
+                rp.synced[self] = both.detach()
+            mean, mean2 = both.chunk(2)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1 - m) * mean)
-            self.var.copy_(m * self.var + (1 - m) * var)
+        if rp is None:
+            self.update_statistics(mean, var)
+        elif not rp.recompute:
+            rp.updates.append((self, mean.detach(), var.detach()))
         return mean, var
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        """The normalized ``x``; ``relu(...)`` of it with ``relu``, which
+        under ``remat="lean"`` the backward recomputes."""
         mean, var = self.statistics(x)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
-        y = ((x.float() - mean[:, None, None]) * mul[:, None, None]
-             + self.bias[:, None, None])
-        return y.to(self.dtype)
+        xc = x.to(_at_least_f32(x)) - mean[:, None, None]
+        lean = _LEAN_ACTS.get()
+        if relu and lean is not None:
+            return lean.act(xc, mul, self.bias, self.dtype)
+        y = _norm_apply(xc, mul, self.bias, self.dtype)
+        return torch.relu(y) if relu else y
 
 
 class FusedStemNorm(BatchNorm):
@@ -219,27 +426,28 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_features: int, filters: int,
                  strides: Tuple[int, int] = (1, 1),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, axis_name=None):
         super().__init__()
         out = filters * 4
+        norm = functools.partial(BatchNorm, dtype=dtype, axis_name=axis_name)
         self.Conv_0 = Conv(in_features, filters, (1, 1), dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(filters, dtype=dtype)
+        self.BatchNorm_0 = norm(filters)
         self.Conv_1 = Conv(filters, filters, (3, 3), strides, dtype=dtype)
-        self.BatchNorm_1 = BatchNorm(filters, dtype=dtype)
+        self.BatchNorm_1 = norm(filters)
         self.Conv_2 = Conv(filters, out, (1, 1), dtype=dtype)
-        self.BatchNorm_2 = BatchNorm(out, dtype=dtype, zero_scale=True)
+        self.BatchNorm_2 = norm(out, zero_scale=True)
         # flax adds the projection when the residual's shape differs from
         # the block output's: a channel change or a stride.
         self.project = in_features != out or tuple(strides) != (1, 1)
         if self.project:
             self.conv_proj = Conv(in_features, out, (1, 1), strides,
                                   dtype=dtype)
-            self.norm_proj = BatchNorm(out, dtype=dtype)
+            self.norm_proj = norm(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = torch.relu(self.BatchNorm_1(self.Conv_1(y)))
+        y = self.BatchNorm_0(self.Conv_0(x), relu=True)
+        y = self.BatchNorm_1(self.Conv_1(y), relu=True)
         y = self.BatchNorm_2(self.Conv_2(y))
         if self.project:
             residual = self.norm_proj(self.conv_proj(residual))
@@ -253,21 +461,22 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_features: int, filters: int,
                  strides: Tuple[int, int] = (1, 1),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, axis_name=None):
         super().__init__()
+        norm = functools.partial(BatchNorm, dtype=dtype, axis_name=axis_name)
         self.Conv_0 = Conv(in_features, filters, (3, 3), strides, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(filters, dtype=dtype)
+        self.BatchNorm_0 = norm(filters)
         self.Conv_1 = Conv(filters, filters, (3, 3), dtype=dtype)
-        self.BatchNorm_1 = BatchNorm(filters, dtype=dtype, zero_scale=True)
+        self.BatchNorm_1 = norm(filters, zero_scale=True)
         self.project = in_features != filters or tuple(strides) != (1, 1)
         if self.project:
             self.conv_proj = Conv(in_features, filters, (1, 1), strides,
                                   dtype=dtype)
-            self.norm_proj = BatchNorm(filters, dtype=dtype)
+            self.norm_proj = norm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_0(self.Conv_0(x), relu=True)
         y = self.BatchNorm_1(self.Conv_1(y))
         if self.project:
             residual = self.norm_proj(self.conv_proj(residual))
@@ -280,7 +489,10 @@ class ResNet(nn.Module):
     ``stem``: ``"conv7"`` (7x7/s2 on ``[B, 224, 224, 3]``), ``"s2d"`` (the
     exact 4x4/s1 reparameterization on space-to-depth input
     ``[B, 112, 112, 12]``) or ``"s2d_fused"`` (``"s2d"`` with BN-apply,
-    relu and max-pool as one kernel).  Parameters are initialised from
+    relu and max-pool as one kernel).  ``axis_name``: the group to
+    synchronize BatchNorm statistics over (:func:`resolve_axis`; None
+    keeps them per replica).  ``remat``: None, ``"lean"`` or ``"full"``
+    (the module docstring).  Parameters are initialised from
     ``generator`` on the CPU, then moved to ``device`` (default
     ``cuda:<local_rank>``; pass ``"cpu"`` to stay on the CPU).
     """
@@ -288,14 +500,19 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_classes: int = 1000, num_filters: int = 64,
                  dtype: torch.dtype = torch.bfloat16, stem: str = "conv7",
+                 axis_name=None, remat: Optional[str] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if stem not in STEMS:
             raise ValueError(f"stem={stem!r}: expected 'conv7', 's2d' or "
                              f"'s2d_fused'")
+        if remat not in REMATS:
+            raise ValueError(
+                f"remat={remat!r}: expected None, 'lean' or 'full'")
         from horovod_tpu_torch.basics import resolve_device
         dev = resolve_device(device)
-        self.stem, self.dtype = stem, dtype
+        axis_name = resolve_axis(axis_name)
+        self.stem, self.dtype, self.remat = stem, dtype, remat
         if stem in ("s2d", "s2d_fused"):
             # space-to-depth input: 2x2 RGB patches packed into 12 channels
             self.conv_init = Conv(12, num_filters, (4, 4), (1, 1),
@@ -304,7 +521,8 @@ class ResNet(nn.Module):
             self.conv_init = Conv(3, num_filters, (7, 7), (2, 2),
                                   ((3, 3), (3, 3)), dtype=dtype)
         norm_cls = FusedStemNorm if stem == "s2d_fused" else BatchNorm
-        self.norm_init = norm_cls(num_filters, dtype=dtype)
+        self.norm_init = norm_cls(num_filters, dtype=dtype,
+                                  axis_name=axis_name)
         features = num_filters
         k = 0
         for i, block_count in enumerate(stage_sizes):
@@ -312,7 +530,8 @@ class ResNet(nn.Module):
                 strides = (2, 2) if i > 0 and j == 0 else (1, 1)
                 filters = num_filters * 2 ** i
                 self.add_module(f"{block_cls.__name__}_{k}",
-                                block_cls(features, filters, strides, dtype))
+                                block_cls(features, filters, strides, dtype,
+                                          axis_name))
                 features = filters * block_cls.expansion
                 k += 1
         self.num_blocks = k
@@ -340,10 +559,45 @@ class ResNet(nn.Module):
         else:
             x = torch.relu(self.norm_init(x))
             x = F.max_pool2d(x, 3, 2, 1)
-        for k in range(self.num_blocks):
-            x = getattr(self, f"{self.block_name}_{k}")(x)
+        if self.remat == "lean" and torch.is_grad_enabled():
+            acts = _LeanActs()
+            token = _LEAN_ACTS.set(acts)
+            try:
+                with torch.autograd.graph.saved_tensors_hooks(
+                        acts.pack, acts.unpack):
+                    x = self._blocks(x)
+            finally:
+                _LEAN_ACTS.reset(token)
+        else:
+            x = self._blocks(x)
         x = x.mean(dim=(2, 3))
         return self.head(x).float()
+
+    def _blocks(self, x: torch.Tensor) -> torch.Tensor:
+        for k in range(self.num_blocks):
+            block = getattr(self, f"{self.block_name}_{k}")
+            x = _full_remat_block(block, x) if self.remat == "full" \
+                else block(x)
+        return x
+
+
+def _full_remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under activation checkpointing; the running statistics
+    are updated once, here."""
+    rp = _RematPass()
+
+    def run(inp):
+        token = _REMAT_PASS.set(rp)
+        try:
+            return block(inp)
+        finally:
+            _REMAT_PASS.reset(token)
+            rp.recompute = True
+
+    y = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    for bn, mean, var in rp.updates:
+        bn.update_statistics(mean, var)
+    return y
 
 
 ResNet18 = functools.partial(ResNet, stage_sizes=[2, 2, 2, 2],

@@ -49,22 +49,41 @@ POLL_S = 1e-4
 DRAIN_S = 10.0
 
 
+# A CUDA event's elapsed time is a float32 count of milliseconds: read
+# from one fixed reference, stamps would step by about 2 us after 16 s of
+# a run and by 1 ms after 2.3 hours, and a wire shorter than a step would
+# read 0.  The clock moves its reference up to a stamp it reads once that
+# stamp is this far past it, so a reading never spans more.
+REBASE_MS = 1000.0
+
+
 class DeviceClock:
     """The card's event clock on the host's: one timing event, waited for
-    once, read with the host time just after (a few microseconds late)."""
+    once, read with the host time just after (a few microseconds late);
+    later stamps move the reference (see :data:`REBASE_MS`)."""
 
     def __init__(self, stream):
         import torch
-        self.event = torch.cuda.Event(enable_timing=True)
-        self.event.record(stream)
-        self.event.synchronize()
-        self.host = time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(stream)
+        event.synchronize()
+        self.reference = (event, time.perf_counter())
 
     def stamp(self, stream) -> "DeviceStamp":
         import torch
         ev = torch.cuda.Event(enable_timing=True)
         ev.record(stream)
         return DeviceStamp(ev, self)
+
+    def seconds(self, event) -> float:
+        """The host time at which the card passed ``event``, an event the
+        card has passed.  Read from the completions thread, in order."""
+        ref, host = self.reference
+        ms = ref.elapsed_time(event)
+        at = host + ms / 1e3
+        if ms > REBASE_MS:
+            self.reference = (event, at)
+        return at
 
 
 class DeviceStamp:
@@ -78,8 +97,7 @@ class DeviceStamp:
         return self.event.query()
 
     def seconds(self) -> float:
-        return self.clock.host + self.clock.event.elapsed_time(
-            self.event) / 1e3
+        return self.clock.seconds(self.event)
 
 
 class AllOf:

@@ -4,8 +4,9 @@ control plane answers names submitted in reversed orders and ``join``,
 ``DistributedOptimizer`` trains a small ResNet on ``cuda:0`` exactly as
 the optimizer it wraps, and two ranks on two cards pair names by name
 and join with uneven batches, and across cards the parallel LM steps
-(dp x tp x sp, dp x pp, ZeRO-1), the ragged MoE exchange and a ZeRO-1
-state spilled at 2 ranks and warm-restored at 1 match gloo.
+(dp x tp x sp, dp x pp, ZeRO-1), the ragged MoE exchange, a ZeRO-1
+state spilled at 2 ranks and warm-restored at 1 and a synchronized-BN
+ResNet step match gloo, and the scaling-efficiency lane runs.
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports torch and the port only, so it runs on a GPU
 host without JAX:
@@ -580,3 +581,32 @@ def test_tree_coordination_over_nccl_equals_flat_bit_for_bit(tmp_path):
         assert tree[r].pop("objects") == flat[r].pop("objects")
         for key, want in flat[r].items():
             assert torch.equal(tree[r][key], want), (r, key)
+
+
+@pytest.mark.cuda
+def test_scaling_efficiency_over_nccl(tmp_path):
+    """``run_scaling_efficiency`` for ResNet-50 ``s2d_fused`` at
+    ``chip_smoke.py``'s batch on one NCCL rank a card (up to 4; one host,
+    so the baseline is rank 0 alone): the reference's keys, the same dict
+    on every rank, ``0 < efficiency <= 1.5`` (``-k scaling``)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    print(chip_smoke.run_scaling_processes(min(n, 4), str(tmp_path)))
+
+
+@pytest.mark.cuda
+def test_sync_bn_step_nccl_matches_gloo(tmp_path):
+    """Two steps of a small ResNet whose BatchNorms average over every
+    rank, on NCCL ranks (one card each, up to 4) against gloo ranks on the
+    CPU, within ``chip_smoke.py``'s phase 5 limits, each backend's state
+    one value on every rank (``-k sync_bn``)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    import chip_smoke
+    size = min(n, 4)
+    nccl = chip_smoke.run_sync_bn_step("nccl", size, str(tmp_path))
+    gloo = chip_smoke.run_sync_bn_step("gloo", size, str(tmp_path))
+    print(chip_smoke.compare_sync_bn_step(nccl, gloo))

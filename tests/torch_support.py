@@ -117,3 +117,54 @@ def jax_world(world1):
     yield jhvd
     if not found:
         jhvd.shutdown()
+
+
+def randomize_variables(variables, seed=0):
+    """A flax model's variables with every leaf random (numpy seed), so no
+    branch hides behind a zero init: kernels at 1/sqrt(fan_in), BN scales
+    near 1, biases and means near 0, variances > 0.  numpy leaves."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name, shape = path[-1].key, x.shape
+        if name == "kernel":
+            return rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        if name == "scale":
+            return 1.0 + 0.2 * rng.standard_normal(shape)
+        if name == "var":
+            return 1.0 + 0.5 * rng.random(shape)
+        return 0.1 * rng.standard_normal(shape)
+
+    return jax.tree_util.tree_map_with_path(
+        lambda p, x: np.asarray(leaf(p, x), np.float32), variables)
+
+
+def flat(tree) -> dict:
+    """``{"['a']['b']": leaf}`` of a pytree, leaves as numpy arrays."""
+    import jax
+
+    return {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_trees_close(got, want, atol, rtol, what=""):
+    got, want = flat(got), flat(want)
+    assert got.keys() == want.keys(), what
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=rtol,
+                                   err_msg=what + k)
+
+
+def assert_rounds_like_reference(got, ref, truth, floor, what=""):
+    """``got`` (the port) and ``ref`` (the JAX package) computed at a low
+    precision, ``truth`` the same model at f64: the port's error is at most
+    twice the reference's own, or ``floor``.  For deep models in train
+    mode, where BatchNorm over a few samples amplifies every rounding, so
+    that the reference's own error exceeds any fixed limit."""
+    err = float(np.abs(np.asarray(got, np.float64) - truth).max())
+    ref_err = float(np.abs(np.asarray(ref, np.float64) - truth).max())
+    assert err <= max(2 * ref_err, floor), (
+        f"{what}: the port's error {err:.4g} against f64 exceeds twice the "
+        f"reference's {ref_err:.4g} (and {floor})")
