@@ -171,19 +171,26 @@ any failure ends the run with a traceback and a non-zero exit:
    ``tests/test_torch_cuda_collective.py``.
 
 18. the reference's other headline models, ResNet remat, synchronized
-   BatchNorm and the two benchmark lanes: (a) phase 5's comparison for
+   BatchNorm and the two benchmark lanes: (a) Inception-v3's average
+   pool on the card, forward and backward, channels-last and NCHW, f32
+   and f64, against the CPU's f64 (``avg_pool_check``); then phase 5's
+   comparison for
    VGG-11 (GAP and classic head) at 32x32, batch 4, and Inception-v3 at
    139x139, batch 16, one train step on the card and in the CPU port at
    f64 and f32: the f64 steps within phase 5's limits, the card's f32
    step within them of the f64 step (Inception-v3's, whose stem kernels
-   are ill conditioned, within a bound of the CPU's f32 step's distance,
+   are ill conditioned, within twice the CPU's f32 step's distance,
    with and without cuDNN), the f32 eval logits within the state limit;
    (b) VGG-16
    and Inception-v3 at the reference harness's defaults (batch 64,
    224x224, 1000 classes, bf16 input) and ResNet-101
    at ``bench.py``'s batch 128 (conv7 stem), 3 warmup and 10 timed steps
    each: img/s, ms/step, MFU and peak memory, finite losses, and a
-   ``run_profile`` breakdown of VGG-16 and Inception-v3; (c) phase 4's
+   ``run_profile`` breakdown of VGG-16 and Inception-v3 (through
+   ``utils.profiling``), with VGG-16's top five layers from ``by_layer``
+   on a trace with module scopes, where at most ZOO_OTHER_SHARE of the
+   kernel time may reach no layer and ZOO_UNTRACKED_SHARE have a launch
+   it cannot find; (c) phase 4's
    step under ``remat="lean"`` and ``"full"`` (and ``None`` again, for
    its final statistics): losses equal to phase 4's and final running
    statistics to ``None``'s bit for bit, one fused-stem launch a step,
@@ -195,6 +202,23 @@ any failure ends the run with a traceback and a non-zero exit:
    more cards, ``run_scaling_efficiency`` for ResNet-50 and two
    synchronized-BN steps of a small ResNet over NCCL against gloo on the
    CPU, else one line saying why it did not run.
+19. the serving plane on the card: (a) ``ToyModel`` on the card against
+   the decode contract in plain Python on seeded ``(token, position)``
+   batches, with integer and non-integer weights, and the ms of one
+   batched ``decode_step`` of 8 sequences beside ``device="cpu"``
+   (printed, not gated); (b) ``broadcast_weights`` over the NCCL group
+   of size 1 (the generation and the weights unchanged, on the card),
+   then a ``Router`` over two in-process replicas on the card streaming
+   two tenants with ``push_weights`` mid-stream: every stream flips
+   generation at its pause point, none dropped; (c) two replicas behind
+   ``ReplicaWorker.attach`` on 127.0.0.1: ``ping``, ``stats``,
+   ``decode`` and ``update_weights`` through ``RpcReplicaHandle``, a
+   wrong key refused, a ``replica_crash`` rule (``HOROVOD_FAULT_SPEC``
+   set in this process, restored after) failed over with the streams of
+   a clean run and nothing dropped, a ``request_storm`` burst under the
+   ``storm`` tenant; (d) ``load_replica_model`` from a checkpoint the
+   phase saves (generation = step; the files deleted); (e)
+   ``run_serving_benchmark`` on the card, its rows equal to the CPU's.
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
 (b), 13 (a), 14 (b, c), 15, 17 (b) and, for the forward kernel, 12 (a);
@@ -204,6 +228,10 @@ to 72 under the tuner, 1 bucketed step), phase 17's 39 and phase 18's
 It prints one JSON line of kernel numbers and, last, one JSON line
 naming the device.  With no GPU
 it exits non-zero and prints no result.
+
+Other modes: ``--avg-pool-check`` prints phase 18 (a)'s average-pool
+check ungated; ``--inception-readings`` prints Inception-v3's f32 step
+distances that set phase 18 (a)'s limits.
 """
 
 from __future__ import annotations
@@ -460,6 +488,16 @@ DEADLINE_JOB_S = 180
 ZOO = (("vgg16", 64), ("inception3", 64), ("resnet101", 128))
 ZOO_PROFILED = ("vgg16", "inception3")
 ZOO_PROFILE_STEPS = 5
+# Its profile also traces module scopes for utils.profiling.by_layer.
+# Kernels launched outside every layer's scope (VGG's ReLUs and pools,
+# the loss, the gradient all-reduce and the optimizer) may take at most
+# ZOO_OTHER_SHARE of that trace's kernel time, and kernels whose launch
+# by_layer does not find at most ZOO_UNTRACKED_SHARE.  On the H100 at
+# 700 W they took 0.0736 and 0 of 91.5 ms a step; one of the 224x224
+# stage's BatchNorms lost to "other" (2.8-11.7 ms a pass) would go past.
+ZOO_LAYERED = "vgg16"
+ZOO_OTHER_SHARE = 0.10
+ZOO_UNTRACKED_SHARE = 0.001
 # Phase 5's limits: relative loss, absolute state after one SGD step.
 SMALL_LOSS_RTOL = 1e-5
 SMALL_STATE_ATOL = 1e-4
@@ -468,17 +506,20 @@ SMALL_STATE_ATOL = 1e-4
 # the unmoved one at 139x139 batch 16, so no f32 step comes within phase
 # 5's state limit of the f64 step.  On the H100 (TF32 off) the CPU port's
 # f32 step lands 0.023-0.106 from it at the INCEPTION_READINGS shapes but
-# the last, the card's with cuDNN off 0.78-1.12 times as far, with cuDNN
-# (as the model runs) 22.0-27.1 times as far: cuDNN's f32 convolutions
-# round more.  At 75x75 batch 4 (4 samples a channel in the last
-# BatchNorms) the ratios are 2.87 and 23.7.  ``python3 chip_smoke.py
-# --inception-readings`` prints the readings.
-# So phase 18 (a) holds Inception-v3's f32 step to the CPU's f32 step's
-# distance: with cuDNN off within INCEPTION_PLAIN_RATIO times it, with
-# cuDNN within INCEPTION_CUDNN_RATIO times it (about twice the largest
-# readings).
-INCEPTION_PLAIN_RATIO = 2.0
-INCEPTION_CUDNN_RATIO = 50.0
+# the last, and the card's within INCEPTION_F32_RATIO times that, with
+# cuDNN or without.  Until the average pool's repair
+# (``models/inception._avg_pool_same``; ``--avg-pool-check``) the card's
+# step with cuDNN landed 22.0-27.1 times as far: PyTorch's channels-last
+# CUDA backward of that pool shifts its windows at the borders, and cuDNN
+# keeps activations channels-last where PyTorch's own convolution hands
+# back NCHW.  At 75x75 batch 4 (4 samples a channel in the last
+# BatchNorms) the CPU's distance is the smallest and the card's without
+# cuDNN was 2.87 times it.  ``python3 chip_smoke.py --inception-readings``
+# prints the readings.  Phase 18 (a) holds Inception-v3's f32 step at
+# 139x139 batch 16, with cuDNN and without, within INCEPTION_F32_RATIO
+# times the CPU's f32 step's distance (with cuDNN 50 times before the
+# repair).
+INCEPTION_F32_RATIO = 2.0
 # (batch, image size, seed of the images)
 INCEPTION_READINGS = ((16, 139, 3), (16, 139, 4), (16, 139, 5),
                       (32, 107, 3), (8, 203, 3), (16, 75, 3), (4, 75, 3))
@@ -739,12 +780,12 @@ def _apart(run, truth) -> tuple:
             (run[1] - truth[1]).abs().max().item())
 
 
-def inception_readings() -> None:
-    """The readings INCEPTION_PLAIN_RATIO and INCEPTION_CUDNN_RATIO were
-    set from: Inception-v3's f32 train step, on the CPU and on the card
-    with and without cuDNN, and an f64 step on an input moved by f32's
-    unit roundoff, each against the CPU's f64 step (``_apart``'s larger
-    number), at each INCEPTION_READINGS shape."""
+def inception_readings(shapes=INCEPTION_READINGS) -> None:
+    """The readings INCEPTION_F32_RATIO was set from: Inception-v3's f32
+    train step on the CPU and on the card with and without cuDNN, and an
+    f64 step on an input moved by f32's unit roundoff, each against the
+    CPU's f64 step (``_apart``'s larger number), at each of ``shapes``
+    (TF32 off in every case)."""
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -754,7 +795,7 @@ def inception_readings() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     gloo = dist.new_group(backend="gloo")
     build = _registered("inception3")
-    for batch, size, seed in INCEPTION_READINGS:
+    for batch, size, seed in shapes:
         rng = torch.Generator().manual_seed(seed)
         images = torch.randn(batch, size, size, 3, generator=rng)
         labels = torch.randint(0, 5, (batch,), generator=rng)
@@ -778,6 +819,70 @@ def inception_readings() -> None:
               f"by f32's unit roundoff {rounding:.4g}", flush=True)
     dist.destroy_process_group(gloo)
     hvd.shutdown()
+
+
+# Inception-v3's average-pool maps at 139x139 batch 16, a 4x4 one and
+# the 1x1 maps of its last blocks at 75x75.
+AVG_POOL_SHAPES = ((16, 288, 15, 15), (16, 768, 7, 7), (16, 2048, 3, 3),
+                   (2, 3, 4, 4), (2, 2048, 1, 1))
+AVG_POOL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def avg_pool_check(gate: bool = True) -> dict:
+    """Inception-v3's 3x3/s1 "SAME" average pool on the card, forward and
+    backward, channels-last and NCHW, in f32 and f64, against the CPU's
+    f64: PyTorch's ``F.avg_pool2d`` (printed, not gated) and the port's
+    ``models/inception._avg_pool_same`` (held within AVG_POOL_TOL).
+    Returns the largest errors by route, layout, dtype and pass."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.inception import _avg_pool_same
+
+    routes = {"F.avg_pool2d": lambda x: F.avg_pool2d(
+        x, 3, 1, 1, count_include_pad=True), "port": _avg_pool_same}
+    worst = {}
+    for shape in AVG_POOL_SHAPES:
+        g = torch.Generator().manual_seed(7)
+        x64 = torch.randn(shape, generator=g, dtype=torch.float64)
+        gy64 = torch.randn(shape, generator=g, dtype=torch.float64)
+        xt = x64.clone().requires_grad_(True)
+        yt = F.avg_pool2d(xt, 3, 1, 1, count_include_pad=True)
+        gt, = torch.autograd.grad(yt, xt, gy64)
+        for route, pool in routes.items():
+            for layout, fmt in (("channels_last", torch.channels_last),
+                                ("NCHW", torch.contiguous_format)):
+                for dtype in AVG_POOL_TOL:
+                    x = x64.to(dtype).cuda().contiguous(
+                        memory_format=fmt).requires_grad_(True)
+                    y = pool(x)
+                    gx, = torch.autograd.grad(y, x, gy64.to(dtype).cuda())
+                    for name, got, want in (("fwd", y, yt), ("bwd", gx, gt)):
+                        key = (route, layout, str(dtype)[6:], name)
+                        err = (got.detach().double().cpu()
+                               - want.detach()).abs().max().item()
+                        worst[key] = max(worst.get(key, 0.0), err)
+    x = torch.arange(16, dtype=torch.float32).reshape(1, 1, 4, 4).cuda()
+    rows = {}
+    for layout, fmt in (("channels_last", torch.channels_last),
+                        ("NCHW", torch.contiguous_format)):
+        xx = x.expand(1, 3, 4, 4).contiguous(memory_format=fmt)
+        xx.requires_grad_(True)
+        y = routes["F.avg_pool2d"](xx)
+        gx, = torch.autograd.grad(y.sum(), xx)
+        rows[layout] = [round(v * 9, 4) for v in gx[0, 0, 0].tolist()]
+    print("F.avg_pool2d on the card: 9 x the gradient of the sum along the "
+          "first row of a 4x4 map (the definition gives 4, 6, 6, 4): "
+          + json.dumps(rows), flush=True)
+    for (route, layout, dtype, name), err in sorted(worst.items()):
+        if gate and route == "port":
+            check(err <= AVG_POOL_TOL[getattr(torch, dtype)],
+                  f"avg pool {route} {layout} {dtype} {name}: {err:.3g} "
+                  f"from the CPU's f64")
+    print("average pool 3x3/s1 SAME on the card against the CPU's f64, "
+          "largest |error| (route, layout, dtype, pass): " + json.dumps(
+              {" ".join(k): v for k, v in sorted(worst.items())}),
+          flush=True)
+    return worst
 
 
 def phase_reference(cases=REFERENCE, tag="reference") -> None:
@@ -818,8 +923,8 @@ def phase_reference(cases=REFERENCE, tag="reference") -> None:
                 plain = _reference_step(build, torch.float32, "cuda", None,
                                         images, labels)
             for name, run, ratio in (
-                    ("card f32 without cuDNN", plain, INCEPTION_PLAIN_RATIO),
-                    ("card f32", card, INCEPTION_CUDNN_RATIO)):
+                    ("card f32 without cuDNN", plain, INCEPTION_F32_RATIO),
+                    ("card f32", card, INCEPTION_F32_RATIO)):
                 d = max(_apart(run, truth))
                 check(d <= ratio * cpu, f"{what}: {name} is {d:.3g} from "
                       f"the f64 step, {d / cpu:.3g} times the CPU's f32 "
@@ -3666,9 +3771,11 @@ def _control_worker(mode: str, out_dir: str, *args: str) -> None:
     """Phase 16's program: phase 10's ResNet-50 step from a fresh state
     for CONTROL_STEPS steps, under ``timeline`` (HOROVOD_TIMELINE with
     cycle markers; the timed window is phase 10's, steps 4-13, back to
-    back) or ``autotune`` (HOROVOD_AUTOTUNE with a schedule sized from
-    the busy cycles a step that ``timeline`` counted, each step timed on
-    its own, and on past CONTROL_STEPS until three pinned steps; then ``sync_tuned_config`` and one step whose gradients take
+    back) or ``autotune`` (HOROVOD_AUTOTUNE with samples sized from the
+    busy cycles a step that ``timeline`` counted and the warm-up ended
+    after step 13, each step timed on its own, and on past CONTROL_STEPS
+    until three pinned steps; then ``sync_tuned_config`` and one step
+    whose gradients take
     the bucketed mean, ``fusion.fused_pytree_mean``).  Writes
     ``<mode>_result.json``."""
     import os
@@ -3688,9 +3795,11 @@ def _control_worker(mode: str, out_dir: str, *args: str) -> None:
             HOROVOD_AUTOTUNE="1",
             HOROVOD_AUTOTUNE_LOG=os.path.join(out_dir, "autotune.csv"),
             # The default configuration through phase 10's 13 steps, then
-            # the search: one sample is about a quarter of a step.
-            HOROVOD_AUTOTUNE_WARMUP_SAMPLES=str(
-                int(13 * busy_per_step // per_sample)),
+            # the search: one sample is about a quarter of a step.  The
+            # warm-up counts busy cycles, and their number a step is the
+            # host's (37 and 135 in two runs on one H100), so the loop
+            # below holds the search until step 13 itself.
+            HOROVOD_AUTOTUNE_WARMUP_SAMPLES=str(10 ** 9),
             HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE=str(per_sample),
             HOROVOD_AUTOTUNE_SAMPLES="1",
             HOROVOD_AUTOTUNE_BAYES_TRIALS=str(CONTROL_TRIALS),
@@ -3725,6 +3834,11 @@ def _control_worker(mode: str, out_dir: str, *args: str) -> None:
             out["phase"].append("pinned" if pinned else (
                 "default" if tuner.trials == 0 and tuner.active
                 else "search"))
+            if i == WARMUP_STEPS + TIMED_STEPS - 1:
+                # The end of the warm-up; the lock is the one the cycle
+                # thread takes to score a sample.
+                with rt._tuner_lock:
+                    tuner.warmup_remaining = 0
     torch.cuda.synchronize()
     out["losses"] = [float(x) for x in out["losses"]]
     out["busy_cycles_per_step"] = ((rt.busy_cycles - busy0)
@@ -4333,14 +4447,32 @@ def _phase_zoo_full_width(smi: str) -> dict:
     batches = dict(ZOO)
     for name in ZOO_PROFILED:
         torch.cuda.empty_cache()
+        layered = name == ZOO_LAYERED
         prof = run_profile(name, batches[name], image_size=IMAGE,
-                           steps=ZOO_PROFILE_STEPS, top=8)
+                           steps=ZOO_PROFILE_STEPS, top=8, layers=layered)
         out[name]["profile"] = {k: prof[k] for k in (
             "wall_ms_per_step", "kernel_ms_per_step", "device_busy_share",
             "kernels_per_step", "ms_per_step_by_category",
             "top_kernels_ms_per_step")}
         print(f"phase 18 (b) profile {name}: "
               + json.dumps(out[name]["profile"]), flush=True)
+        if layered:
+            lay = prof["layers"]
+            other, untracked = lay["other_share"], lay["untracked_share"]
+            check(other <= ZOO_OTHER_SHARE
+                  and untracked <= ZOO_UNTRACKED_SHARE,
+                  f"phase 18 (b) {name}: by_layer put {other:.4g} of the "
+                  f"kernel time in no layer and {untracked:.4g} in kernels "
+                  f"whose launch it did not find (limits {ZOO_OTHER_SHARE}, "
+                  f"{ZOO_UNTRACKED_SHARE})")
+            out[name]["profile"]["layers"] = lay
+            print(f"phase 18 (b) {name} by layer (a trace of its own with "
+                  f"module scopes): {lay['layer_total_ms_per_step']:.3f} ms "
+                  f"of kernels a step, {other!r} of it in no layer (limit "
+                  f"{ZOO_OTHER_SHARE}), {untracked!r} untracked (limit "
+                  f"{ZOO_UNTRACKED_SHARE}); top five [layer, direction, ms "
+                  f"a step]: " + json.dumps(lay["top_ms_per_step"][:5]),
+                  flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -4405,6 +4537,7 @@ def phase_zoo_and_lanes(smi: str, main: dict) -> int:
     from horovod_tpu_torch.ops import fused_stem
 
     t_start = time.perf_counter()
+    avg_pool_check()
     phase_reference(SMALL_ZOO, "phase 18 (a)")
     zoo = _phase_zoo_full_width(smi)
 
@@ -4603,6 +4736,294 @@ def phase_zoo_processes(smi: str) -> None:
           f"ResNet over NCCL against gloo: " + json.dumps(sync), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The serving plane on the card
+# ---------------------------------------------------------------------------
+
+SERVING_VOCAB = 50257          # serving/model.py's ToyModel.VOCAB
+SERVING_WEIGHTS = ("integer", "seeded normal")
+SERVING_DECODE_BATCH = 8
+SERVING_DECODE_RUNS = 200
+SERVING_KEY = b"chip-smoke-serving-key-0123456789"
+
+
+def _serving_weights(label: str):
+    import numpy as np
+
+    if label == "integer":
+        return np.arange(8, dtype=np.float32) + 100.0
+    return (np.random.default_rng(5).standard_normal(4096)
+            .astype(np.float32) * 37.25)
+
+
+def _toy_plain(batch, weights) -> list:
+    """The decode contract in plain Python: ``(31*tok + 7*pos + c) %
+    vocab`` with ``c`` the reference's checksum (numpy's float32 sum)."""
+    import numpy as np
+
+    c = int(abs(float(np.asarray(weights, np.float32).sum()))) % \
+        SERVING_VOCAB
+    return [(31 * int(t) + 7 * int(p) + c) % SERVING_VOCAB
+            for t, p in batch]
+
+
+def _toy_stream(prompt: int, n: int, weights, start: int = 0) -> list:
+    tok, out = prompt, []
+    for pos in range(start, start + n):
+        tok = _toy_plain([(tok, pos)], weights)[0]
+        out.append(tok)
+    return out
+
+
+def _host_ms(fn, runs: int) -> float:
+    """Median host milliseconds of ``fn()`` (which ends in a device to
+    host read, so it waits for the card)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _with_fault_spec(spec: str, fn):
+    """Run ``fn()`` with HOROVOD_FAULT_SPEC set in this process, then put
+    the variable back and forget the parsed plan either way."""
+    import os
+
+    from horovod_tpu_torch import faults
+
+    old = os.environ.get(faults.ENV_VAR)
+    os.environ[faults.ENV_VAR] = spec
+    faults.reset()
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop(faults.ENV_VAR, None)
+        else:
+            os.environ[faults.ENV_VAR] = old
+        faults.reset()
+
+
+def _serving_streams(router, tenants, n: int, tokens: int) -> dict:
+    hs = {}
+    for i in range(n):
+        tenant = tenants[i % len(tenants)]
+        hs[i] = router.submit(tenant, 40 + i, max_new_tokens=tokens,
+                              request_id=f"{tenant}-{i}")
+    return hs
+
+
+def phase_serving(smi: str) -> dict:
+    """Phase 19: (a) the decode contract on the card; (b) a hot update
+    through broadcast_weights on the NCCL group of size 1 and a router
+    over two in-process replicas; (c) the RPC plane on localhost, a
+    replica crash and a request storm; (d) a replica loaded from a
+    checkpoint; (e) the serving lane on the card and on the CPU."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.benchmark import run_serving_benchmark
+    from horovod_tpu_torch.serving import (LocalReplicaHandle, ReplicaWorker,
+                                           Router, RpcReplicaHandle,
+                                           TenantConfig, ToyModel,
+                                           broadcast_weights,
+                                           load_replica_model)
+
+    t_start = time.perf_counter()
+    hvd.init()
+    out = {"nvidia_smi": smi}
+
+    # (a) Equal streams on the card and in plain Python.
+    rng = np.random.default_rng(19)
+    for label in SERVING_WEIGHTS:
+        w = _serving_weights(label)
+        m = ToyModel(w, device="cuda")
+        check(m.get_weights().is_cuda, "phase 19 (a): weights not on the card")
+        for _ in range(8):
+            n = int(rng.integers(1, 17))
+            batch = list(zip(rng.integers(0, 10 ** 6, n).tolist(),
+                             rng.integers(0, 8192, n).tolist()))
+            got = m.decode_step(batch)
+            check(got == _toy_plain(batch, w) and all(
+                type(t) is int for t in got),
+                f"phase 19 (a) {label} weights: {got} against "
+                f"{_toy_plain(batch, w)}")
+    batch = list(zip(range(SERVING_DECODE_BATCH),
+                     range(100, 100 + SERVING_DECODE_BATCH)))
+    card, host = ToyModel(device="cuda"), ToyModel(device="cpu")
+    out["decode_step_ms"] = {
+        "cuda": _host_ms(lambda: card.decode_step(batch),
+                         SERVING_DECODE_RUNS),
+        "cpu": _host_ms(lambda: host.decode_step(batch),
+                        SERVING_DECODE_RUNS)}
+    print(f"phase 19 (a) ToyModel on {smi}: streams equal to the plain "
+          f"formula for {len(SERVING_WEIGHTS)} weight vectors (integer and "
+          f"non-integer) x 8 seeded batches; one decode_step of "
+          f"{SERVING_DECODE_BATCH} sequences "
+          f"{out['decode_step_ms']['cuda']:.4f} ms on the card, "
+          f"{out['decode_step_ms']['cpu']:.4f} ms with device='cpu' "
+          f"(host clock, median of {SERVING_DECODE_RUNS}; not gated)",
+          flush=True)
+
+    # (b) The broadcast plane, then a hot update mid-stream.
+    new_w = np.arange(8, dtype=np.float32) * 3.0 + 7.0
+    got_w, gen = broadcast_weights(new_w, 1)
+    check(gen == 1 and got_w.is_cuda and got_w.dtype == torch.float32
+          and np.array_equal(got_w.cpu().numpy(), new_w),
+          f"phase 19 (b): broadcast_weights gave generation {gen}, "
+          f"{got_w.device} {got_w.dtype}")
+    workers = [ReplicaWorker(ToyModel(device="cuda"), replica_id=f"r{i}")
+               for i in range(2)]
+    tenants = ("alice", "bob")
+    router = Router([LocalReplicaHandle(w) for w in workers],
+                    [TenantConfig(t, quota=64, slo_ms=0.0) for t in tenants],
+                    max_batch=4)
+    hs = _serving_streams(router, tenants, 8, 8)    # every slot of both
+    while any(len(h.tokens) < 3 for h in hs.values()):
+        router.step()
+    check(all(len(h.tokens) == 3 for h in hs.values()),
+          "phase 19 (b): the streams did not run side by side")
+    pause = {i: list(h.tokens) for i, h in hs.items()}
+    check(router.push_weights(got_w, gen) == 2,
+          "phase 19 (b): push_weights reached fewer than 2 replicas")
+    router.drain()
+    check(router.dropped == 0, f"phase 19 (b): {router.dropped} dropped")
+    for i, h in hs.items():
+        head = pause[i]
+        want = head + _toy_stream(head[-1], 8 - len(head), new_w, len(head))
+        check(h.completed and h.tokens == want,
+              f"phase 19 (b) stream {i}: {h.tokens} did not flip at its "
+              f"pause point ({want})")
+    check(all(w.model.generation == 1 for w in workers),
+          "phase 19 (b): a replica did not apply generation 1")
+    print(f"phase 19 (b) broadcast_weights over {hvd.size()} NCCL rank: "
+          f"generation 1 and the weights unchanged, on {got_w.device}; "
+          f"router over 2 replicas on the card, 2 tenants, 8 streams of 8 "
+          f"tokens, push_weights mid-stream: every stream flips at its "
+          f"pause point, 0 dropped, {router.completed} completed",
+          flush=True)
+
+    # (c) The RPC plane on localhost.
+    rpc_workers = [ReplicaWorker(ToyModel(device="cuda"), replica_id=f"q{i}")
+                   for i in range(2)]
+    servers = [w.attach(SERVING_KEY) for w in rpc_workers]
+    try:
+        handles = [RpcReplicaHandle("127.0.0.1", s.port, SERVING_KEY,
+                                    timeout=30.0) for s in servers]
+        h0 = handles[0]
+        check(h0.ping() == {"ok": True, "replica": "q0", "generation": 0},
+              "phase 19 (c): ping")
+        r = h0.decode([("p", 5, 0), ("q", 6, 1)])
+        check(r["tokens"] == {"p": _toy_plain([(5, 0)], np.arange(
+            8, dtype=np.float32))[0], "q": _toy_plain([(6, 1)], np.arange(
+                8, dtype=np.float32))[0]}, f"phase 19 (c): decode {r}")
+        h0.update_weights(got_w, 2)            # a card tensor, sent as host
+        r = h0.decode([("p", 5, 0)])
+        check(r["generation"] == 2 and r["tokens"]["p"] == _toy_plain(
+            [(5, 0)], new_w)[0], f"phase 19 (c): after update {r}")
+        check(rpc_workers[0].model.get_weights().is_cuda,
+              "phase 19 (c): the update did not land on the card")
+        st = h0._call({"kind": "stats"})
+        check(st["decode_steps"] == 2 and not st["dead"],
+              f"phase 19 (c): stats {st}")
+        wrong = RpcReplicaHandle("127.0.0.1", servers[1].port, b"w" * 32,
+                                 timeout=5.0)
+        try:
+            wrong.ping()
+            refused = False
+        except (ConnectionError, OSError):
+            refused = True
+        check(refused, "phase 19 (c): a wrong key was answered")
+        h0.update_weights(np.arange(8, dtype=np.float32), 0)
+        clean = Router([LocalReplicaHandle(ReplicaWorker(
+            ToyModel(device="cuda"))) for _ in range(2)],
+            [TenantConfig(t, quota=64, slo_ms=0.0) for t in tenants],
+            max_batch=4)
+        want = _serving_streams(clean, tenants, 8, 6)
+        clean.drain()
+        router = Router(handles, [TenantConfig(t, quota=64, slo_ms=0.0)
+                                  for t in tenants], max_batch=4)
+
+        def crashed():
+            hs = _serving_streams(router, tenants, 8, 6)
+            router.drain()
+            return hs
+
+        hs = _with_fault_spec("site=serving,kind=replica_crash,after=3",
+                              crashed)
+        dead = [w.replica_id for w in rpc_workers if w._dead]
+        check(len(dead) == 1 and sum(not h.healthy for h in handles) == 1,
+              f"phase 19 (c): dead replicas {dead}")
+        check(router.dropped == 0 and all(
+            hs[i].tokens == want[i].tokens for i in hs),
+            "phase 19 (c): the retried streams differ from the clean ones")
+
+        def storm():
+            r = Router([LocalReplicaHandle(ReplicaWorker(
+                ToyModel(device="cuda")))], [TenantConfig("alice")],
+                max_batch=8)
+            r.step()
+            queued = r.stats()["queue_depth"] + r.stats()["inflight"]
+            r.drain()
+            return r, queued
+
+        storm_router, storm_load = _with_fault_spec(
+            "site=serving,kind=request_storm:6", storm)
+        check("storm" in storm_router._tenants and storm_load == 6
+              and storm_router.completed == 6,
+              f"phase 19 (c): the storm added {storm_load} requests, "
+              f"{storm_router.completed} completed")
+    finally:
+        for s in servers:
+            s.shutdown()
+    print(f"phase 19 (c) RPC plane on 127.0.0.1: ping, stats, decode and "
+          f"update_weights answered (the weights sent from the card as a "
+          f"host array, applied on the card), a wrong key refused; "
+          f"replica_crash after 3 decodes killed {dead[0]}, the router "
+          f"failed over with 0 dropped and 8 streams equal to a clean "
+          f"run's; request_storm:6 queued 6 requests under the storm "
+          f"tenant, all completed", flush=True)
+
+    # (d) A replica from a checkpoint.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        ckpt_w = np.arange(8, dtype=np.float32) * 0.5 + 11.0
+        check(checkpoint.save(tmp, {"w": ckpt_w}, step=12) is not None,
+              "phase 19 (d): checkpoint.save failed")
+        m = load_replica_model(tmp, device="cuda")
+        check(m.generation == 12 and m.get_weights().is_cuda and
+              np.array_equal(m.get_weights().cpu().numpy(), ckpt_w) and
+              m.decode_step([(3, 4)]) == _toy_plain([(3, 4)], ckpt_w),
+              f"phase 19 (d): generation {m.generation}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), "phase 19 (d): files left behind")
+    print("phase 19 (d) load_replica_model: a checkpoint saved at step 12 "
+          "loads on the card as generation 12 with its weights; files "
+          "deleted", flush=True)
+
+    # (e) The serving lane, card against CPU.
+    lane = run_serving_benchmark(device="cuda")
+    cpu_lane = run_serving_benchmark(device="cpu")
+    check(lane["rows"] == cpu_lane["rows"],
+          "phase 19 (e): the lane's rows differ between card and CPU")
+    out["lane_rows"] = lane["rows"]
+    print("phase 19 (e) serving lane rows (virtual clock, card equal to "
+          "CPU): " + json.dumps(lane["rows"]), flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 19: {out['seconds']:.1f} s; " + json.dumps(out),
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4636,6 +5057,7 @@ def main() -> int:
     tele_stem, tele_flash = phase_telemetry(smi, main_summary, control)
     stem_row["launches"] += tele_stem
     stem_row["launches"] += phase_zoo_and_lanes(smi, main_summary)
+    phase_serving(smi)
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
                            zero, guard, warm, tele_flash):
@@ -4668,6 +5090,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--inception-readings"]:
         inception_readings()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--avg-pool-check"]:
+        avg_pool_check(gate=False)
         sys.exit(0)
     if sys.argv[1:2] == ["--telemetry-worker"]:
         _telemetry_worker(*sys.argv[2:4])

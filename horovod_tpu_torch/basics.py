@@ -43,7 +43,6 @@ launcher's ``HOROVOD_COORD_*`` trio) are the reference's
 from __future__ import annotations
 
 import atexit
-import logging
 import os
 import socket
 import threading
@@ -55,8 +54,9 @@ import torch.distributed as dist
 from horovod_tpu_torch import config, telemetry
 from horovod_tpu_torch.native import coord_tree
 from horovod_tpu_torch.native.runtime import CONTROL_TIMEOUT, Runtime
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("horovod_tpu_torch.controller")
+log = get_logger("horovod_tpu_torch.controller")
 
 NOT_INITIALIZED_ERROR = (
     "horovod_tpu_torch has not been initialized; use hvd.init()."

@@ -50,6 +50,7 @@ from horovod_tpu_torch.ops.fusion import fused_pytree_mean
 from horovod_tpu_torch.optim import SGD
 from horovod_tpu_torch.topology import (Mesh, build_mesh, data_axis,
                                         mesh_size)
+from horovod_tpu_torch.utils.profiling import trace_steps
 
 # Peak dense bf16 TFLOP/s per card by device-name substring (NVIDIA's data
 # sheets, SXM parts, without sparsity), for MFU.  Override with
@@ -766,87 +767,104 @@ def run_decode_benchmark(d_model: int = 2048, n_layers: int = 8,
     return res
 
 
-def _kernel_category(name: str) -> str:
-    n = name.lower()
-    if "fused_stem" in n:
-        return "fused_stem"
-    if any(k in n for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                            "flash_bwd_dkv_kernel")) and "pytorch" not in n:
-        return "flash_attention"
-    if "nccl" in n:
-        return "collective"
-    if any(k in n for k in ("conv", "cudnn", "xmma", "gemm", "wgmma",
-                            "cutlass", "implicit", "nvjet")):
-        return "conv_matmul"
-    if "reduce" in n:
-        return "reduction"
-    if "elementwise" in n or "vectorized" in n or "cat" in n:
-        return "elementwise"
-    return "other"
+def run_serving_benchmark(out: Optional[str] = None, *,
+                          num_requests: int = 64,
+                          tokens_per_request: int = 8,
+                          step_time: float = 0.002, device=None,
+                          verbose: bool = False) -> dict:
+    """Offered load against latency for the continuous-batching router
+    (reference ``:1270``), A/B-ing two batch policies: one sequence a
+    replica step (``max_batch=1``) against ``max_batch=8``.
 
+    The rig runs on a virtual clock: two in-process replicas whose
+    :class:`~horovod_tpu_torch.serving.ToyModel` lives on ``device``, no
+    real sleep, time advanced by a fixed modelled step cost.  So the
+    lane is deterministic and its tokens/s and latencies are properties
+    of the batching policy under that cost, not of the card."""
+    import json
 
-def _trace_steps(step_once, dev: torch.device, steps: int,
-                 top: int) -> dict:
-    """Run ``step_once`` 3 times untraced, then ``steps`` times under
-    ``torch.profiler``; returns where the device time went: kernel time
-    by category and by name, and the device's busy share of the wall time
-    (the union of kernel intervals over the host-clock window, which ends
-    in a synchronize)."""
-    from torch.profiler import ProfilerActivity, profile
+    from horovod_tpu_torch.serving import (LocalReplicaHandle,
+                                           ReplicaWorker, Router,
+                                           TenantConfig, ToyModel)
 
-    if dev.type != "cuda":
-        raise ValueError("the profile measures device time; it needs a "
-                         "CUDA device")
-    for _ in range(3):
-        step_once()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step_once()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
-    busy, last = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > last:
-            busy += end - max(start, last)
-            last = end
-    kernel_us = sum(by_name.values())
-    by_cat: dict = {}
-    for name, us in by_name.items():
-        cat = _kernel_category(name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + us
-    return {
-        "steps": steps,
-        "device": torch.cuda.get_device_name(dev),
-        "wall_ms_per_step": wall_us / steps / 1e3,
-        "kernel_ms_per_step": kernel_us / steps / 1e3,
-        "device_busy_share": busy / wall_us if wall_us else None,
-        "kernels_per_step": len(spans) / steps,
-        "ms_per_step_by_category": {
-            k: v / steps / 1e3 for k, v in sorted(
-                by_cat.items(), key=lambda kv: -kv[1])},
-        "top_kernels_ms_per_step": [
-            [name[:120], us / steps / 1e3] for name, us in sorted(
-                by_name.items(), key=lambda kv: -kv[1])[:top]],
+    dev = basics.resolve_device(device)
+    rows = []
+    for policy in (1, 8):
+        for offered_rps in (50.0, 200.0, 800.0):
+            vt = [0.0]  # virtual seconds; advanced per decode step
+            replicas = [
+                LocalReplicaHandle(ReplicaWorker(ToyModel(device=dev),
+                                                 replica_id=f"r{i}"))
+                for i in range(2)]
+            router = Router(replicas,
+                            [TenantConfig("bench", quota=1 << 30,
+                                          slo_ms=0.0)],
+                            max_batch=policy, clock=lambda: vt[0])
+            arrivals = [i / offered_rps for i in range(num_requests)]
+            pending = {}
+            lats = []
+            done = 0
+            nxt = 0
+            while done < num_requests:
+                while nxt < num_requests and arrivals[nxt] <= vt[0]:
+                    h = router.submit("bench", prompt_token=nxt,
+                                      max_new_tokens=tokens_per_request)
+                    assert h.rejected is None, h.rejected
+                    pending[h.request_id] = (h, arrivals[nxt])
+                    nxt += 1
+                router.step()
+                vt[0] += step_time
+                for rid, (h, t0) in list(pending.items()):
+                    if h.completed:
+                        lats.append(vt[0] - t0)
+                        done += 1
+                        del pending[rid]
+            router.close()
+            lats.sort()
+            rows.append({
+                "policy_max_batch": policy,
+                "offered_rps": offered_rps,
+                "p50_ms": round(lats[len(lats) // 2] * 1e3, 3),
+                "p99_ms": round(
+                    lats[min(len(lats) - 1,
+                             int(0.99 * len(lats)))] * 1e3, 3),
+                "tokens_per_s": round(
+                    num_requests * tokens_per_request / vt[0], 1),
+            })
+            if verbose:
+                r = rows[-1]
+                print(f"serving max_batch={policy} "
+                      f"{offered_rps:g} req/s: p50 {r['p50_ms']} ms, "
+                      f"p99 {r['p99_ms']} ms, "
+                      f"{r['tokens_per_s']} tok/s", flush=True)
+    result = {
+        "metric": "serving_continuous_batching",
+        "replicas": 2,
+        "num_requests": num_requests,
+        "tokens_per_request": tokens_per_request,
+        "step_time_ms": step_time * 1e3,
+        "rows": rows,
+        "device": str(dev),
+        "note": "virtual-clock rig: two in-process replicas with a "
+                "fixed modeled decode-step cost; numbers compare "
+                "batching policies, not hardware",
     }
+    print("BENCH " + json.dumps(result), flush=True)
+    if out:
+        with open(out, "w") as f:
+            json.dump(result, f, indent=2)
+            f.write("\n")
+    return result
 
 
 def run_profile(model_name: str = "resnet50", batch_size: int = 64,
                 image_size: int = 224, steps: int = 5,
                 input_dtype: str = "bfloat16", stem: str = "s2d_fused",
                 remat: Optional[str] = None, device=None,
-                top: int = 15) -> dict:
+                top: int = 15, layers: bool = False) -> dict:
     """Trace ``steps`` training steps of a registered model (see
-    :func:`_trace_steps`).  Same state recipe as the throughput run, so
+    :func:`~horovod_tpu_torch.utils.profiling.trace_steps`; ``layers``
+    adds the top layers).  Same state recipe as the throughput run, so
     the trace explains the program the benchmark measures.  Needs a CUDA
     device."""
     st = make_bench_state(model_name, batch_size, image_size=image_size,
@@ -855,8 +873,8 @@ def run_profile(model_name: str = "resnet50", batch_size: int = 64,
     step = make_train_step(st.model, st.optimizer, st.mesh, st.axis)
     out = {"model": model_name, "stem": stem if st.s2d else "conv7",
            "remat": remat, "batch_size": batch_size}
-    out.update(_trace_steps(lambda: step(st.images, st.labels),
-                            st.mesh.device, steps, top))
+    out.update(trace_steps(lambda: step(st.images, st.labels),
+                           st.mesh.device, steps, top, layers=layers))
     return out
 
 
@@ -881,8 +899,8 @@ def run_lm_profile(batch_size: int = 4, steps: int = 5, device=None,
     out = {"model": "lm", **LM_OF_RECORD, "batch_size": batch_size,
            "attention": "flash", "shard_optimizer": shard_optimizer,
            "compression": compression}
-    out.update(_trace_steps(lambda: step(st.tokens, st.labels),
-                            st.mesh.device, steps, top))
+    out.update(trace_steps(lambda: step(st.tokens, st.labels),
+                           st.mesh.device, steps, top))
     return out
 
 
@@ -897,7 +915,7 @@ def run_decode_profile(batch_size: int = 8) -> dict:
     total_len = st.cfg.max_seq
     out = {"model": "decode", "batch_size": batch_size,
            "prompt_len": st.prompt.shape[1], "total_len": total_len}
-    out.update(_trace_steps(
+    out.update(trace_steps(
         lambda: generate(st.params, st.prompt, total_len, st.cfg),
         st.prompt.device, 1, 15))
     steps = total_len - 1

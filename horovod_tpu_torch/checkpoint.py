@@ -31,7 +31,6 @@ saved at N ranks restores at any other count.
 from __future__ import annotations
 
 import atexit
-import logging
 import os
 import shutil
 import threading
@@ -44,8 +43,9 @@ import torch
 from horovod_tpu_torch import basics, telemetry
 from horovod_tpu_torch.ops import collective as _c
 from horovod_tpu_torch.tree import tree_leaves_with_path, tree_map
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 STATE_FILE = "state.pt"
 

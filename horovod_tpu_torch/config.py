@@ -8,12 +8,13 @@ a knob the port adds for itself takes the ``HVD_TORCH_`` prefix.
 
 from __future__ import annotations
 
-import logging
 import os
 import re
 from typing import Any, Dict, NamedTuple, Optional
 
-log = logging.getLogger(__name__)
+from horovod_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 class EnvVar(NamedTuple):
@@ -179,6 +180,28 @@ _var("HOROVOD_TRACE_SAMPLE", "int", 1,
      "Trace 1-in-N occurrences of each name (1 = every one)")
 _var("HOROVOD_TRACE_BUFFER", "int", 65536,
      "Per-rank span buffer capacity; overflow drops spans")
+# Logging (utils/logging.py reads the two names itself: config logs
+# through it).
+_var("HOROVOD_LOG_LEVEL", "str", "warning",
+     "Log severity: trace|debug|info|warning|error")
+_var("HOROVOD_LOG_HIDE_TIME", "bool", False,
+     "1 strips timestamps from log lines (stable test output)")
+# The serving plane (serving/).
+_var("HOROVOD_SERVING_MAX_BATCH", "int", 8,
+     "Continuous-batching cap: max sequences per replica decode step")
+_var("HOROVOD_SERVING_QUOTA", "int", 64,
+     "Default per-tenant quota (queued + in-flight requests) when the "
+     "TenantConfig leaves it unset")
+_var("HOROVOD_SERVING_SLO_MS", "float", 0.0,
+     "Default per-tenant SLO for admission control: reject when the "
+     "estimated queue wait exceeds this; 0 disables")
+_var("HOROVOD_SERVING_STATS", "str", None,
+     "Path where the router publishes its stats snapshot (the autoscaler "
+     "handshake)")
+_var("HOROVOD_SERVING_STATS_INTERVAL", "float", 1.0,
+     "Seconds between router stats-file publishes in Router.serve")
+_var("HOROVOD_SERVING_GATE_DIR", "str", None,
+     "Scratch dir handshake of the multi-rank serving episodes")
 
 
 class UnknownEnvVar(KeyError):

@@ -22,10 +22,21 @@ The plane kinds fire only at their own hooks:
   warm-restart spill just written is truncated to N bytes (default half
   its size), the torn write that the reader must reject.
 
+The serving kinds fire at the serving plane's hooks, both at site
+``serving``, and default to one firing so that an episode settles:
+
+* ``replica_crash[:N]`` at :func:`crash_replica`, polled once per decode
+  step by :class:`~horovod_tpu_torch.serving.replica.ReplicaWorker`: the
+  replica dies mid-request; ``:N`` is shorthand for ``count=N``;
+* ``request_storm[:N]`` at :func:`storm_requests`, polled once per
+  scheduler pass by :class:`~horovod_tpu_torch.serving.router.Router`:
+  a burst of N synthetic requests (default 8); ``:N`` sizes each burst
+  and ``count`` says how many bursts.
+
 ``attempt=N`` fires a rule only while ``HOROVOD_RESTART_ATTEMPT`` (the
 launcher's restart count) equals N, so a test can fault attempt 0 and
 let attempt 1 run clean.  The reference's other kinds (``crash``,
-``hang``, ``delay``, the fleet, serving, control and transport kinds)
+``hang``, ``delay``, the fleet, control and transport kinds)
 act on processes and planes the port does not have; a spec that names
 one is refused at parse time, never silently ignored.  With no spec set
 each hook is one global load and an identity test.
@@ -48,7 +59,10 @@ VALUE_KINDS = ("nan", "corrupt")
 # Kinds of the health and recovery planes: they fire at their own hooks
 # (drop_heartbeat, mangle_spill), never at corrupt_output.
 PLANE_KINDS = ("heartbeat_drop", "spill_corrupt")
-KINDS = VALUE_KINDS + PLANE_KINDS
+# Kinds of the serving plane (site ``serving``): crash_replica() and
+# storm_requests() poll them.
+SERVING_KINDS = ("replica_crash", "request_storm")
+KINDS = VALUE_KINDS + PLANE_KINDS + SERVING_KINDS
 
 SITES = (
     "allreduce", "allgather", "broadcast", "alltoall", "reducescatter",
@@ -141,7 +155,8 @@ class FaultRule:
 
 def _int_arg(kind: str, kind_arg: str):
     """The kind's ``:N``, checked with the reference's words."""
-    if kind in ("corrupt", "heartbeat_drop", "spill_corrupt"):
+    if kind in ("corrupt", "heartbeat_drop", "spill_corrupt") + \
+            SERVING_KINDS:
         arg = int(kind_arg) if kind_arg else None
         if arg is None:
             return None
@@ -153,6 +168,12 @@ def _int_arg(kind: str, kind_arg: str):
         if kind == "spill_corrupt" and arg < 0:
             raise FaultSpecError(f"kind spill_corrupt:{arg} must keep "
                                  f">= 0 bytes")
+        if kind == "replica_crash" and arg < 1:
+            raise FaultSpecError(f"kind replica_crash:{arg} must crash "
+                                 f">= 1 replica")
+        if kind == "request_storm" and arg < 1:
+            raise FaultSpecError(f"kind request_storm:{arg} must inject "
+                                 f">= 1 request per firing")
         return arg
     if kind_arg:
         raise FaultSpecError(f"kind {kind!r} takes no argument (got "
@@ -216,6 +237,12 @@ def parse_spec(spec: str) -> List[FaultRule]:
         # heartbeat_drop:N is shorthand for count=N (N intervals).
         if kind == "heartbeat_drop" and count is None and arg is not None:
             count = arg
+        # replica_crash:N is shorthand for count=N; request_storm:N sizes
+        # each burst instead.  Both default to one firing.
+        if kind == "replica_crash" and count is None:
+            count = arg if arg is not None else 1
+        if kind == "request_storm" and count is None:
+            count = 1
         if site is not None and site not in SITES:
             raise FaultSpecError(
                 f"unknown fault site {site!r}; shipped sites: "
@@ -303,3 +330,27 @@ def mangle_spill(path: str, rank: Optional[int] = None) -> bool:
                        note=f" (truncated {size} -> {keep} bytes)")
         mangled = True
     return mangled
+
+
+def crash_replica(rank: Optional[int] = None) -> bool:
+    """The serving replica's hook, polled once per decode step: True when
+    an armed ``replica_crash`` rule says this replica must die now (the
+    worker owns the death; this hook arms and logs)."""
+    fired = _firing("serving", ("replica_crash",), rank)
+    for rule, ctx_rank in fired:
+        rule._announce("serving", None, ctx_rank,
+                       note=" (replica crashed)")
+    return bool(fired)
+
+
+def storm_requests(rank: Optional[int] = None) -> int:
+    """The router's hook, polled once per scheduler pass: how many
+    synthetic requests armed ``request_storm`` rules inject on this pass
+    (each rule's ``:N``, default 8; 0 = no storm)."""
+    burst = 0
+    for rule, ctx_rank in _firing("serving", ("request_storm",), rank):
+        size = int(rule.arg) if rule.arg is not None else 8
+        rule._announce("serving", None, ctx_rank,
+                       note=f" (storm of {size} requests)")
+        burst += size
+    return burst

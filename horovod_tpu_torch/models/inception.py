@@ -52,7 +52,19 @@ class ConvBN(nn.Module):
 
 
 def _avg_pool_same(x: torch.Tensor) -> torch.Tensor:
-    return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+    """3x3/s1 ``"SAME"`` average pool dividing by 9 everywhere.
+
+    It pools an NCHW copy and hands back the input's layout: PyTorch's
+    channels-last (NHWC) CUDA kernel of this pool's backward shifts the
+    windows at a padded border (the gradient of a sum along a 4x4 map's
+    first row is not 4/9, 6/9, 6/9, 4/9), in every dtype, so
+    Inception-v3's train step on the card got wrong gradients in its pool
+    branches (``python3 chip_smoke.py --avg-pool-check``).  The NCHW
+    kernel's backward is exact, and every device takes this one route."""
+    y = F.avg_pool2d(x.contiguous(), 3, 1, 1, count_include_pad=True)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        y = y.contiguous(memory_format=torch.channels_last)
+    return y
 
 
 def _max_pool_valid(x: torch.Tensor) -> torch.Tensor:

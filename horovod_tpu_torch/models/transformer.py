@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import logging
 from typing import Dict, List, Mapping, Optional
 
 import torch
@@ -61,6 +60,7 @@ from horovod_tpu_torch.parallel import pipeline as pp
 from horovod_tpu_torch.parallel import sequence as seq_mod
 from horovod_tpu_torch.parallel import tensor as tp
 from horovod_tpu_torch.topology import Mesh
+from horovod_tpu_torch.utils.logging import get_logger
 
 LAYER_LEAVES = ("ln1_scale", "ln2_scale", "wq", "wk", "wv", "wo", "w1",
                 "w2")
@@ -158,7 +158,7 @@ def _flash_profitable(t: int) -> bool:
     if t >= min_t and t % 128 != 0:
         if t not in _flash_declined_shapes:
             _flash_declined_shapes.add(t)
-            logging.getLogger("horovod_tpu_torch").debug(
+            get_logger("horovod_tpu_torch").debug(
                 "attention='auto': T=%d is not divisible by 128; using the "
                 "local attention path (pad the sequence to enable the "
                 "flash kernel)", t)

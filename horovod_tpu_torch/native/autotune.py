@@ -27,7 +27,6 @@ stream, so the same observations give the same proposals bit for bit.
 
 from __future__ import annotations
 
-import logging
 import math
 from typing import List, Sequence
 
@@ -35,8 +34,9 @@ import numpy as np
 
 from horovod_tpu_torch import config
 from horovod_tpu_torch.native.message import TunedParams
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("horovod_tpu_torch.autotune")
+log = get_logger("horovod_tpu_torch.autotune")
 
 _MASK = (1 << 64) - 1
 SEED = 0x9E3779B97F4A7C15

@@ -34,7 +34,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,8 +44,9 @@ from horovod_tpu_torch.native.message import (OP_NAMES, OpType, ReduceOp,
                                               Response, ResponseList)
 from horovod_tpu_torch.native.response_cache import ResponseCache
 from horovod_tpu_torch.native.stall_inspector import StallInspector
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("horovod_tpu_torch.controller")
+log = get_logger("horovod_tpu_torch.controller")
 
 STALL_ERROR_FMT = (
     "Stalled collective: tensor %s exceeded "

@@ -20,15 +20,15 @@ makes the same choice.
 
 from __future__ import annotations
 
-import logging
 import re
 from typing import List, Optional, Sequence
 
 import torch.distributed as dist
 
 from horovod_tpu_torch import config
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("horovod_tpu_torch.controller")
+log = get_logger("horovod_tpu_torch.controller")
 
 
 class TreePlan:

@@ -73,7 +73,6 @@ from __future__ import annotations
 import datetime
 import functools
 import itertools
-import logging
 import threading
 import time
 import weakref
@@ -100,8 +99,9 @@ from horovod_tpu_torch.native.timeline import (AllOf, Completions,
                                                Timeline)
 from horovod_tpu_torch.ops import fusion
 from horovod_tpu_torch.ops._build import CallCounter
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("horovod_tpu_torch.runtime")
+log = get_logger("horovod_tpu_torch.runtime")
 
 # One count per entry submitted to any runtime of this process: the
 # direct path (fused_psum, the train steps) never adds to it.

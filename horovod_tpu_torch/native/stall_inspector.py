@@ -10,11 +10,11 @@ so the tests need not wait.
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Callable, Sequence
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("horovod_tpu_torch.stall_inspector")
+log = get_logger("horovod_tpu_torch.stall_inspector")
 
 
 class StallInspector:

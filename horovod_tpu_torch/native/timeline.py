@@ -34,12 +34,12 @@ from __future__ import annotations
 
 import collections
 import json
-import logging
 import threading
 import time
 from typing import Callable, Optional
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("horovod_tpu_torch.timeline")
+log = get_logger("horovod_tpu_torch.timeline")
 
 Probe = Optional[Callable[[], bool]]
 

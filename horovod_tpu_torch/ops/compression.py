@@ -48,7 +48,6 @@ one call are all issued before the first is waited on.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import re
 import time
 from typing import Callable, ClassVar, List, Optional, Tuple
@@ -58,8 +57,9 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import config, telemetry
 from horovod_tpu_torch.ops import _threefry, fusion
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 # Largest finite float16 value: a cast of anything bigger gives inf.
 FP16_MAX = 65504.0

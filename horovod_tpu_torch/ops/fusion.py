@@ -41,7 +41,6 @@ each, so ``hvd_fusion_buckets_total`` over every kind equals
 from __future__ import annotations
 
 import dataclasses
-import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -52,8 +51,9 @@ from horovod_tpu_torch import config, telemetry
 from horovod_tpu_torch.config import (max_bucket_bytes,  # noqa: F401
                                       parse_size_bytes)
 from horovod_tpu_torch.ops._build import CallCounter
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 # Reference defaults: 64 MB threshold, 32 MB reduce-scatter chunk cap.
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024

@@ -39,7 +39,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import logging
 import threading
 from typing import Callable, Optional
 
@@ -55,8 +54,9 @@ from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.fusion import (_bucket_leaves, fused_psum,
                                           fusion_threshold_bytes)
 from horovod_tpu_torch.topology import data_axis
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 
 _warned_stateful_per_leaf = False

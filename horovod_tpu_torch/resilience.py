@@ -68,7 +68,6 @@ from __future__ import annotations
 
 import dataclasses
 import io
-import logging
 import os
 import signal
 import struct
@@ -86,8 +85,9 @@ import torch.distributed as dist
 from horovod_tpu_torch import basics, config, faults, telemetry
 from horovod_tpu_torch.parallel.sequence import axis_mean
 from horovod_tpu_torch.tree import tree_leaves, tree_map
+from horovod_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 # "Preempted, please reschedule": BSD EX_TEMPFAIL, far from the launcher's
 # operator-stop codes (130/143) and from any 128+N signal code.

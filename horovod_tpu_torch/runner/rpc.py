@@ -1,18 +1,20 @@
-"""The client half of the launcher's authenticated RPC plane.
+"""The launcher's authenticated RPC plane, both halves.
 
 Counterpart of ``horovod_tpu/runner/rpc.py``: ``AuthError``,
 ``_send_msg``, ``_recv_exact`` and ``_recv_msg`` (``:30-60``),
-``connect_with_retry`` and ``rpc_call`` (``:116-200``) and
-``job_key_bytes`` (``:474``).  A message is an ``!Q`` payload length, the
-HMAC-SHA256 digest of the payload under the job's key
-(``HOROVOD_SECRET_KEY``), then the pickled payload: byte for byte what
-the reference launcher's ``RpcServer`` reads, so the port's heartbeat
-sender talks to ``hvdrun``'s health plane.  A reply's digest is checked
-before anything in it is unpickled.  No server lives here: the launcher
-is the server.  ``measure_clock_offset`` (``:212``) is the client half
-of the launcher's time-sync handshake.  The reference's client-side
-series (``hvd_rpc_calls_total``, ``_connect_retries_total``,
-``_connect_failures_total``) and the ``rpc`` span are recorded here.
+``RpcServer`` (``:63-113``), ``connect_with_retry`` and ``rpc_call``
+(``:116-200``) and ``job_key_bytes`` (``:474``).  A message is an ``!Q``
+payload length, the HMAC-SHA256 digest of the payload under the job's
+key (``HOROVOD_SECRET_KEY``), then the pickled payload: byte for byte
+what the reference launcher's ``RpcServer`` reads, so the port's
+heartbeat sender talks to ``hvdrun``'s health plane.  A digest is
+checked before anything in the message is unpickled.  The port's
+``RpcServer`` serves the serving plane's replicas
+(:mod:`horovod_tpu_torch.serving.replica`).  ``measure_clock_offset``
+(``:212``) is the client half of the launcher's time-sync handshake.
+The reference's client-side series (``hvd_rpc_calls_total``,
+``_connect_retries_total``, ``_connect_failures_total``) and the ``rpc``
+span are recorded here.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import hmac
 import pickle
 import random
 import socket
+import socketserver
 import struct
+import threading
 import time
 from typing import Any, Callable, Optional
 
@@ -61,6 +65,55 @@ def _recv_msg(sock: socket.socket, key: bytes,
         raise AuthError("message digest mismatch — wrong or missing "
                         "HOROVOD_SECRET_KEY")
     return payload
+
+
+class RpcServer:
+    """A threaded TCP server dispatching authenticated pickled requests.
+
+    ``handler(request) -> response`` runs under one lock by default;
+    ``serialize=False`` drops the lock for handlers that lock finer
+    themselves and must answer probes while a slow request runs (the
+    serving replica).  A request whose digest, framing or pickle is bad
+    is dropped without a reply; a connection carries one request and
+    its response."""
+
+    def __init__(self, key: bytes, handler: Callable[[Any], Any],
+                 bind: str = "0.0.0.0", serialize: bool = True):
+        self._key = key
+        self._handler = handler
+        self._lock = threading.Lock() if serialize else None
+        outer = self
+
+        class _Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                try:
+                    req = pickle.loads(_recv_msg(self.request, outer._key))
+                except (AuthError, ConnectionError, pickle.PickleError,
+                        struct.error):
+                    return
+                if outer._lock is not None:
+                    with outer._lock:
+                        resp = outer._handler(req)
+                else:
+                    resp = outer._handler(req)
+                _send_msg(self.request, pickle.dumps(resp), outer._key)
+
+        class _Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._server = _Server((bind, 0), _Handler)
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    def shutdown(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
 
 
 # The reference's default cap on one dial's time over all its retries.

@@ -59,28 +59,51 @@ res = benchmark.run_scaling_efficiency(
     "resnet18", batch_size=2, image_size=32, num_classes=4,
     num_warmup_batches=1, num_batches_per_iter=1, num_iters=2,
     device="cpu", verbose=False)
+# The same lane on stubbed throughput runs: the baseline run, then the
+# 3-rank one (only rank 0's numbers are broadcast).
+rates = iter(STUB_RATES)
+real_run = benchmark.run_synthetic_benchmark
+benchmark.run_synthetic_benchmark = (
+    lambda *a, **k: {"img_sec_total": next(rates)})
+stub = benchmark.run_scaling_efficiency("resnet18", 2, verbose=False)
+benchmark.run_synthetic_benchmark = real_run
 np.savez(os.path.join(out, f"rank{hvd.rank()}.npz"), words=words,
          keys=np.array(sorted(res)),
-         **{k: np.asarray(v) for k, v in res.items() if k != "model"})
+         **{k: np.asarray(v) for k, v in res.items() if k != "model"},
+         **{"stub_" + k: np.asarray(v) for k, v in stub.items()
+            if k != "model"})
 hvd.shutdown()
 '''
+STUB_RATES = (100.0, 240.0)
 
 
 def test_scaling_efficiency_on_three_gloo_ranks(tmp_path):
-    finish = start_port_job(JOB, str(tmp_path), np_=3,
+    """The lane's protocol on 3 gloo ranks: its words, devices and keys,
+    rank 0's rates on every rank, and its efficiency equal to the
+    reference's on the same stubbed rates.  The real run's rates are
+    wall-clock throughputs on a shared CPU, so its efficiency is held to
+    its formula, not to a range."""
+    finish = start_port_job(f"STUB_RATES = {STUB_RATES!r}\n" + JOB,
+                            str(tmp_path), np_=3,
                             env={"OMP_NUM_THREADS": "1"}, timeout=180)
     ranks, _ = finish()
+    want = _reference_scaling(STUB_RATES, n_devices=3)
     for got in ranks:
         assert str(got["words"]) == (
             "scaling efficiency needs more total devices (3) than "
             "baseline devices (3; one per process)")
         assert int(got["n_devices"]) == 3
         assert int(got["n_baseline_devices"]) == 1
-        assert 0 < float(got["scaling_efficiency"]) <= 1.5
         assert float(got["img_sec_1"]) > 0 and float(got["img_sec_n"]) > 0
+        assert float(got["scaling_efficiency"]) == (
+            float(got["img_sec_n"]) / (3 * float(got["img_sec_1"])))
         for k in ("img_sec_1", "img_sec_n", "scaling_efficiency"):
             assert float(got[k]) == float(ranks[0][k])
-    assert list(ranks[0]["keys"]) == sorted(_reference_scaling_keys())
+        for k, v in want.items():
+            if k != "model":
+                assert float(got["stub_" + k]) == v, k
+    assert want["scaling_efficiency"] == 0.8
+    assert list(ranks[0]["keys"]) == sorted(want)
 
 
 def _stub_runs(monkeypatch, module, rates):
@@ -96,16 +119,18 @@ def _stub_runs(monkeypatch, module, rates):
     return seen
 
 
-def _reference_scaling_keys():
-    """The reference's dict, its throughput runs stubbed."""
+def _reference_scaling(rates, n_devices):
+    """The reference's dict, its throughput runs stubbed with ``rates``
+    (baseline, then ``n_devices``)."""
     import horovod_tpu as jhvd
     mp = pytest.MonkeyPatch()
     try:
-        _stub_runs(mp, jbench, [100.0, 300.0])
+        _stub_runs(mp, jbench, list(rates))
         found = jhvd.is_initialized()
         if not found:
             jhvd.init()
-        res = jbench.run_scaling_efficiency("resnet18", 2, n_devices=4,
+        res = jbench.run_scaling_efficiency("resnet18", 2,
+                                            n_devices=n_devices,
                                             verbose=False)
         if not found:
             jhvd.shutdown()

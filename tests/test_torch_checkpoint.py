@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch import checkpoint
-from torch_support import jax_world, run_port_job, world1  # noqa: F401
+from torch_support import caplog, jax_world, run_port_job, world1  # noqa: F401
 
 
 @pytest.fixture

@@ -17,6 +17,7 @@ from horovod_tpu_torch.native.message import (OpType, ReduceOp, Request,
 from horovod_tpu_torch.native.response_cache import ResponseCache
 from horovod_tpu_torch.native.stall_inspector import StallInspector
 from horovod_tpu_torch.ops import collective
+from torch_support import caplog  # noqa: F401
 
 A, G, B, T, RS = (OpType.ALLREDUCE, OpType.ALLGATHER, OpType.BROADCAST,
                   OpType.ALLTOALL, OpType.REDUCESCATTER)

@@ -33,7 +33,7 @@ import pytest
 
 from horovod_tpu.telemetry import aggregate
 from horovod_tpu_torch.native import coord_tree
-from torch_support import REPO, free_port
+from torch_support import REPO, caplog, free_port  # noqa: F401
 
 JOB_TIMEOUT = 120
 

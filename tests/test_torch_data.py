@@ -29,7 +29,7 @@ from horovod_tpu.topology import build_mesh as jax_build_mesh
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.parallel import data as tdata
 
-from torch_support import jax_world, run_job, world1  # noqa: F401
+from torch_support import caplog, jax_world, run_job, world1  # noqa: F401
 
 JOB = r'''
 import sys

@@ -36,7 +36,7 @@ import torch
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.native import runtime as runtime_mod
 from horovod_tpu_torch.native.runtime import MembershipChangedError
-from torch_support import REPO, run_port_job
+from torch_support import REPO, caplog, run_port_job  # noqa: F401
 
 JOB_TIMEOUT = 90
 

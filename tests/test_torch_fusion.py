@@ -26,7 +26,7 @@ from horovod_tpu_torch.models.convert import flax_ordered_parameters
 from horovod_tpu_torch.ops import collective as tcollective
 from horovod_tpu_torch.ops import fusion as tfusion
 
-from torch_support import jax_world, world1  # noqa: F401
+from torch_support import caplog, jax_world, world1  # noqa: F401
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
         "float16": jnp.float16, "int32": jnp.int32}

@@ -40,7 +40,15 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
             "horovod_tpu_torch.telemetry.registry, "
             "horovod_tpu_torch.telemetry.exporter, "
             "horovod_tpu_torch.telemetry.spans, "
-            "horovod_tpu_torch.telemetry.eager_timeline\n"
+            "horovod_tpu_torch.telemetry.eager_timeline, "
+            "horovod_tpu_torch.telemetry.aggregate, "
+            "horovod_tpu_torch.telemetry.trace_merge, "
+            "horovod_tpu_torch.telemetry.critical_path, "
+            "horovod_tpu_torch.serving, horovod_tpu_torch.serving.model, "
+            "horovod_tpu_torch.serving.replica, "
+            "horovod_tpu_torch.serving.router, "
+            "horovod_tpu_torch.utils.logging, "
+            "horovod_tpu_torch.utils.profiling\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -57,6 +65,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "inception_cudnn_study.py")
 
 
 def test_no_source_imports_jax_or_the_reference_package():

@@ -41,7 +41,7 @@ import horovod_tpu_torch as thvd
 from horovod_tpu_torch import checkpoint, faults, resilience as tres
 from horovod_tpu_torch.parallel import data as tdata
 from horovod_tpu_torch.runner import rpc
-from torch_support import world1  # noqa: F401
+from torch_support import caplog, world1  # noqa: F401
 
 ENV = ("HOROVOD_STEP_GUARD", "HOROVOD_SPILL_DIR", "HOROVOD_SPILL_INTERVAL",
        "HOROVOD_HEALTH_RPC", "HOROVOD_HEARTBEAT_INTERVAL",
@@ -529,7 +529,8 @@ def test_attempt_key_fires_only_on_its_attempt(attempt, tmp_path,
 def test_other_kinds_stay_refused_with_the_references_words(kind):
     with pytest.raises(faults.FaultSpecError,
                        match=r"unknown fault kind .*; valid kinds: nan, "
-                             r"corrupt, heartbeat_drop, spill_corrupt$"):
+                             r"corrupt, heartbeat_drop, spill_corrupt, "
+                             r"replica_crash, request_storm$"):
         faults.parse_spec(f"kind={kind}")
 
 

@@ -12,10 +12,14 @@
   leaves an initialisation it finds in place (unlike ``tests/conftest.py``'s
   ``hvd``, which shuts it down), so a session-wide init of the files under
   ``tests/distributed/`` that share an xdist worker survives these tests.
+* ``caplog``: pytest's, whose handler also hangs on the port's root
+  logger: that logger does not propagate (``utils/logging.py``, as the
+  reference's does not), so pytest's root handler never sees its records.
 
 Test modules import the fixtures by name.
 """
 
+import logging
 import os
 import socket
 import subprocess
@@ -105,6 +109,14 @@ def world1(monkeypatch):
     thvd.init(device="cpu")
     yield thvd
     thvd.shutdown()
+
+
+@pytest.fixture()
+def caplog(caplog):
+    port_root = logging.getLogger("horovod_tpu_torch")
+    port_root.addHandler(caplog.handler)
+    yield caplog
+    port_root.removeHandler(caplog.handler)
 
 
 @pytest.fixture()
