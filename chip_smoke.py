@@ -219,12 +219,31 @@ any failure ends the run with a traceback and a non-zero exit:
    ``storm`` tenant; (d) ``load_replica_model`` from a checkpoint the
    phase saves (generation = step; the files deleted); (e)
    ``run_serving_benchmark`` on the card, its rows equal to the CPU's.
+20. the port's own launcher (``python -m horovod_tpu_torch.runner``), which
+   needs no JAX: (a) ``-np 1 --metrics-file`` around ``python -m
+   horovod_tpu_torch.benchmark`` with phase 4's model, batch, stem and
+   input dtype (LAUNCH_WARMUP warm-up and LAUNCH_ITERS timed steps): rc 0,
+   the rank's result on the card, its fused-stem launches read from the
+   rank's ``hvd_kernel_launches`` series in the merged metrics file (one
+   a forward pass), img/s printed beside phase 4's (not gated); (b)
+   ``--check-build`` lists NCCL; (c) ``-np 4`` on gloo, CPU tensors asked
+   for by name, the ranks split into 2 hosts of 2 (``HOROVOD_LOCAL_*``
+   set before ``init``, as ``tests/distributed/hier_check_np4.py`` does):
+   the eager allreduce and allgather at sizes 1, 7, 100,003 and 1,000,003
+   on integer-valued f32 data, flat and then through the two-level plane
+   after a re-init, bit for bit equal, ``hierarchical_enabled()`` true,
+   the cross bytes summed over the ranks half the flat bytes; (c) runs
+   on the CPU while (a) and (b) run, so (a)'s img/s may read a little
+   low beside phase 4's.  The NCCL
+   form of (c) needs 4 cards: ``-k hier`` of
+   ``tests/test_torch_cuda_collective.py``.
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
 (b), 13 (a), 14 (b, c), 15, 17 (b) and, for the forward kernel, 12 (a);
 the fused stem's add phase 16's 73 or more (36 under the timeline, 36
 to 72 under the tuner, 1 bucketed step), phase 17's 39 and phase 18's
-104 forward passes ((c) 3 x 13, (d) 3 x 13, (e) 2 x 13) to phase 4's.
+104 forward passes ((c) 3 x 13, (d) 3 x 13, (e) 2 x 13) and phase 20
+(a)'s to phase 4's.
 It prints one JSON line of kernel numbers and, last, one JSON line
 naming the device.  With no GPU
 it exits non-zero and prints no result.
@@ -5024,6 +5043,198 @@ def phase_serving(smi: str) -> dict:
     return out
 
 
+# Phase 20 (a): the main path through the port's launcher.
+LAUNCH_WARMUP = 2
+LAUNCH_ITERS = 3
+# Phase 20 (c): the two-level eager plane at 2 x 2 on gloo.
+HIER_SIZES = (1, 7, 100_003, 1_000_003)
+
+
+def _launcher(args, env=None, timeout=600, wait=True):
+    """``python -m horovod_tpu_torch.runner ARGS`` from the repo's root:
+    its ``CompletedProcess``, or with ``wait=False`` the running process
+    (its output in temporary files it holds as ``out``/``err``)."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ)
+    full["PYTHONPATH"] = root + os.pathsep + full.get("PYTHONPATH", "")
+    full.update(env or {})
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", *args]
+    if wait:
+        return subprocess.run(cmd, cwd=root, env=full, capture_output=True,
+                              text=True, timeout=timeout)
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(cmd, cwd=root, env=full, stdout=out, stderr=err,
+                            text=True)
+    proc.out, proc.err = out, err
+    return proc
+
+
+def _hier_worker(out_dir: str) -> None:
+    """Phase 20 (c)'s rank: CPU tensors on gloo, 2 hosts of 2; the sizes
+    flat, then through the two-level plane at threshold 0 after a re-init
+    at a fresh rendezvous."""
+    import os
+
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+
+    torch.set_num_threads(1)
+    rank = int(os.environ["HOROVOD_RANK"])
+    os.environ["HOROVOD_LOCAL_SIZE"] = "2"
+    os.environ["HOROVOD_LOCAL_RANK"] = str(rank % 2)
+    out = {}
+    for mode in ("flat", "hier"):
+        if mode == "hier":
+            port = hvd.broadcast_object(
+                hvd.basics._free_localhost_port() if rank == 0 else None, 0)
+            hvd.shutdown()
+            os.environ["HOROVOD_COORDINATOR_ADDR"] = f"127.0.0.1:{port}"
+            os.environ.update(HOROVOD_HIERARCHICAL_ALLREDUCE="1",
+                              HOROVOD_HIERARCHICAL_ALLGATHER="1",
+                              HOROVOD_HIERARCHICAL_ALLREDUCE_THRESHOLD="0")
+        hvd.init(device="cpu")
+        rt = hvd.basics.runtime()
+        out[f"{mode}/enabled"] = torch.tensor(
+            [rt.hierarchical_enabled(), rt.hierarchical_allgather_enabled()])
+        for n in HIER_SIZES:
+            g = np.random.default_rng(1000 * rank + n)
+            x = torch.from_numpy(g.integers(-50, 50, n).astype(np.float32))
+            out[f"{mode}/ar/{n}"] = hvd.allreduce(x, op=hvd.Sum,
+                                                  name=f"ar.{n}")
+            out[f"{mode}/ag/{n}"] = hvd.allgather(x[:max(n - 3 * rank, 1)],
+                                                  name=f"ag.{n}")
+        c = rt.hier_counters
+        out[f"{mode}/bytes"] = torch.tensor(
+            [c["flat_allreduce_bytes"], c["hier_cross_bytes"],
+             c["hier_allreduce_ops"], c["hier_ag_ops"]])
+    hvd.shutdown()
+    torch.save(out, os.path.join(out_dir, f"hier{rank}.pt"))
+
+
+def phase_launcher(smi: str, main: dict) -> int:
+    """Phase 20; returns (a)'s fused-stem launches.  (c) runs on the CPU
+    while (a) and (b) run."""
+    finish_hierarchical = _launcher_hierarchical()
+    launches = _launcher_main_path(main)
+    _launcher_check_build()
+    finish_hierarchical()
+    return launches
+
+
+def _launcher_main_path(main: dict) -> int:
+    """Phase 20 (a): the main path through the launcher, its metrics
+    plane on; returns the fused-stem launches the rank reported."""
+    import os
+    import re
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "metrics.json")
+        t0 = time.perf_counter()
+        p = _launcher(["-np", "1", "--metrics-file", metrics, sys.executable,
+                       "-m", "horovod_tpu_torch.benchmark", "--model",
+                       "resnet50", "--batch-size", str(BATCH),
+                       "--image-size", str(IMAGE), "--stem", "s2d_fused",
+                       "--input-dtype", "bfloat16", "--num-warmup-batches",
+                       str(LAUNCH_WARMUP), "--num-batches-per-iter", "1",
+                       "--num-iters", str(LAUNCH_ITERS)])
+        seconds = time.perf_counter() - t0
+        check(p.returncode == 0, f"phase 20 (a): the launcher's job exited "
+              f"{p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        m = re.search(r"^\[0\]<stdout>:RESULT (\{.*\})$", p.stdout, re.M)
+        check(m is not None, f"phase 20 (a): no RESULT line:\n"
+              f"{p.stdout[-3000:]}")
+        res = json.loads(m.group(1))
+        check(res["platform"] == "gpu"
+              and res["device"] == torch.cuda.get_device_name(0),
+              f"phase 20 (a): the rank ran on {res['device']} "
+              f"({res['platform']}), not the card")
+        with open(metrics) as f:
+            doc = json.load(f)
+        rank0 = doc["ranks"]["0"]["metrics"].get("hvd_kernel_launches", {})
+        stem = [v["value"] for v in rank0.get("values", [])
+                if v["labels"].get("kernel") == "fused_stem"]
+        steps = LAUNCH_WARMUP + LAUNCH_ITERS
+        check(stem == [float(steps)],
+              f"phase 20 (a): fused_stem launches in the metrics file "
+              f"{stem}, expected [{steps}] (one a forward pass)")
+    print(f"phase 20 (a): launcher job rc 0 in {seconds:.1f} s on "
+          f"{res['device']}; fused_stem launches {int(stem[0])} (metrics "
+          f"file); {res['img_sec_total']:.1f} img/s, "
+          f"{res['ms_per_step']:.2f} ms/step beside phase 4's "
+          f"{main['img_sec_total']:.1f} img/s, {main['ms_per_step']:.2f} "
+          f"ms/step (not gated)", flush=True)
+    return int(stem[0])
+
+
+def _launcher_check_build() -> None:
+    """Phase 20 (b): the build report lists NCCL."""
+    p = _launcher(["--check-build"], timeout=120)
+    check(p.returncode == 0 and "[X] NCCL" in p.stdout,
+          f"phase 20 (b): --check-build rc {p.returncode}, no '[X] NCCL':\n"
+          f"{p.stdout}{p.stderr[-2000:]}")
+    print("phase 20 (b): --check-build: " + "; ".join(
+        line.strip() for line in p.stdout.splitlines()
+        if line.strip().startswith("[")), flush=True)
+
+
+def _launcher_hierarchical():
+    """Phase 20 (c): the two-level eager plane at 2 x 2 on gloo.  Starts
+    the job and returns the function that waits for it and checks it."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    proc = _launcher(["-np", "4", sys.executable, os.path.abspath(__file__),
+                      "--hier-worker", tmp], env={"OMP_NUM_THREADS": "1"},
+                     wait=False)
+
+    def finish() -> None:
+        try:
+            rc = proc.wait(timeout=300)
+            seconds = time.perf_counter() - t0
+            proc.out.seek(0)
+            proc.err.seek(0)
+            check(rc == 0, f"phase 20 (c): the 4-rank job exited {rc}:\n"
+                  f"{proc.out.read()[-3000:]}\n{proc.err.read()[-3000:]}")
+            ranks = [torch.load(os.path.join(tmp, f"hier{r}.pt"))
+                     for r in range(4)]
+        finally:
+            proc.kill()
+            proc.out.close()
+            proc.err.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+        for r, res in enumerate(ranks):
+            check(res["flat/enabled"].tolist() == [False, False]
+                  and res["hier/enabled"].tolist() == [True, True],
+                  f"phase 20 (c): rank {r} enabled flags "
+                  f"{res['flat/enabled']}, {res['hier/enabled']}")
+            for n in HIER_SIZES:
+                for kind in ("ar", "ag"):
+                    check(torch.equal(res[f"hier/{kind}/{n}"],
+                                      res[f"flat/{kind}/{n}"]),
+                          f"phase 20 (c): rank {r} {kind} at {n} differs "
+                          f"from the flat plane's")
+        flat = sum(int(res["flat/bytes"][0]) for res in ranks)
+        cross = sum(int(res["hier/bytes"][1]) for res in ranks)
+        check(flat > 0 and 2 * cross == flat,
+              f"phase 20 (c): cross bytes {cross} are not half the flat "
+              f"bytes {flat}")
+        print(f"phase 20 (c): 4 gloo ranks as 2 x 2 in {seconds:.1f} s "
+              f"(beside (a) and (b)): allreduce and allgather at "
+              f"{list(HIER_SIZES)} bit for bit the flat plane's, "
+              f"hierarchical_enabled() on every rank, cross bytes {cross} = "
+              f"flat {flat} / 2", flush=True)
+
+    return finish
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5058,6 +5269,7 @@ def main() -> int:
     stem_row["launches"] += tele_stem
     stem_row["launches"] += phase_zoo_and_lanes(smi, main_summary)
     phase_serving(smi)
+    stem_row["launches"] += phase_launcher(smi, main_summary)
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
                            zero, guard, warm, tele_flash):
@@ -5093,6 +5305,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--avg-pool-check"]:
         avg_pool_check(gate=False)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--hier-worker"]:
+        _hier_worker(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--telemetry-worker"]:
         _telemetry_worker(*sys.argv[2:4])

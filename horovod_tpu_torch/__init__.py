@@ -131,6 +131,7 @@ from horovod_tpu_torch.resilience import (  # noqa: F401
     StepGuard,
     apply_step_guard,
     report_progress,
+    warm_restore,
 )
 from horovod_tpu_torch import telemetry  # noqa: F401
 from horovod_tpu_torch.telemetry import metrics_snapshot  # noqa: F401

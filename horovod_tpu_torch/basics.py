@@ -38,6 +38,10 @@ starts the heartbeat sender under this rank (reference
 reformations this world has been through) and ``coordinator`` (the
 launcher's ``HOROVOD_COORD_*`` trio) are the reference's
 ``basics.py:275-286`` and ``:392-412``.
+
+At size > 1 every rank of a job (not a rank subset) runs the two-level
+plane's bootstrap agreement in ``init``, whatever its environment says
+(:func:`horovod_tpu_torch.native.data_plane.agree_hierarchy`).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import config, telemetry
-from horovod_tpu_torch.native import coord_tree
+from horovod_tpu_torch.native import coord_tree, data_plane
 from horovod_tpu_torch.native.runtime import CONTROL_TIMEOUT, Runtime
 from horovod_tpu_torch.utils.logging import get_logger
 
@@ -206,9 +210,15 @@ def init(device=None, ranks: Optional[Sequence[int]] = None) -> None:
         if plan is not None:
             tree = coord_tree.TreeGroups(plan, rank, global_ranks,
                                          CONTROL_TIMEOUT)
+        hier = None
+        if members is None and size > 1:
+            # Every rank runs the agreement, whatever its environment.
+            hier = data_plane.agree_hierarchy(rank, size, local_rank,
+                                              local_size, ctrl, backend)
         try:
             runtime = Runtime(rank, size, ctrl, data, global_ranks, dev,
-                              subset=members is not None, tree=tree)
+                              subset=members is not None, tree=tree,
+                              hier=hier)
         except BaseException:
             # The timeline or the trial log could not be opened: no half
             # world is left behind.

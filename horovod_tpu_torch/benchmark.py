@@ -19,10 +19,20 @@ The transformer LM's harness is the counterpart of ``lm_train_flops``
 (``:428``) and ``run_lm_benchmark`` (``:443``), with the same protocol in
 tokens per second; ``run_decode_benchmark`` (``:595``) times greedy
 KV-cache decoding; ``run_compression_benchmark`` (``:793``) A/Bs a wire
-codec on the LM's ZeRO lane.  ``python -m horovod_tpu_torch.benchmark
-[--model lm]`` prints a device-time breakdown of either step;
-``--shard-optimizer`` runs the LM benchmark with the ZeRO-1 update and
-``--compression CODEC`` the codec A/B.
+codec on the LM's ZeRO lane.  ``run_hierarchical_benchmark`` (``:935``)
+and its worker A/B the eager plane's two-level allreduce against the
+flat one under the port's launcher.
+
+``python -m horovod_tpu_torch.benchmark`` is the reference harness's CLI
+(``_main``, ``:1427-1571``, with its flags and defaults): the synthetic
+benchmark, ``--efficiency``, ``--step-guard``, ``--profile``, ``--lm``
+(with ``--shard-optimizer``, ``--compression`` and the LM sizes),
+``--hierarchical`` and ``--serving``; ``--model lm`` and ``--model
+decode`` print the device-time breakdown of the LM step and of one
+``generate`` call.  ``--device cpu`` asks for the CPU; without it every
+rank runs on ``cuda:<local rank>`` and fails where there is no card.
+The reference's ``--transport`` and ``--coordsim`` measure its native
+transports and its protocol simulator, which the port does not have.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from horovod_tpu_torch import basics, resilience
+from horovod_tpu_torch import basics, config, resilience
 from horovod_tpu_torch.models import get_model
 from horovod_tpu_torch.models.convert import (flax_ordered_parameters,
                                               lm_ordered_parameters)
@@ -926,50 +936,315 @@ def run_decode_profile(batch_size: int = 8) -> dict:
     return out
 
 
-if __name__ == "__main__":
-    import argparse
+def run_hierarchical_worker(sizes=(1 << 16, 1 << 20), iters: int = 8,
+                            device=None) -> None:
+    """Worker half of ``--hierarchical`` (reference ``:880``), spawned by
+    :func:`run_hierarchical_benchmark` under the port's launcher: it
+    splits the ranks into hosts of ``size // 2`` (``HOROVOD_LOCAL_*``
+    set before ``init``, the trick of
+    ``tests/distributed/hier_check_np4.py``), checks that
+    ``tuned_config()`` and ``sync_tuned_config()`` route the way the
+    A/B run asked, then times eager allreduces of each payload size and
+    sums the bytes each path put on the cross level over the ranks.  On
+    the card each rank keeps the card of its launcher-given local rank.
+    Rank 0 prints one ``HIERBENCH {json}`` line per size."""
     import json
 
-    ap = argparse.ArgumentParser(
-        description="Trace a few training steps on the GPU and print where "
-                    "the device time goes as JSON (run_profile, "
-                    "run_lm_profile with --model lm, or one generate call "
-                    "with --model decode).")
-    ap.add_argument("--model", default="resnet50",
-                    help="a ResNet name, 'lm' for the transformer LM or "
-                         "'decode' for its greedy decode")
-    ap.add_argument("--batch-size", type=int, default=None,
-                    help="per rank (default 64 for a ResNet, 4 for the LM)")
-    ap.add_argument("--image-size", type=int, default=224)
-    ap.add_argument("--stem", default="s2d_fused")
-    ap.add_argument("--input-dtype", default="bfloat16")
-    ap.add_argument("--shard-optimizer", action="store_true",
-                    help="run the LM benchmark (not a profile) with the "
-                         "ZeRO-1 sharded update over every rank: tok/s, "
-                         "peak memory, optimizer-state and wire bytes")
-    ap.add_argument("--compression", default=None, metavar="CODEC",
-                    help="A/B the LM's ZeRO lane with gradient codec CODEC "
-                         "(bf16, fp16, int8, powersgd[:rank]) against the "
-                         "uncompressed wire; prints a BENCH JSON row with "
-                         "the wire-byte ratio and the loss delta")
-    args = ap.parse_args()
-    if args.shard_optimizer or args.compression:
-        lm_kwargs = dict(batch_size=args.batch_size or 8, verbose=True)
-        if args.compression:
-            run_compression_benchmark(args.compression, **lm_kwargs)
+    from horovod_tpu_torch.ops import collective
+
+    rank = int(os.environ["HOROVOD_RANK"])
+    size = int(os.environ["HOROVOD_SIZE"])
+    if device is None:
+        device = basics.resolve_device(
+            None, int(os.environ.get("HOROVOD_LOCAL_RANK", "0")))
+    local = max(size // 2, 1)
+    os.environ["HOROVOD_LOCAL_SIZE"] = str(local)
+    os.environ["HOROVOD_LOCAL_RANK"] = str(rank % local)
+    basics.init(device=device)
+    rt = basics.runtime()
+    hier = config.env_bool("HOROVOD_HIERARCHICAL_ALLREDUCE")
+    cfg = rt.tuned_config()
+    if cfg["hier_allreduce"] is not hier:
+        raise RuntimeError(f"tuned_config() does not reflect the requested "
+                           f"routing: {cfg}")
+    dev = basics.device()
+    rows = []
+    for n in sizes:
+        x = torch.from_numpy(np.random.default_rng(rank).standard_normal(
+            n).astype(np.float32)).to(dev)
+        for i in range(2):
+            collective.allreduce(x, op=collective.Sum, name=f"hb.warm{i}.{n}")
+        before = dict(rt.hier_counters)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(iters):
+            collective.allreduce(x, op=collective.Sum, name=f"hb.{i}.{n}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = (time.perf_counter() - t0) / iters
+        key = "hier_cross_bytes" if hier else "flat_allreduce_bytes"
+        moved = torch.tensor([float(rt.hier_counters[key] - before[key])],
+                             device=dev)
+        total = collective.allreduce(moved, op=collective.Sum,
+                                     name=f"hb.bytes.{n}")
+        rows.append({"size": n, "sec_per_op": dt,
+                     "mb_per_sec": n * 4 / dt / 2**20,
+                     "cross_bytes" if hier else "flat_bytes":
+                         int(total.item())})
+    agreed = rt.sync_tuned_config()
+    if agreed["hier_allreduce"] is not hier:
+        raise RuntimeError(f"sync_tuned_config() does not reflect the "
+                           f"requested routing: {agreed}")
+    basics.shutdown()
+    if rank == 0:
+        for r in rows:
+            print("HIERBENCH " + json.dumps(r), flush=True)
+
+
+def run_hierarchical_benchmark(np_ranks: int = 4,
+                               out: Optional[str] = None,
+                               verbose: bool = True,
+                               device: Optional[str] = None,
+                               timeout: float = 600.0) -> dict:
+    """The two-level eager allreduce against the flat one (reference
+    ``:935``): two ``python -m horovod_tpu_torch.runner -np 4`` runs of
+    :func:`run_hierarchical_worker`, flat and with
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` at threshold 0, and each size's
+    latency side by side with the bytes each path put across hosts
+    (summed over the ranks; the two-level path's are the flat path's
+    over ``local_size``).  ``device="cpu"`` runs the ranks on gloo (one
+    intra-op thread each); by default each rank takes a card.  Prints one
+    ``BENCH`` JSON line and (with ``out``) writes the same dict there."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def launch(hier: bool) -> list:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+        env["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1" if hier else "0"
+        env["HOROVOD_HIERARCHICAL_ALLREDUCE_THRESHOLD"] = "0"
+        worker = [sys.executable, "-m", "horovod_tpu_torch.benchmark",
+                  "--hierarchical"]
+        if device is not None:
+            worker += ["--device", device]
+            if torch.device(device).type == "cpu":
+                env["OMP_NUM_THREADS"] = "1"
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
+               "-np", str(np_ranks), *worker]
+        p = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=timeout)
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"hierarchical bench run (hier={hier}) failed rc="
+                f"{p.returncode}\n{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+        rows = [json.loads(line.split("HIERBENCH ", 1)[1])
+                for line in p.stdout.splitlines() if "HIERBENCH " in line]
+        if not rows:
+            raise RuntimeError(
+                f"hierarchical bench run (hier={hier}) printed no "
+                f"HIERBENCH rows:\n{p.stdout[-2000:]}")
+        return rows
+
+    flat = {r["size"]: r for r in launch(False)}
+    hier = {r["size"]: r for r in launch(True)}
+    local_size = max(np_ranks // 2, 1)
+    sizes = []
+    for n in sorted(flat):
+        sizes.append({
+            "size": n,
+            "flat_sec_per_op": flat[n]["sec_per_op"],
+            "hier_sec_per_op": hier[n]["sec_per_op"],
+            "speedup": flat[n]["sec_per_op"] / hier[n]["sec_per_op"],
+            "flat_bytes": flat[n]["flat_bytes"],
+            "cross_bytes": hier[n]["cross_bytes"],
+        })
+    result = {
+        "metric": "hierarchical_allreduce_latency",
+        "np": np_ranks,
+        "local_size": local_size,
+        "device": device or "cuda",
+        "knob_observed_live": True,   # every worker asserted it
+        "cross_bytes_ratio": [s["cross_bytes"] / s["flat_bytes"]
+                              for s in sizes],
+        "sizes": sizes,
+    }
+    if verbose:
+        for s in sizes:
+            print(f"allreduce {s['size']:>8} floats: flat "
+                  f"{s['flat_sec_per_op'] * 1e3:.3f} ms, hier "
+                  f"{s['hier_sec_per_op'] * 1e3:.3f} ms "
+                  f"({s['speedup']:.2f}x), cross bytes "
+                  f"{s['cross_bytes']} of flat {s['flat_bytes']}",
+                  flush=True)
+    print("BENCH " + json.dumps(result), flush=True)
+    if out:
+        with open(out, "w") as f:
+            json.dump(result, f, indent=2)
+            f.write("\n")
+    return result
+
+
+def build_parser():
+    """The reference harness's flags (``horovod_tpu/benchmark.py:1427-
+    1535``) with its defaults, less ``--transport`` and ``--coordsim``,
+    plus ``--device`` and the profiles' ``--model lm|decode``."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Synthetic benchmark (reference "
+                    "examples/tensorflow2_synthetic_benchmark.py)")
+    parser.add_argument("--model", default="resnet50",
+                        help="a registered model, or 'lm' / 'decode' for "
+                             "the device-time breakdown of the LM step / "
+                             "of one generate call")
+    parser.add_argument("--batch-size", type=int, default=64,
+                        help="per-rank batch size")
+    parser.add_argument("--image-size", type=int, default=224)
+    parser.add_argument("--num-warmup-batches", type=int, default=5)
+    parser.add_argument("--num-batches-per-iter", type=int, default=10)
+    parser.add_argument("--num-iters", type=int, default=10)
+    parser.add_argument("--efficiency", action="store_true",
+                        help="weak-scaling efficiency: 1 device vs all")
+    parser.add_argument("--profile", action="store_true",
+                        help="trace one round and print the per-op/"
+                             "per-layer device-time breakdown")
+    parser.add_argument("--stem", default="conv7",
+                        choices=("conv7", "s2d", "s2d_fused"))
+    parser.add_argument("--input-dtype", default="float32",
+                        choices=sorted(_DTYPES))
+    parser.add_argument("--device", default=None,
+                        help="'cpu' runs on the CPU over gloo (default: "
+                             "cuda:<local rank>)")
+    parser.add_argument("--lm", action="store_true",
+                        help="run the transformer-LM lane instead of the "
+                             "ResNet harness")
+    parser.add_argument("--step-guard", action="store_true",
+                        help="measure the NaN/Inf step-guard overhead: "
+                             "baseline vs HOROVOD_STEP_GUARD=skip "
+                             "(target < 2%% step time)")
+    parser.add_argument("--shard-optimizer", action="store_true",
+                        help="LM lane with the ZeRO-1 sharded update over "
+                             "all ranks (reports MFU and memory)")
+    parser.add_argument("--compression", default=None, metavar="CODEC",
+                        help="A/B the LM ZeRO lane with gradient codec "
+                             "CODEC (bf16, fp16, int8, powersgd[:rank]) "
+                             "against the uncompressed wire; prints a "
+                             "BENCH JSON row with the wire-byte ratio "
+                             "and loss delta")
+    parser.add_argument("--hierarchical", action="store_true",
+                        help="A/B the 2-level eager allreduce vs the "
+                             "flat ring over two -np 4 runs of the "
+                             "port's launcher; prints a BENCH JSON row "
+                             "(inside a launched rank this flag selects "
+                             "the worker half instead)")
+    parser.add_argument("--serving", action="store_true",
+                        help="offered load vs p50/p99 latency and "
+                             "tokens/s for the continuous-batching "
+                             "router at max_batch 1 vs 8")
+    parser.add_argument("--out", default=None, metavar="FILE",
+                        help="also write the BENCH result dict to FILE")
+    parser.add_argument("--d-model", type=int, default=None)
+    parser.add_argument("--n-layers", type=int, default=None)
+    parser.add_argument("--seq-len", type=int, default=None)
+    parser.add_argument("--vocab-size", type=int, default=None)
+    return parser
+
+
+def _main(argv=None) -> None:
+    import json
+
+    args = build_parser().parse_args(argv)
+    kwargs = dict(image_size=args.image_size,
+                  num_warmup_batches=args.num_warmup_batches,
+                  num_batches_per_iter=args.num_batches_per_iter,
+                  num_iters=args.num_iters)
+    if args.serving:
+        run_serving_benchmark(out=args.out, verbose=True, device=args.device)
+        return
+    if args.hierarchical:
+        if "HOROVOD_RANK" in os.environ:
+            run_hierarchical_worker(device=args.device)
         else:
-            res = run_lm_benchmark(shard_optimizer=True, **lm_kwargs)
+            run_hierarchical_benchmark(out=args.out, device=args.device)
+        return
+    basics.init(device=args.device)
+    on_cpu = basics.device().type == "cpu"
+    if args.lm or args.shard_optimizer or args.compression:
+        lm_kwargs = dict(num_warmup_batches=args.num_warmup_batches,
+                         num_batches_per_iter=args.num_batches_per_iter,
+                         num_iters=args.num_iters,
+                         shard_optimizer=args.shard_optimizer)
+        if on_cpu:
+            # A CPU run checks the plumbing: a config the CPU finishes in
+            # seconds, local attention (the flash kernels need the card).
+            lm_kwargs.update(d_model=128, n_layers=2, n_heads=4,
+                             d_ff=256, vocab_size=512, seq_len=64,
+                             batch_size=2, attention="local",
+                             num_batches_per_iter=min(
+                                 args.num_batches_per_iter, 2),
+                             num_iters=min(args.num_iters, 3))
+        for k, v in (("d_model", args.d_model),
+                     ("n_layers", args.n_layers),
+                     ("seq_len", args.seq_len),
+                     ("vocab_size", args.vocab_size)):
+            if v is not None:
+                lm_kwargs[k] = v
+        # --batch-size is the ResNet knob (default 64); the LM lane keeps
+        # its own default of 8 a rank unless the flag was set.
+        bs = lm_kwargs.pop("batch_size",
+                           args.batch_size if args.batch_size != 64 else 8)
+        if args.compression:
+            run_compression_benchmark(args.compression, batch_size=bs,
+                                      **lm_kwargs)
+        else:
+            res = run_lm_benchmark(batch_size=bs, **lm_kwargs)
             res.pop("step_losses")
             print(json.dumps(res, indent=1), flush=True)
-        basics.shutdown()
-        raise SystemExit(0)
-    if args.model == "lm":
-        res = run_lm_profile(batch_size=args.batch_size or 4)
+    elif args.model == "lm":
+        print(json.dumps(run_lm_profile(
+            batch_size=args.batch_size if args.batch_size != 64 else 4),
+            indent=1), flush=True)
     elif args.model == "decode":
-        res = run_decode_profile(batch_size=args.batch_size or 8)
+        print(json.dumps(run_decode_profile(
+            batch_size=args.batch_size if args.batch_size != 64 else 8),
+            indent=1), flush=True)
+    elif args.step_guard:
+        sg_kwargs = dict(kwargs, stem=args.stem,
+                         input_dtype=args.input_dtype)
+        model, bs = args.model, args.batch_size
+        if on_cpu:
+            # The lane runs the step twice (baseline and guarded): a size
+            # the CPU finishes in seconds.
+            model = "resnet18" if args.model == "resnet50" else args.model
+            bs = min(bs, 4)
+            sg_kwargs.update(image_size=min(args.image_size, 64),
+                             num_warmup_batches=1,
+                             num_batches_per_iter=min(
+                                 args.num_batches_per_iter, 2),
+                             num_iters=min(args.num_iters, 3))
+        run_step_guard_benchmark(model, bs, **sg_kwargs)
+    elif args.profile:
+        print(json.dumps(run_profile(
+            args.model, args.batch_size, args.image_size,
+            steps=args.num_batches_per_iter, input_dtype=args.input_dtype,
+            stem=args.stem), indent=1), flush=True)
+    elif args.efficiency:
+        run_scaling_efficiency(args.model, args.batch_size, stem=args.stem,
+                               input_dtype=args.input_dtype, **kwargs)
     else:
-        res = run_profile(args.model, args.batch_size or 64,
-                          image_size=args.image_size, stem=args.stem,
-                          input_dtype=args.input_dtype)
-    print(json.dumps(res, indent=1), flush=True)
+        res = run_synthetic_benchmark(args.model, args.batch_size,
+                                      stem=args.stem,
+                                      input_dtype=args.input_dtype,
+                                      **kwargs)
+        print("RESULT " + json.dumps(
+            {k: v for k, v in res.items() if k != "step_losses"}),
+            flush=True)
     basics.shutdown()
+
+
+if __name__ == "__main__":
+    _main()

@@ -202,6 +202,30 @@ _var("HOROVOD_SERVING_STATS_INTERVAL", "float", 1.0,
      "Seconds between router stats-file publishes in Router.serve")
 _var("HOROVOD_SERVING_GATE_DIR", "str", None,
      "Scratch dir handshake of the multi-rank serving episodes")
+# The eager plane's two-level collectives (native/data_plane.py).
+_var("HOROVOD_HIERARCHICAL_ALLREDUCE", "bool", False,
+     "1 routes eager allreduces through the 2-level "
+     "local-RS/cross-allreduce/local-AG plane")
+_var("HOROVOD_HIERARCHICAL_ALLGATHER", "bool", False,
+     "1 routes eager allgathers through the 2-level plane")
+_var("HOROVOD_HIERARCHICAL_ALLREDUCE_THRESHOLD", "int", 262144,
+     "Payload bytes below which hier-routed allreduces stay on the flat "
+     "ring")
+# The launcher (runner/).
+_var("HOROVOD_SSH_CMD", "str", "ssh",
+     "Remote-shell command used to spawn ranks (CI points it at "
+     "ci/fake_ssh.sh)")
+_var("HOROVOD_TERMINATE_GRACE_SECONDS", "float", 10.0,
+     "Grace between SIGTERM and SIGKILL when tearing ranks down")
+_var("HOROVOD_HEARTBEAT_DEADLINE", "float", None,
+     "Silence past this marks a rank dead (default 5x the interval)")
+_var("HOROVOD_HANG_DEADLINE", "float", 0.0,
+     "Step-progress stall past this marks a rank hung; 0 disables")
+_var("HOROVOD_COORD_LEASE_SECONDS", "float", 10.0,
+     "Coordinator lease term: heartbeats renew it, expiry triggers the "
+     "deterministic re-election of the lowest healthy leader host")
+_var("HOROVOD_FLEET_JOB", "str", None,
+     "Job name injected by the fleet controller (labels metric exports)")
 
 
 class UnknownEnvVar(KeyError):

@@ -159,12 +159,16 @@ class Response:
 @dataclass
 class TunedParams:
     """What rank 0's autotuner attaches to every response list while it
-    runs (``autotune.h`` ``TunedParams``, the dimensions the port has):
-    every rank applies them before it fuses that list."""
+    runs (``autotune.h`` ``TunedParams``, the dimensions the port has;
+    the two routing booleans are ``message.cc:193-194``, ``:243-244``):
+    every rank applies them before it fuses that list, the booleans only
+    where the two-level plane is available."""
     tuning: bool = False
     cycle_time_ms: float = 1.0
     fusion_threshold: int = 64 * 1024 * 1024
     cache_enabled: bool = True
+    hier_allreduce: bool = False
+    hier_allgather: bool = False
 
 
 @dataclass

@@ -55,6 +55,15 @@ pending entry with the report and stops the thread; under
 ``HOROVOD_COORD_TREE`` the exchange goes member -> host leader -> master
 and back (:mod:`.coord_tree`).
 
+The two-level plane (``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER``,
+reference ``native/runtime.py:374-382``, ``:483-487``, ``:525-546``):
+``init`` agrees on it before the thread starts
+(:func:`data_plane.agree_hierarchy`), and the global set's fused
+allreduce and allgather at or above the agreed threshold take it, on
+every rank alike.  The tuner may flip its two booleans where it is
+available; they are applied with the other tuned parameters, and
+:meth:`Runtime.sync_tuned_config` ANDs them over the ranks.
+
 Telemetry (reference ``native/runtime.py:800-1020``), host-side only:
 with any telemetry consumer on, a submission records its SUBMIT span and
 timeline row, and the return of its wait (``TensorEntry.result``) the
@@ -161,8 +170,14 @@ class Runtime:
 
     def __init__(self, rank: int, size: int, ctrl_group, data_group,
                  global_ranks: Sequence[int], device: torch.device,
-                 subset: bool = False, tree: Optional[TreeGroups] = None):
+                 subset: bool = False, tree: Optional[TreeGroups] = None,
+                 hier: Optional[data_plane.Hierarchy] = None):
         self.rank, self.size = rank, size
+        # The agreed two-level plane (None: not available), and the
+        # reference's counters of both paths.
+        self.hier = hier
+        self.hier_counters = (hier.counters if hier is not None else
+                              dict.fromkeys(data_plane.HIER_COUNTERS, 0))
         self.device = device
         self.ctrl_group = ctrl_group
         self.global_ranks = list(global_ranks)
@@ -238,7 +253,10 @@ class Runtime:
                 if tune:
                     self.tuner = ParameterManager(
                         rank, self.cycle_time_s * 1000.0,
-                        self.fusion_threshold, self.cache_enabled)
+                        self.fusion_threshold, self.cache_enabled,
+                        self.hierarchical_enabled(),
+                        self.hierarchical_allgather_enabled(),
+                        hier is not None)
                     self.exploring = True
             except BaseException:
                 self._close_instruments()
@@ -259,6 +277,15 @@ class Runtime:
         ``native/runtime.py:402-409``); False in flat mode, the two
         fallbacks included."""
         return self.tree is not None
+
+    def hierarchical_enabled(self) -> bool:
+        """True while the global set's fused allreduces take the two-level
+        plane (the agreement's answer, then the tuner's)."""
+        return self.hier is not None and self.hier.allreduce
+
+    def hierarchical_allgather_enabled(self) -> bool:
+        """True while its allgathers do."""
+        return self.hier is not None and self.hier.allgather
 
     def submit(self, entries: Sequence[TensorEntry], kind: str) -> None:
         """File ``entries`` for the next cycle (a short append)."""
@@ -349,6 +376,14 @@ class Runtime:
             "Response-cache hit ratio for this rank's announcements",
         ).set(cfg["cache_hit_ratio"])
         telemetry.gauge(
+            "hvd_autotune_hier_allreduce",
+            "1 while the 2-level eager allreduce routing is active",
+        ).set(1.0 if cfg["hier_allreduce"] else 0.0)
+        telemetry.gauge(
+            "hvd_autotune_hier_allgather",
+            "1 while the 2-level eager allgather routing is active",
+        ).set(1.0 if cfg["hier_allgather"] else 0.0)
+        telemetry.gauge(
             "hvd_coord_tree",
             "1 while tree coordination (member -> host leader -> master) "
             "is active on this rank",
@@ -388,7 +423,8 @@ class Runtime:
     def tuned_config(self) -> dict:
         """The live control-plane configuration: the parameters last
         applied from the response stream (the environment's when the
-        tuner is off) and the response cache's counters (reference
+        tuner is off), the response cache's counters and the two-level
+        routing as the plane runs it now (reference
         ``native/runtime.py:455-493``, the dimensions the port has)."""
         lookups, hits = self.cache_lookups, self.cache_hits
         return {"cycle_time_ms": self.cycle_time_s * 1000.0,
@@ -396,7 +432,10 @@ class Runtime:
                 "exploring": self.exploring,
                 "cache_enabled": self.cache_enabled,
                 "cache_lookups": lookups, "cache_hits": hits,
-                "cache_hit_ratio": hits / lookups if lookups else 0.0}
+                "cache_hit_ratio": hits / lookups if lookups else 0.0,
+                "hier_allreduce": self.hierarchical_enabled(),
+                "hier_allgather": self.hierarchical_allgather_enabled(),
+                "hier_available": self.hier is not None}
 
     def sync_tuned_config(self) -> dict:
         """Agree on the tuned fusion threshold and latch it for the
@@ -408,18 +447,25 @@ class Runtime:
         different thresholds would hang the job.  So the bucketing follows
         the tuner only through this collective, a Min all-reduce over each
         rank's view: every rank calls it at the same point of the program
-        (reference ``native/runtime.py:495-550``).  Returns
-        ``{"fusion_threshold_bytes": agreed}``."""
+        (reference ``native/runtime.py:495-550``).  The two routing
+        booleans ride the same MIN, which ANDs them: the agreed view says
+        "on" only once every rank routes through the two-level plane.
+        Returns ``{"fusion_threshold_bytes", "hier_allreduce",
+        "hier_allgather"}``."""
         self._sync_seq += 1
-        local = torch.tensor([int(self.fusion_threshold)],
+        local = torch.tensor([int(self.fusion_threshold),
+                              int(self.hierarchical_enabled()),
+                              int(self.hierarchical_allgather_enabled())],
                              dtype=torch.int64, device=self.device)
         e = TensorEntry(OpType.ALLREDUCE, f"hvd.autotune.sync."
                         f"{self._sync_seq}", local, arg=int(ReduceOp.MIN))
         self.submit([e], "allreduce")
-        agreed = int(e.result()[0])
-        if agreed > 0:
-            self._agreed_fusion_threshold = agreed
-        return {"fusion_threshold_bytes": agreed}
+        agreed = [int(v) for v in e.result().tolist()]
+        if agreed[0] > 0:
+            self._agreed_fusion_threshold = agreed[0]
+        return {"fusion_threshold_bytes": agreed[0],
+                "hier_allreduce": bool(agreed[1]),
+                "hier_allgather": bool(agreed[2])}
 
     def _live_fusion_threshold(self) -> Optional[int]:
         return self._agreed_fusion_threshold
@@ -431,6 +477,11 @@ class Runtime:
         self.fusion_threshold = int(params.fusion_threshold)
         self.cache_enabled = params.cache_enabled and self.cache.enabled
         self.exploring = params.tuning
+        # The tuner proposes the two-level routing only on an agreed
+        # topology (operations.cc:886-896).
+        if self.hier is not None:
+            self.hier.allreduce = params.hier_allreduce
+            self.hier.allgather = params.hier_allgather
 
     # -- the eager-op deadline and the watchdog ------------------------------------
 
@@ -838,7 +889,7 @@ class Runtime:
             held[i] = e.tensor
         if resp.op_type == OpType.BARRIER:   # the negotiation was the barrier
             return [], [lambda: None] * len(held), None
-        op = getattr(data_plane, resp.op_type.name.lower())
+        op = self._route(resp)
         arg = held if resp.op_type == OpType.ALLREDUCE else held[0]
         kw = ({"mark": self._mark(marks)} if self.timeline is not None
               and resp.op_type == OpType.ALLREDUCE else {})
@@ -864,6 +915,32 @@ class Runtime:
                 done = torch.cuda.Event()
                 done.record(self._stream)
         return works, outputs, done
+
+    def _route(self, resp: Response):
+        """The data-plane function of a response: the two-level one for
+        the global set's fused allreduce (not Adasum) or allgather at or
+        above the agreed threshold while its boolean is on, else the flat
+        one.  Everything it reads is the same on every rank."""
+        flat = getattr(data_plane, resp.op_type.name.lower())
+        h = self.hier
+        if resp.set_id != 0 or resp.op_type not in (OpType.ALLREDUCE,
+                                                    OpType.ALLGATHER):
+            return flat
+        nbytes = sum(resp.first_dims) * getattr(torch, resp.dtype).itemsize
+        if resp.op_type == OpType.ALLREDUCE:
+            if resp.arg == ReduceOp.ADASUM:
+                return flat
+            if (h is not None and h.allreduce and nbytes
+                    and nbytes >= h.threshold):
+                return functools.partial(data_plane.hierarchical_allreduce,
+                                         h=h)
+            data_plane.book_flat_allreduce(self.hier_counters, nbytes)
+            return flat
+        if (h is not None and h.allgather and nbytes
+                and nbytes >= h.threshold
+                and len(resp.first_dims) == self.size):
+            return functools.partial(data_plane.hierarchical_allgather, h=h)
+        return flat
 
     def _mark(self, marks: list):
         """A function the data plane calls after it copied a fused

@@ -21,6 +21,8 @@ import threading
 import time
 from typing import Dict, List
 
+from horovod_tpu_torch import telemetry
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build")
@@ -29,16 +31,34 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_kernel_counters: List["CallCounter"] = []
+
+
+def _publish_launches() -> None:
+    for c in _kernel_counters:
+        if c.count:
+            telemetry.gauge(
+                "hvd_kernel_launches",
+                "Launches of a hand-written kernel by this process",
+                kernel=c.name).set(float(c.count))
+
+
+telemetry.register_metrics_flush_hook(_publish_launches)
 
 
 class CallCounter:
     """A plain count of launches (or calls), kept beside the wrapper that
-    makes them, so a run can show that its path went through them."""
+    makes them, so a run can show that its path went through them.  A
+    ``kernel`` counter's count is also published at exit into the rank's
+    metrics (``hvd_kernel_launches{kernel=<name>}``, once it is above 0),
+    so a job's ``--metrics-file`` shows which kernels its ranks ran."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, kernel: bool = False):
         self.name = name
         self.count = 0
         self._lock = threading.Lock()
+        if kernel:
+            _kernel_counters.append(self)
 
     def add(self) -> None:
         """One more; safe when several threads launch at once."""
@@ -134,3 +154,8 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
+
+
+def built(name: str) -> bool:
+    """True when ``csrc/<name>.cu`` is built for its current source."""
+    return os.path.exists(_lib_path(name))

@@ -40,9 +40,9 @@ import torch
 from horovod_tpu_torch.ops import _build
 
 # One count per kernel launch (the CPU route does not count).
-fwd_launches = _build.CallCounter("flash_attention.fwd")
-dq_launches = _build.CallCounter("flash_attention.bwd_dq")
-dkv_launches = _build.CallCounter("flash_attention.bwd_dkv")
+fwd_launches = _build.CallCounter("flash_attention.fwd", kernel=True)
+dq_launches = _build.CallCounter("flash_attention.bwd_dq", kernel=True)
+dkv_launches = _build.CallCounter("flash_attention.bwd_dkv", kernel=True)
 
 NEG_INF = float("-inf")
 # Head dims the kernels are built for (multiples of the 16-deep tensor-core

@@ -31,7 +31,7 @@ import torch
 from horovod_tpu_torch.ops import _build
 
 # One count per kernel launch (the CPU route does not count).
-launches = _build.CallCounter("fused_stem")
+launches = _build.CallCounter("fused_stem", kernel=True)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory of one kernel block: the staged input of a strip.  72 KB

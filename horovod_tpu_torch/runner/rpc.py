@@ -3,14 +3,17 @@
 Counterpart of ``horovod_tpu/runner/rpc.py``: ``AuthError``,
 ``_send_msg``, ``_recv_exact`` and ``_recv_msg`` (``:30-60``),
 ``RpcServer`` (``:63-113``), ``connect_with_retry`` and ``rpc_call``
-(``:116-200``) and ``job_key_bytes`` (``:474``).  A message is an ``!Q``
+(``:116-200``), ``time_sync_reply`` (``:201``), ``KeepaliveMonitor``
+(``:340``) and ``job_key_bytes`` (``:474``).  A message is an ``!Q``
 payload length, the HMAC-SHA256 digest of the payload under the job's
 key (``HOROVOD_SECRET_KEY``), then the pickled payload: byte for byte
 what the reference launcher's ``RpcServer`` reads, so the port's
 heartbeat sender talks to ``hvdrun``'s health plane.  A digest is
 checked before anything in the message is unpickled.  The port's
 ``RpcServer`` serves the serving plane's replicas
-(:mod:`horovod_tpu_torch.serving.replica`).  ``measure_clock_offset``
+(:mod:`horovod_tpu_torch.serving.replica`) and the port's launcher
+(:mod:`horovod_tpu_torch.runner.run`), whose health plane tells dead
+ranks from hung ones with ``KeepaliveMonitor``.  ``measure_clock_offset``
 (``:212``) is the client half of the launcher's time-sync handshake.
 The reference's client-side series (``hvd_rpc_calls_total``,
 ``_connect_retries_total``, ``_connect_failures_total``) and the ``rpc``
@@ -189,6 +192,13 @@ def rpc_call(addr: str, port: int, request: Any, key: bytes,
     return reply
 
 
+def time_sync_reply() -> dict:
+    """The server half of the time-sync handshake: the launcher's
+    collectors answer ``{"kind": "time_sync"}`` with their monotonic
+    clock, read as close to the reply as possible."""
+    return {"ok": True, "server_time": time.monotonic()}
+
+
 def measure_clock_offset(addr: str, port: int, key: bytes,
                          samples: int = 5,
                          timeout: float = 5.0) -> Optional[tuple]:
@@ -212,6 +222,134 @@ def measure_clock_offset(addr: str, port: int, key: bytes,
         if best is None or rtt < best[1]:
             best = (offset, rtt)
     return best
+
+
+class KeepaliveMonitor:
+    """Driver-side liveness bookkeeping: tasks ping periodically; a task
+    silent past ``timeout`` is reported dead (the failure-detection half
+    of the reference's task services).
+
+    Pings may carry a training step (:meth:`progress` — the heartbeat
+    health plane), which lets the monitor distinguish two very different
+    failures: a *dead* task (socket gone, pings stopped —
+    :meth:`dead_tasks`) and a *hung* one (pings keep arriving but the
+    step has not advanced past ``hang_deadline`` seconds —
+    :meth:`hung_tasks`).  The distinction matters because a hung worker
+    holds every peer hostage inside a collective: waiting for the
+    collective's own timeout wastes minutes the health plane can save.
+
+    ``clock`` is a monotonic-seconds callable, injectable so tests step
+    time instead of sleeping.  Call :meth:`forget` when a task finishes
+    cleanly — a completed task stops pinging and must not be mistaken
+    for a dead one."""
+
+    def __init__(self, timeout: float = 60.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 hang_deadline: float = 0.0):
+        self._clock = clock
+        self._timeout = timeout
+        self._hang_deadline = hang_deadline
+        self._last: dict = {}
+        self._steps: dict = {}          # task_id -> (step, last_advance_ts)
+        self._reported_dead: set = set()
+        self._reported_hung: set = set()
+        self._lock = threading.Lock()
+
+    def ping(self, task_id) -> None:
+        with self._lock:
+            self._last[task_id] = self._clock()
+            # A task that pings again was a network blip, not a loss.
+            self._reported_dead.discard(task_id)
+
+    def progress(self, task_id, step: int) -> None:
+        """A heartbeat carrying the task's training step.  Counts as a
+        ping; the hang clock restarts only when the step ADVANCES."""
+        with self._lock:
+            now = self._clock()
+            self._last[task_id] = now
+            self._reported_dead.discard(task_id)
+            prev = self._steps.get(task_id)
+            if prev is None or step > prev[0]:
+                self._steps[task_id] = (int(step), now)
+                self._reported_hung.discard(task_id)
+
+    def forget(self, task_id) -> None:
+        """Stop tracking a task (it reported its result or was removed
+        from the job); silence from it is no longer a failure."""
+        with self._lock:
+            self._last.pop(task_id, None)
+            self._steps.pop(task_id, None)
+            self._reported_dead.discard(task_id)
+            self._reported_hung.discard(task_id)
+
+    def forget_all(self) -> None:
+        """Atomically stop tracking every task.
+
+        Tearing a per-job monitor down mid-episode (fleet preemption, a
+        new elastic attempt) must not race a concurrent watchdog sweep
+        into reporting half-forgotten ranks: a sweep observes either the
+        full pre-teardown set or nothing.  Looping :meth:`forget` over
+        :meth:`tracked` cannot give that guarantee — an RPC handler can
+        insert between the snapshot and the per-id pops, and a sweep can
+        run mid-loop against a partially cleared map."""
+        with self._lock:
+            self._last.clear()
+            self._steps.clear()
+            self._reported_dead.clear()
+            self._reported_hung.clear()
+
+    def dead_tasks(self) -> list:
+        now = self._clock()
+        with self._lock:
+            dead = [t for t, ts in self._last.items()
+                    if now - ts > self._timeout]
+            fresh = [t for t in dead if t not in self._reported_dead]
+            self._reported_dead.update(fresh)
+        if fresh:
+            # Counted once per silence episode, not per poll.
+            telemetry.counter(
+                "hvd_rpc_keepalive_losses_total",
+                "Tasks whose keepalive pings went silent past the "
+                "timeout").inc(len(fresh))
+        return dead
+
+    def hung_tasks(self) -> list:
+        """Tasks whose heartbeats still arrive but whose step has been
+        stalled longer than ``hang_deadline`` (0 disables).  Reported
+        once per stall episode — a step advance re-arms the detector.
+        Disjoint from :meth:`dead_tasks`: a silent task is dead, not
+        hung."""
+        if not self._hang_deadline:
+            return []
+        now = self._clock()
+        with self._lock:
+            hung = [
+                t for t, (step, advance_ts) in self._steps.items()
+                if now - advance_ts > self._hang_deadline
+                and now - self._last.get(t, 0.0) <= self._timeout
+            ]
+            fresh = [t for t in hung if t not in self._reported_hung]
+            self._reported_hung.update(fresh)
+        if fresh:
+            telemetry.counter(
+                "hvd_heartbeat_hangs_total",
+                "Tasks whose heartbeats stayed alive while the training "
+                "step stalled past the hang deadline").inc(len(fresh))
+        return fresh
+
+    def tracked(self) -> list:
+        """Every task id with any recorded state (ping or step)."""
+        with self._lock:
+            return sorted(set(self._last) | set(self._steps))
+
+    def step_lags(self) -> dict:
+        """Per-task straggler lag: ``max(step) - step`` over every task
+        that has reported a step.  Empty until the first progress ping."""
+        with self._lock:
+            if not self._steps:
+                return {}
+            top = max(step for step, _ in self._steps.values())
+            return {t: top - step for t, (step, _) in self._steps.items()}
 
 
 def job_key_bytes(env_value: Optional[str]) -> bytes:

@@ -1,0 +1,1093 @@
+"""``hvdrun`` for the port: ``python -m horovod_tpu_torch.runner``.
+
+Usage::
+
+    python -m horovod_tpu_torch.runner -np 4 python train.py
+    python -m horovod_tpu_torch.runner -np 8 -H host1:4,host2:4 python train.py
+
+Counterpart of ``horovod_tpu/runner/run.py`` (the reference Horovod's
+``horovodrun``, ``run/run.py:374-587``): the same flags, the same
+``HOROVOD_*`` contract for every rank (``config_parser.runtime_env``),
+and the same supervision: the heartbeat health plane
+(``--heartbeat-interval``, ``--hang-deadline``), the coordinator lease
+and its election, fail-in-place reformation (``--on-rank-failure``),
+whole-job elastic restarts (``--elastic-restarts``, ``--min-np``, the
+host blacklist), the merged ``--metrics-file`` summary and the
+``--trace`` merge.  It imports neither JAX nor ``horovod_tpu``, so it runs
+on a host that has only PyTorch.
+
+The port's ranks meet at ``HOROVOD_COORDINATOR_ADDR`` (``basics.init``:
+rank 0 serves the ``torch.distributed`` store there), so every attempt
+exports a fresh ``host:port`` there, the same port as
+``HOROVOD_RENDEZVOUS_PORT``; a relaunch never meets the dead attempt's
+store.  Left out, being the JAX package's alone: ``--jax-distributed``
+and ``--jax-coordinator-port`` (``jax.distributed``'s bootstrap), and the
+shared-memory namespace of the native C++ transports
+(``HOROVOD_SHM_DIR``: the port's wire is NCCL or gloo).
+``--check-build`` reports the port's own backends and kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import socket
+import sys
+import tempfile
+import time
+from typing import Callable, List, Optional
+
+from horovod_tpu_torch import config, telemetry
+from horovod_tpu_torch.coordination import PREEMPTION_RC
+from horovod_tpu_torch.runner import config_parser, hosts, launch
+
+def build_parser() -> argparse.ArgumentParser:
+    from horovod_tpu_torch import __version__
+    p = argparse.ArgumentParser(
+        prog="hvdrun",
+        description="Launch a horovod_tpu_torch distributed job.")
+    p.add_argument("-v", "--version", action="version",
+                   version=__version__)
+    p.add_argument("-np", "--num-proc", dest="np", type=int,
+                   help="Total number of processes to launch.")
+    p.add_argument("-H", "--hosts",
+                   help="Comma-separated host:slots pairs "
+                        "(default: localhost with -np slots).")
+    p.add_argument("--hostfile",
+                   help="Hostfile with 'hostname slots=N' lines.")
+    p.add_argument("--output-filename",
+                   help="Redirect per-rank output to "
+                        "<dir>/rank.N/stdout|stderr.")
+    p.add_argument("--start-timeout", type=float, default=None,
+                   help="Seconds to wait for the job to finish launching.")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--config-file",
+                   help="YAML config file; CLI flags take precedence.")
+    p.add_argument("--check-build", action="store_true",
+                   help="Print build capabilities and exit.")
+    p.add_argument("--rendezvous-port", type=int, default=0,
+                   help="Fixed controller rendezvous port (default: pick "
+                        "a free port).")
+    p.add_argument("--elastic-restarts", type=int, default=0,
+                   help="Relaunch the WHOLE job up to N times after a "
+                        "failure (full-restart elasticity: each attempt "
+                        "gets a fresh rendezvous; pair with "
+                        "hvd.checkpoint save/restore so training resumes "
+                        "from the latest step — docs/fault_tolerance.md). "
+                        "Ranks see HOROVOD_RESTART_ATTEMPT=k.")
+    p.add_argument("--min-np", dest="min_np", type=int, default=None,
+                   help="Smallest world size an elastic restart may run "
+                        "with.  When hosts are blacklisted after "
+                        "failures, restart attempts re-allocate ranks "
+                        "onto the surviving hosts and accept any world "
+                        "size >= this floor (default: -np, i.e. never "
+                        "shrink).")
+    p.add_argument("--blacklist-cooldown", dest="blacklist_cooldown",
+                   type=float, default=None,
+                   help="Seconds until a blacklisted host becomes "
+                        "eligible for re-allocation again (default: "
+                        "demoted for the life of the job).")
+    p.add_argument("--heartbeat-interval", dest="heartbeat_interval",
+                   type=float, default=None,
+                   help="Enable the heartbeat health plane: every rank "
+                        "reports (step, progress_ts) to the launcher "
+                        "every N seconds over the authenticated RPC "
+                        "plane.  A rank silent past "
+                        "HOROVOD_HEARTBEAT_DEADLINE (default 5x the "
+                        "interval) is declared dead and killed for "
+                        "restart; with --hang-deadline, a rank whose "
+                        "heartbeats arrive but whose step stalls is "
+                        "killed proactively instead of waiting for the "
+                        "eager collective timeout.  Defaults to "
+                        "HOROVOD_HEARTBEAT_INTERVAL when set "
+                        "(docs/fault_tolerance.md).")
+    p.add_argument("--hang-deadline", dest="hang_deadline", type=float,
+                   default=None,
+                   help="Seconds a rank's training step may stall (while "
+                        "its heartbeats stay alive) before the launcher "
+                        "restarts it.  Requires --heartbeat-interval. "
+                        "Defaults to HOROVOD_HANG_DEADLINE; 0 disables "
+                        "hang detection.")
+    p.add_argument("--on-rank-failure", dest="on_rank_failure",
+                   choices=["restart", "shrink", "shrink-then-restart"],
+                   default=None,
+                   help="Policy when a rank dies mid-job (docs/"
+                        "fault_tolerance.md, 'Fail-in-place').  restart "
+                        "(default): today's whole-job elastic restart.  "
+                        "shrink: survivors reform the collective world "
+                        "IN-PROCESS — in-flight collectives drain with a "
+                        "retryable membership-changed status, the "
+                        "launcher delivers each survivor's new rank over "
+                        "the heartbeat plane, and training resumes via "
+                        "resilience.reform_world() with no relaunch.  "
+                        "shrink-then-restart: try the in-process path, "
+                        "fall back to the elastic restart budget when "
+                        "reformation fails or would drop below --min-np. "
+                        "Shrink modes require --heartbeat-interval.  "
+                        "Defaults to HOROVOD_ON_RANK_FAILURE.")
+    p.add_argument("--network-interface", dest="network_interface",
+                   default=None,
+                   help="Comma-separated NIC name(s), in preference "
+                        "order, for the controller rendezvous and TCP "
+                        "data plane on every host (reference "
+                        "horovodrun --network-interface): each rank "
+                        "binds its listeners to the first matching "
+                        "interface's IPv4 address and advertises it. "
+                        "Per-host overrides: HOROVOD_NETWORK_INTERFACE "
+                        "or HOROVOD_HOSTNAME in that host's env.")
+
+    tune = p.add_argument_group("tunables")
+    tune.add_argument("--fusion-threshold-mb", type=float, default=None)
+    tune.add_argument("--cycle-time-ms", type=float, default=None)
+    tune.add_argument("--cache-capacity", type=int, default=None)
+    tune.add_argument("--autotune", action="store_true", default=False,
+                      help="Online Bayesian autotuning of the control "
+                           "plane (cycle time, fusion threshold, transport "
+                           "chunk size, response cache): explores, pins "
+                           "the best config, then keeps monitoring and "
+                           "re-opens tuning when throughput drifts.  "
+                           "Progress lands in hvd_autotune_* gauges "
+                           "(--metrics-file) and the --autotune-log-file "
+                           "CSV; see docs/performance.md, 'Adaptive "
+                           "control plane'.")
+    tune.add_argument("--autotune-log-file", default=None,
+                      help="Per-trial CSV from the rank-0 tuner (one row "
+                           "per trial; phase column marks pinned/reopen "
+                           "transitions).")
+
+    timeline = p.add_argument_group("timeline")
+    timeline.add_argument("--timeline-filename", default=None)
+    timeline.add_argument("--timeline-mark-cycles", action="store_true",
+                          default=False)
+
+    metrics = p.add_argument_group("metrics")
+    metrics.add_argument("--metrics-file", dest="metrics_file", default=None,
+                         help="Write a merged cross-rank metrics summary "
+                              "here after the job; each rank also dumps "
+                              "its own <base>.rank<k>.json. Defaults to "
+                              "HOROVOD_METRICS_FILE when set "
+                              "(docs/metrics.md).")
+
+    tracing = p.add_argument_group("tracing")
+    tracing.add_argument("--trace", dest="trace_dir", default=None,
+                         metavar="DIR",
+                         help="Distributed tracing: every rank records "
+                              "per-collective spans (HOROVOD_TRACE) and "
+                              "the launcher merges them into DIR/"
+                              "trace.json (skew-corrected Perfetto/Chrome "
+                              "trace) plus DIR/critical_path.json with a "
+                              "straggler report. Defaults to "
+                              "HOROVOD_TRACE_DIR when set; sampling via "
+                              "HOROVOD_TRACE_SAMPLE (docs/timeline.md).")
+
+    stall = p.add_argument_group("stall detection")
+    stall.add_argument("--stall-check-time-seconds", type=float, default=None)
+    stall.add_argument("--stall-shutdown-time-seconds", type=float,
+                       default=None)
+
+    logg = p.add_argument_group("logging")
+    logg.add_argument("--log-level", default=None,
+                      choices=["trace", "debug", "info", "warning", "error",
+                               "fatal"])
+    logg.add_argument("--log-hide-timestamp", action="store_true",
+                      default=False)
+
+    p.add_argument("command", nargs=argparse.REMAINDER,
+                   help="Command to run on every rank.")
+    return p
+
+
+def check_build() -> str:
+    """The port's backends (reference ``check_build``): NCCL, gloo, CUDA
+    and the card this host has, and whether each hand-written kernel is
+    built for its current source (a kernel builds at its first use)."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import __version__
+    from horovod_tpu_torch.ops import _build
+
+    yes, no = "[X]", "[ ]"
+
+    def mark(ok) -> str:
+        return yes if ok else no
+
+    cuda = torch.cuda.is_available()
+    card = f" ({torch.cuda.get_device_name(0)})" if cuda else ""
+    lines = [
+        f"horovod_tpu_torch v{__version__}:",
+        "",
+        "Available backends:",
+        f"    {mark(dist.is_available() and dist.is_nccl_available())} "
+        f"NCCL",
+        f"    {mark(dist.is_available() and dist.is_gloo_available())} "
+        f"Gloo",
+        f"    {no} MPI",
+        f"    {mark(cuda)} CUDA {torch.version.cuda or '-'}{card}",
+        f"    {yes} Eager control plane (gloo control group)",
+        "",
+        "Kernels (sm_90a, built at first use):",
+    ]
+    for name in _build.sources():
+        lines.append(f"    {mark(_build.built(name))} {name}")
+    lines += ["", "Available frameworks:",
+              f"    {yes} PyTorch {torch.__version__}"]
+    return "\n".join(lines)
+
+
+def run_command(args) -> int:
+    """Resolved-args entry, shared with tests."""
+    if args.hostfile:
+        host_list = hosts.parse_hostfile(args.hostfile)
+    elif args.hosts:
+        host_list = hosts.parse_hosts(args.hosts)
+    else:
+        if not args.np:
+            raise ValueError("either -np or -H/--hostfile is required")
+        host_list = [hosts.HostSlots("localhost", args.np)]
+    np_ = args.np or sum(h.slots for h in host_list)
+
+    infos = hosts.allocate(host_list, np_)
+    extra_env = config_parser.env_from_args(args)
+    # One shared secret per job unless the caller pinned one (e.g. to join
+    # an externally coordinated job).
+    extra_env.setdefault(
+        "HOROVOD_SECRET_KEY",
+        config.env_raw("HOROVOD_SECRET_KEY") or config_parser.job_secret())
+
+    # The coordinator lives on rank 0's host.  Only an all-local job may use
+    # loopback: with remote ranks in the mix they must reach rank 0 by its
+    # real hostname.
+    all_local = all(launch.is_local(i.hostname) for i in infos)
+    if not all_local:
+        # Fail fast on dead hosts before any rank spawns (reference
+        # run.py:59-112 cached ssh reachability check).
+        from horovod_tpu_torch.runner import network
+        remote = sorted({i.hostname for i in infos
+                         if not launch.is_local(i.hostname)})
+        network.check_hosts_reachable(remote)
+    # The rendezvous itself lives in THIS launcher process, so its
+    # address never changes across restart attempts even when rank 0 is
+    # re-allocated to a different host.
+    addr = "127.0.0.1" if all_local else infos[0].hostname
+    restarts = max(0, getattr(args, "elastic_restarts", 0) or 0)
+    min_np = getattr(args, "min_np", None) or np_
+    if min_np > np_:
+        raise ValueError(f"--min-np {min_np} exceeds the requested "
+                         f"world size -np {np_}")
+    blacklist = hosts.HostBlacklist(
+        cooldown=getattr(args, "blacklist_cooldown", None))
+    metrics_file = (getattr(args, "metrics_file", None) or
+                    config.env_str("HOROVOD_METRICS_FILE", "").strip() or
+                    None)
+    collector = None
+    if metrics_file:
+        # The launcher writes the MERGED summary to this path itself, so
+        # its own at-exit dump must not clobber it (each rank gets an
+        # explicit <base>.rank<k>.json injected in _launch_once).
+        os.environ.pop("HOROVOD_METRICS_FILE", None)
+        telemetry.configure(enabled_flag=True)
+        collector = _MetricsCollector(extra_env["HOROVOD_SECRET_KEY"])
+    trace_dir = (getattr(args, "trace_dir", None) or
+                 config.env_str("HOROVOD_TRACE_DIR", "").strip() or
+                 None)
+    tracer = None
+    if trace_dir:
+        # The launcher must not record spans itself (it runs no
+        # collectives) — the env vars are injected per rank in
+        # _launch_once.  Telemetry is enabled so the critical-path
+        # gauges land in the launcher snapshot of --metrics-file.
+        os.environ.pop("HOROVOD_TRACE_DIR", None)
+        telemetry.configure(enabled_flag=True)
+        tracer = _TraceCollector(extra_env["HOROVOD_SECRET_KEY"])
+    # Heartbeat health plane (docs/fault_tolerance.md "Warm restart"):
+    # active only when an interval is configured, so launch paths (and
+    # tests) that stub _launch_once keep their historical signature.
+    hb_interval = getattr(args, "heartbeat_interval", None)
+    if hb_interval is None:
+        raw = config.env_str("HOROVOD_HEARTBEAT_INTERVAL", "").strip()
+        hb_interval = float(raw) if raw else None
+    health = None
+    if hb_interval:
+        deadline = float(
+            config.env_str("HOROVOD_HEARTBEAT_DEADLINE", "").strip()
+            or 5.0 * hb_interval)
+        hang = getattr(args, "hang_deadline", None)
+        if hang is None:
+            hang = float(
+                config.env_str("HOROVOD_HANG_DEADLINE", "").strip() or 0.0)
+        health = _HealthPlane(extra_env["HOROVOD_SECRET_KEY"],
+                              hb_interval, deadline, hang)
+    coord = _CoordinationPlane(
+        config.env_float("HOROVOD_COORD_LEASE_SECONDS"))
+    if health is not None:
+        health.coord = coord
+    # Rank-failure policy (docs/fault_tolerance.md "Fail-in-place").
+    # The default — restart — keeps today's behavior untouched: the env
+    # var is NOT injected and no reform hook is armed, so ranks and
+    # native runtime run the exact pre-policy code paths.
+    on_rank_failure = (getattr(args, "on_rank_failure", None) or
+                      config.env_str("HOROVOD_ON_RANK_FAILURE", "").strip()
+                      or "restart")
+    if on_rank_failure not in ("restart", "shrink", "shrink-then-restart"):
+        print(f"hvdrun: unknown HOROVOD_ON_RANK_FAILURE="
+              f"{on_rank_failure!r}; using 'restart'",
+              file=sys.stderr, flush=True)
+        on_rank_failure = "restart"
+    if on_rank_failure != "restart" and health is None:
+        # The reform spec travels in heartbeat replies and dead-rank
+        # detection leans on the keepalive monitor — without the health
+        # plane the in-process path cannot work.
+        print(f"hvdrun: --on-rank-failure {on_rank_failure} requires the "
+              f"heartbeat health plane (--heartbeat-interval); falling "
+              f"back to 'restart'", file=sys.stderr, flush=True)
+        on_rank_failure = "restart"
+    if on_rank_failure != "restart":
+        # Ranks (and the native runtime through them) must see the same
+        # policy so a dead peer drains in-flight collectives with the
+        # retryable membership-changed status instead of a fatal abort.
+        extra_env["HOROVOD_ON_RANK_FAILURE"] = on_rank_failure
+    # Warm-restart spill scratch dir: one per JOB, stable across elastic
+    # restart attempts so a new attempt's ranks find the old attempt's
+    # spills.  A user-provided HOROVOD_SPILL_DIR is respected (and never
+    # deleted); otherwise the launcher owns a temp dir for the job.
+    owned_spill_dir = None
+    spill_scratch = config.env_str("HOROVOD_SPILL_DIR", "").strip()
+    if (restarts > 0 or on_rank_failure != "restart") and not spill_scratch:
+        # Name the job in the prefix when running under the fleet
+        # controller so two jobs' scratch dirs are tellable apart on a
+        # shared host (the fleet normally provisions HOROVOD_SPILL_DIR
+        # itself; this is the fallback path).
+        job = config.env_str("HOROVOD_FLEET_JOB", "").strip()
+        prefix = f"hvd-spill-{job}-" if job else "hvd-spill-"
+        owned_spill_dir = tempfile.mkdtemp(prefix=prefix)
+        spill_scratch = owned_spill_dir
+    if spill_scratch:
+        extra_env["HOROVOD_SPILL_DIR"] = spill_scratch
+    prev_np = None
+    rc = 1
+    try:
+        for attempt in range(restarts + 1):
+            if attempt > 0:
+                telemetry.counter(
+                    "hvd_elastic_restarts_total",
+                    "Whole-job elastic restart attempts").inc()
+                if rc == PREEMPTION_RC:
+                    # Preemption: the ranks checkpointed and asked to be
+                    # rescheduled — no backoff (the host is healthy, the
+                    # scheduler is just reclaiming it) and nothing gets
+                    # blacklisted below (launch_job already keeps
+                    # preempted ranks out of report["failed"]).
+                    telemetry.counter(
+                        "hvd_preemptions_total",
+                        "Whole-job reschedules after rank preemption "
+                        "(coordinated save + rc "
+                        f"{PREEMPTION_RC})").inc()
+                    print(f"hvdrun: job preempted (rc={rc}); immediate "
+                          f"reschedule {attempt}/{restarts} with a fresh "
+                          f"rendezvous", file=sys.stderr, flush=True)
+                else:
+                    # Brief backoff so a persistently broken launch (host
+                    # mid-reboot, dead binary) doesn't burn the whole
+                    # restart budget in a second — the budget targets
+                    # transient failures.
+                    delay = min(2.0 ** attempt, 30.0)
+                    print(f"hvdrun: job failed (rc={rc}); elastic "
+                          f"restart {attempt}/{restarts} in {delay:.0f}s "
+                          f"with a fresh rendezvous",
+                          file=sys.stderr, flush=True)
+                    time.sleep(delay)
+                # Re-probe surviving remote hosts RIGHT BEFORE the
+                # attempt — the pre-launch check's hour-long cache would
+                # answer from before the failure.  A host that stopped
+                # answering is demoted unconditionally: spawning a rank
+                # there can only hang the rendezvous.
+                from horovod_tpu_torch.runner import network
+                candidates = sorted({
+                    h.hostname for h in host_list
+                    if not launch.is_local(h.hostname) and
+                    not blacklist.is_blacklisted(h.hostname)})
+                if candidates:
+                    for host, ok in sorted(
+                            network.probe_hosts(candidates).items()):
+                        if not ok:
+                            blacklist.demote(host, "unreachable over ssh")
+                            print(f"hvdrun: host {host} is unreachable; "
+                                  f"blacklisting", file=sys.stderr,
+                                  flush=True)
+            usable = coord.ensure_coordinator(blacklist.filter(host_list))
+            capacity = sum(h.slots for h in usable)
+            cur_np = min(np_, capacity)
+            if cur_np < min_np:
+                print(f"hvdrun: cannot continue: surviving hosts provide "
+                      f"{capacity} slot(s) but the job needs at least "
+                      f"{min_np} (--min-np). Blacklisted: "
+                      f"{blacklist.summary()}", file=sys.stderr, flush=True)
+                return rc or 1
+            if cur_np < np_:
+                print(f"hvdrun: restarting with a smaller world: "
+                      f"{cur_np}/{np_} ranks on surviving hosts "
+                      f"(blacklisted: {blacklist.summary()})",
+                      file=sys.stderr, flush=True)
+            infos = hosts.allocate(usable, cur_np)
+            extra_env["HOROVOD_RESTART_ATTEMPT"] = str(attempt)
+            extra_env.update(coord.env())
+            if prev_np is not None and prev_np != cur_np:
+                # World size changed across the restart: workers use this
+                # to rescale the learning rate / accumulate so the global
+                # batch keeps its semantics (parallel.data.elastic_transition).
+                extra_env["HOROVOD_ELASTIC_PREV_SIZE"] = str(prev_np)
+            else:
+                extra_env.pop("HOROVOD_ELASTIC_PREV_SIZE", None)
+            prev_np = cur_np
+            report: dict = {}
+            # Metrics kwargs only when active: callers (and tests) that
+            # stub _launch_once with the historical 5-arg signature stay
+            # compatible on the metrics-off path.
+            mkw = ({"metrics_file": metrics_file, "collector": collector}
+                   if collector is not None else {})
+            if health is not None:
+                mkw["health"] = health
+            if on_rank_failure != "restart":
+                mkw["on_rank_failure"] = on_rank_failure
+                mkw["min_np"] = min_np
+            if tracer is not None:
+                mkw["trace_dir"] = trace_dir
+                mkw["tracer"] = tracer
+            rc = _launch_once(args, infos, addr, extra_env, report=report,
+                              **mkw)
+            if rc == 0:
+                return 0
+            if rc in (130, 143):
+                # The OPERATOR stopped the job (launch_job returns 130
+                # whenever ITS OWN SIGINT/SIGTERM handler fired,
+                # regardless of the SIGTERMed ranks' -15s) — relaunching
+                # would race them with another Ctrl-C.  A NEGATIVE code
+                # here is a rank killed by a signal the launcher never
+                # received (OOM SIGKILL, SIGSEGV): a crash, exactly what
+                # the restart budget is for.
+                return rc
+            if attempt < restarts:
+                # Demotion only matters if another attempt will allocate;
+                # on the final failure it would just add noise to the
+                # report.
+                _demote_failed_hosts(blacklist, host_list,
+                                     report.get("failed", ()), min_np)
+        return rc
+    finally:
+        if health is not None:
+            health.shutdown()
+        if owned_spill_dir is not None:
+            shutil.rmtree(owned_spill_dir, ignore_errors=True)
+        if tracer is not None:
+            # BEFORE the metrics summary: publish_gauges lands the
+            # hvd_critical_path_* series in the launcher registry the
+            # summary snapshots.
+            try:
+                _write_trace_outputs(trace_dir, tracer, np_)
+            except OSError as e:
+                print(f"hvdrun: could not write trace outputs to "
+                      f"{trace_dir}: {e}", file=sys.stderr, flush=True)
+            tracer.shutdown()
+        if collector is not None:
+            try:
+                _write_metrics_summary(metrics_file, collector, np_, rc)
+            except OSError as e:
+                print(f"hvdrun: could not write metrics summary to "
+                      f"{metrics_file}: {e}", file=sys.stderr, flush=True)
+            collector.shutdown()
+
+
+class _HealthPlane:
+    """Launcher-side heartbeat sink + watchdog (the launcher half of the
+    elastic warm-restart health plane).
+
+    Rides the same authenticated RPC plane as :class:`_MetricsCollector`:
+    each rank's :class:`horovod_tpu_torch.resilience.HeartbeatSender` pushes
+    ``{"kind": "heartbeat", rank, step, progress_ts}`` to
+    ``HOROVOD_HEALTH_RPC`` every ``interval`` seconds, and the
+    :class:`~horovod_tpu_torch.runner.rpc.KeepaliveMonitor` underneath
+    distinguishes *dead* ranks (silent past ``deadline``) from *hung*
+    ones (heartbeats alive, step stalled past ``hang_deadline``).
+    A rank that never sent a single heartbeat is never declared dead
+    here — start-up and first-compile stalls belong to the rendezvous
+    timeouts, not the health plane."""
+
+    def __init__(self, secret: str, interval: float, deadline: float,
+                 hang_deadline: float):
+        from horovod_tpu_torch.runner import rpc
+        self.interval = float(interval)
+        self.deadline = float(deadline)
+        self.hang_deadline = float(hang_deadline)
+        self.monitor = rpc.KeepaliveMonitor(timeout=self.deadline,
+                                            hang_deadline=self.hang_deadline)
+        self._killed: set = set()
+        self._preempt = False
+        self._last_gauge = 0.0
+        self.coord: Optional["_CoordinationPlane"] = None
+        # Fail-in-place state (docs/fault_tolerance.md): the membership
+        # epoch of the CURRENT attempt's world, pending reform specs
+        # keyed by OLD rank, and the new->old rank alias so watchdog
+        # verdicts on the reformed world map back to the launcher's
+        # process table (which stays keyed by launch-time ranks).
+        self.world_epoch = 0
+        self._reform_specs: dict = {}
+        self._rank_alias: dict = {}
+        self._current_to_launch: dict = {}
+        self._server = rpc.RpcServer(rpc.job_key_bytes(secret),
+                                     self._handle)
+
+    def _handle(self, req):
+        if isinstance(req, dict) and req.get("kind") == "heartbeat":
+            try:
+                rank = int(req.get("rank", -1))
+                epoch = int(req.get("epoch", 0))
+            except (TypeError, ValueError):
+                return {"ok": False}
+            if self.coord is not None and epoch < self.coord.epoch:
+                # A straggler from before the failover: its heartbeat
+                # must not resurrect the dead epoch's liveness state.
+                return {"ok": False, "stale_epoch": True}
+            try:
+                wepoch = int(req.get("world_epoch", 0))
+            except (TypeError, ValueError):
+                wepoch = 0
+            if wepoch < self.world_epoch and not self._reform_specs:
+                # Pre-reformation straggler after the handover finished:
+                # its OLD rank number now names a different process.
+                return {"ok": False, "stale_epoch": True}
+            if self._reform_specs and wepoch < self.world_epoch:
+                # Reformation in flight and this heartbeat still carries
+                # the old world's numbering: deliver the rank's slice of
+                # the new world but keep it OUT of the liveness monitor
+                # (its old rank number will fall silent by design the
+                # moment it re-inits, and must not read as a death).
+                spec = self._reform_specs.get(
+                    self._current_to_launch.get(rank, rank))
+                return ({"ok": True, "reform": spec} if spec
+                        else {"ok": True})
+            if self._reform_specs:
+                # First heartbeat from a reformed rank: its slice of the
+                # handover is done.  (The rank-side epoch guard makes a
+                # late duplicate delivery harmless, so dropping the spec
+                # here — rather than on delivery — doubles as the retry
+                # path for lost replies.)
+                self._reform_specs.pop(self._rank_alias.get(rank, rank),
+                                       None)
+            try:
+                self.monitor.progress(rank, int(req.get("step", -1)))
+            except (TypeError, ValueError):
+                return {"ok": False}
+            if rank == 0 and self.coord is not None:
+                # Rank 0's heartbeat doubles as the coordinator lease
+                # renewal (docs/control_plane.md).
+                self.coord.renew()
+            return {"ok": True, "preempt": self._preempt}
+        return {"ok": False}
+
+    def request_preempt(self) -> None:
+        """Ask every heartbeating rank to preempt (coordinated save +
+        rc 75): subsequent heartbeat responses carry ``preempt: True``
+        and the rank-side :class:`~horovod_tpu_torch.resilience.HeartbeatSender`
+        raises the deferred preemption flag.  This is the delivery path
+        that reaches REMOTE ranks — the launcher's SIGTERM can only hit
+        local process groups (for a remote rank, its ssh client)."""
+        self._preempt = True
+
+    @property
+    def port(self) -> int:
+        return self._server.port
+
+    def begin_attempt(self, ranks) -> None:
+        """Reset tracking for a fresh (re)launch — silence from the
+        previous attempt's ranks is no longer a failure (after a shrink
+        the old world's higher ranks must not haunt the monitor)."""
+        del ranks  # the atomic clear covers old and new worlds alike
+        self.monitor.forget_all()
+        self._killed.clear()
+        self._preempt = False   # the new attempt starts unpreempted
+        # Fresh processes start at membership epoch 0 (reformations are
+        # in-process events scoped to one attempt).
+        self.world_epoch = 0
+        self._reform_specs = {}
+        self._rank_alias = {}
+        self._current_to_launch = {}
+
+    def request_reform(self, specs: dict, alias: dict,
+                       epoch: int) -> None:
+        """Arm an in-process world reformation: pending per-LAUNCH-rank
+        specs ride out in heartbeat replies, the liveness monitor is
+        wiped (old-rank silence during the handover is expected, not
+        death — ranks re-register under their new numbers as they
+        re-init), and watchdog verdicts translate through ``alias``
+        (new rank -> launch-time rank) from here on."""
+        self.monitor.forget_all()
+        self._killed.clear()
+        # Survivors still heartbeat under the numbering of the world
+        # being torn down; after a SECOND reformation that numbering is
+        # the previous alias's "new" side, not the launch ranks the
+        # specs are keyed by.
+        self._current_to_launch = dict(self._rank_alias)
+        self._reform_specs = dict(specs)
+        self._rank_alias = dict(alias)
+        self.world_epoch = int(epoch)
+
+    def watchdog(self) -> list:
+        """``(rank, reason)`` pairs newly declared dead or hung since the
+        last call; each rank is reported once per attempt (it is about to
+        be killed).  Also refreshes the ``hvd_worker_step_lag`` straggler
+        gauges, throttled to one update per heartbeat interval."""
+        now = time.monotonic()
+        if now - self._last_gauge >= self.interval:
+            self._last_gauge = now
+            for r, lag in sorted(self.monitor.step_lags().items()):
+                telemetry.gauge(
+                    "hvd_worker_step_lag",
+                    "Steps this worker trails the fastest worker "
+                    "(heartbeat health plane)", rank=str(r)).set(float(lag))
+        out = []
+        for r in self.monitor.dead_tasks():
+            if r not in self._killed:
+                self._killed.add(r)
+                out.append((self._rank_alias.get(r, r),
+                            f"sent no heartbeat for > "
+                            f"{self.deadline:g}s"))
+        for r in self.monitor.hung_tasks():
+            if r not in self._killed:
+                self._killed.add(r)
+                out.append((self._rank_alias.get(r, r),
+                            f"is hung: heartbeats alive but the step "
+                            f"stalled > {self.hang_deadline:g}s"))
+        return out
+
+    def shutdown(self) -> None:
+        self._server.shutdown()
+
+
+class _CoordinationPlane:
+    """Launcher half of coordinator failover (docs/control_plane.md).
+
+    The coordinator lease IS the heartbeat stream from rank 0: every
+    rank-0 heartbeat renews it, so the existing health-plane deadline
+    doubles as lease expiry.  When the coordinator's host drops out of
+    the usable set (watchdog kill, crash, unreachable), the next
+    attempt runs the deterministic election — the first healthy host in
+    host-major order (the "lowest healthy leader" of
+    :func:`horovod_tpu_torch.coordination.elect`) is promoted to the front of
+    the list, its first slot becomes the new rank 0, and the epoch
+    bumps.  The rendezvous itself lives in the launcher process, so
+    re-pointing the gang is just the fresh attempt's allocation; ranks
+    learn the epoch from ``HOROVOD_COORD_EPOCH`` and discard any
+    in-flight control state from the dead epoch."""
+
+    def __init__(self, lease_term: float,
+                 clock: Callable[[], float] = time.monotonic):
+        from horovod_tpu_torch import coordination
+        self._clock = clock
+        self.lease = coordination.LeaseState(lease_term, holder=0,
+                                             now=clock())
+        self.coordinator_host: Optional[str] = None
+        self.epoch = 0
+        self.elections = 0
+
+    def renew(self) -> None:
+        """A rank-0 heartbeat arrived: the coordinator host lives."""
+        self.lease.renew(self._clock(), holder=0, epoch=self.epoch)
+
+    def ensure_coordinator(self, usable):
+        """Pin the coordinator host for the coming attempt, electing a
+        replacement when the incumbent is gone.  Returns the (possibly
+        reordered) host list."""
+        names = [h.hostname for h in usable]
+        if not names:
+            return usable
+        if self.coordinator_host is None:
+            self.coordinator_host = names[0]
+        elif self.coordinator_host not in names:
+            dead = self.coordinator_host
+            self.epoch += 1
+            self.elections += 1
+            # Host-major order makes names[0] the lowest healthy
+            # leader — the same deterministic rule coordination.elect
+            # applies to leader ranks.
+            self.coordinator_host = names[0]
+            self.lease.renew(self._clock(), holder=0, epoch=self.epoch)
+            telemetry.counter(
+                "hvd_coord_elections_total",
+                "Coordinator re-elections after lease expiry").inc()
+            print(f"hvdrun: coordinator lease expired (host {dead} "
+                  f"gone); elected host {self.coordinator_host} as "
+                  f"coordinator epoch={self.epoch}",
+                  file=sys.stderr, flush=True)
+        telemetry.gauge(
+            "hvd_coord_epoch",
+            "Coordinator lease epoch (bumps on each re-election)"
+        ).set(float(self.epoch))
+        return hosts.promote_host(usable, self.coordinator_host)
+
+    def env(self) -> dict:
+        """Per-attempt env injection: ranks stamp control messages with
+        the epoch and surface it in stall reports."""
+        return {"HOROVOD_COORD_EPOCH": str(self.epoch),
+                "HOROVOD_COORD_RANK": "0",
+                "HOROVOD_COORD_ELECTIONS": str(self.elections)}
+
+
+class _MetricsCollector:
+    """Launcher-side sink for the ranks' at-exit metrics reports.
+
+    Rides the existing authenticated RPC plane (``runner/rpc.py``): each
+    rank's telemetry exit hook pushes its ``horovod_tpu.metrics.v1``
+    document to ``HOROVOD_METRICS_RPC``, and the launcher merges the
+    collected reports (falling back to the ranks' JSON files for any
+    rank whose push never arrived — SIGKILLed ranks don't push).
+    Reports are keyed by rank, so an elastic restart's fresh attempt
+    simply overwrites the previous attempt's rows."""
+
+    def __init__(self, secret: str):
+        from horovod_tpu_torch.runner import rpc
+        self.reports: dict = {}
+        self._server = rpc.RpcServer(rpc.job_key_bytes(secret),
+                                     self._handle)
+
+    def _handle(self, req):
+        if isinstance(req, dict) and req.get("kind") == "metrics_report":
+            report = req.get("report")
+            if isinstance(report, dict):
+                self.reports[str(report.get("rank", "?"))] = report
+                return {"ok": True}
+        if isinstance(req, dict) and req.get("kind") == "time_sync":
+            # Clock-skew handshake (rpc.measure_clock_offset): answered
+            # here too — hvd_clock_skew_seconds rides the metrics plane
+            # even when --trace is off.
+            from horovod_tpu_torch.runner import rpc
+            return rpc.time_sync_reply()
+        return {"ok": False}
+
+    @property
+    def port(self) -> int:
+        return self._server.port
+
+    def shutdown(self) -> None:
+        self._server.shutdown()
+
+
+class _TraceCollector:
+    """Launcher-side sink for the ranks' at-exit span logs
+    (``hvdrun --trace``) plus the time-sync responder of the clock-skew
+    handshake.  Same authenticated RPC plane and rank-keyed overwrite
+    semantics as :class:`_MetricsCollector`; ranks whose push never
+    arrives fall back to their ``spans.rank<k>.json`` files."""
+
+    def __init__(self, secret: str):
+        from horovod_tpu_torch.runner import rpc
+        self._rpc = rpc
+        self.reports: dict = {}
+        self._server = rpc.RpcServer(rpc.job_key_bytes(secret),
+                                     self._handle)
+
+    def _handle(self, req):
+        if isinstance(req, dict):
+            kind = req.get("kind")
+            if kind == "time_sync":
+                return self._rpc.time_sync_reply()
+            if kind == "trace_report":
+                report = req.get("report")
+                if isinstance(report, dict):
+                    self.reports[int(report.get("rank", 0))] = report
+                    return {"ok": True}
+        return {"ok": False}
+
+    @property
+    def port(self) -> int:
+        return self._server.port
+
+    def shutdown(self) -> None:
+        self._server.shutdown()
+
+
+def _per_rank_metrics_path(base: str, rank: int) -> str:
+    root, ext = os.path.splitext(base)
+    return f"{root}.rank{rank}{ext or '.json'}"
+
+
+def _write_metrics_summary(path: str, collector: "_MetricsCollector",
+                           world_size: int, exit_code: int) -> None:
+    """Merge the per-rank reports into one attributed summary document
+    (``horovod_tpu.metrics.summary.v1``) at the ``--metrics-file`` path."""
+    from horovod_tpu_torch.telemetry import aggregate
+    ranks = dict(collector.reports)
+    for rank in range(world_size):
+        if str(rank) in ranks:
+            continue
+        try:
+            with open(_per_rank_metrics_path(path, rank)) as f:
+                ranks[str(rank)] = json.load(f)
+        except (OSError, ValueError):
+            pass  # rank died before dumping; it is simply absent
+    snapshots = {k: r.get("metrics") or {} for k, r in ranks.items()}
+    snapshots["launcher"] = telemetry.metrics_snapshot()
+    doc = {
+        "schema": "horovod_tpu.metrics.summary.v1",
+        "world_size": world_size,
+        "exit_code": exit_code,
+        "launcher": {
+            "host": socket.gethostname(),
+            "pid": os.getpid(),
+            "metrics": telemetry.metrics_snapshot(),
+        },
+        "ranks": ranks,
+        "merged": aggregate.merge_snapshots(snapshots),
+    }
+    dirname = os.path.dirname(os.path.abspath(path))
+    os.makedirs(dirname, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
+    missing = sorted(r for r in range(world_size) if str(r) not in ranks)
+    print(f"hvdrun: metrics summary ({len(ranks)}/{world_size} ranks"
+          + (f"; missing {missing}" if missing else "")
+          + f") written to {path}", file=sys.stderr, flush=True)
+    # Headline latency distribution: the merged eager-op histogram's
+    # estimated percentiles (aggregate.estimate_percentiles).
+    for entry in doc["merged"].get(
+            "hvd_eager_op_seconds", {}).get("values", []):
+        pct = entry.get("percentiles")
+        if pct:
+            op = (entry.get("labels") or {}).get("op", "?")
+            print(f"hvdrun: {op} latency estimate: " + "  ".join(
+                f"{q}={v * 1e3:.2f}ms" for q, v in sorted(pct.items())),
+                file=sys.stderr, flush=True)
+    # Per-rank clock offsets measured by the time-sync handshake — the
+    # operator-visible skew bound for cross-rank timeline comparison.
+    skew = doc["merged"].get("hvd_clock_skew_seconds", {})
+    for entry in skew.get("values", []):
+        print(f"hvdrun: rank clock skew vs launcher: "
+              f"min {entry.get('min', 0.0) * 1e3:.3f}ms / "
+              f"max {entry.get('max', 0.0) * 1e3:.3f}ms",
+              file=sys.stderr, flush=True)
+
+
+def _write_trace_outputs(dir_path: str, tracer: "_TraceCollector",
+                         world_size: int) -> None:
+    """Merge the collected span logs into ``DIR/trace.json`` (skew-
+    corrected Chrome/Perfetto trace), write the critical-path analysis
+    to ``DIR/critical_path.json``, mirror it into the launcher's
+    ``hvd_critical_path_*`` gauges, and print the straggler report."""
+    from horovod_tpu_torch.telemetry import critical_path, trace_merge
+    reports = dict(tracer.reports)
+    for rank, doc in trace_merge.load_rank_docs(dir_path).items():
+        reports.setdefault(rank, doc)   # RPC push wins over the file
+    if not reports:
+        print(f"hvdrun: trace requested but no rank delivered a span "
+              f"log (dir {dir_path})", file=sys.stderr, flush=True)
+        return
+    os.makedirs(dir_path, exist_ok=True)
+    events = trace_merge.merge_span_docs(
+        reports[r] for r in sorted(reports))
+    merged_path = trace_merge.write_chrome(
+        events, os.path.join(dir_path, "trace.json"))
+    result = critical_path.analyze(reports)
+    cp_path = os.path.join(dir_path, "critical_path.json")
+    tmp = f"{cp_path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(result, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, cp_path)
+    critical_path.publish_gauges(result)
+    print(f"hvdrun: merged trace ({len(events)} events, "
+          f"{len(reports)}/{world_size} ranks) written to {merged_path}",
+          file=sys.stderr, flush=True)
+    print(critical_path.format_report(result), file=sys.stderr,
+          flush=True)
+
+
+def _demote_failed_hosts(blacklist, host_list, failed, min_np) -> None:
+    """Soft demotion after rank failures: blame the host of each crashed
+    rank, but only while the surviving capacity still covers --min-np.
+    (A single-host job therefore never blacklists its only host — the
+    crash is a process problem, and relaunching in place is strictly
+    better than refusing to.)  Unreachability, by contrast, is a HARD
+    demotion in the re-probe above: a dead host can serve no world size.
+    """
+    for rank, hostname, code in failed:
+        if code == PREEMPTION_RC:
+            # Defense in depth: launch_job already files preempted ranks
+            # under report["preempted"], but a preemption must never
+            # blacklist a host even if one leaks through here.
+            continue
+        if blacklist.is_blacklisted(hostname):
+            continue
+        remaining = sum(
+            h.slots for h in host_list
+            if h.hostname != hostname and
+            not blacklist.is_blacklisted(h.hostname))
+        if remaining >= min_np:
+            blacklist.demote(hostname,
+                             f"rank {rank} exited with code {code}")
+            print(f"hvdrun: blacklisting host {hostname} (rank {rank} "
+                  f"exited with code {code})", file=sys.stderr, flush=True)
+        else:
+            print(f"hvdrun: keeping host {hostname} despite rank {rank} "
+                  f"exiting with code {code}: demoting it would leave "
+                  f"{remaining} slot(s) < --min-np {min_np}",
+                  file=sys.stderr, flush=True)
+
+
+def _plan_reformation(survivors, addr, port, epoch):
+    """Contiguous re-ranking of the survivors: per-OLD-rank reform
+    specs plus the new->old rank alias.
+
+    Survivor order is launch-rank order, which keeps ranks host-major-
+    contiguous (hosts.allocate is host-major and removal preserves
+    order), so per-host local/cross coordinates and the topology string
+    recompute directly from the ordered hostname sequence."""
+    ordered = sorted(survivors, key=lambda i: i.rank)
+    new_size = len(ordered)
+    local_size = {}
+    for info in ordered:
+        local_size[info.hostname] = local_size.get(info.hostname, 0) + 1
+    host_order = list(dict.fromkeys(i.hostname for i in ordered))
+    topology = hosts.topology_string(ordered)
+    specs, alias = {}, {}
+    local_rank = {}
+    for new_rank, info in enumerate(ordered):
+        lr = local_rank.get(info.hostname, 0)
+        local_rank[info.hostname] = lr + 1
+        specs[info.rank] = {
+            "epoch": epoch,
+            "rank": new_rank,
+            "size": new_size,
+            "local_rank": lr,
+            "local_size": local_size[info.hostname],
+            "cross_rank": host_order.index(info.hostname),
+            "cross_size": len(host_order),
+            "rendezvous_addr": addr,
+            "rendezvous_port": port,
+            "topology": topology,
+            # One death per reformation event: the world being torn
+            # down had exactly one more rank (RankInfo.size would be
+            # stale after a SECOND reformation in the same attempt).
+            "prev_size": new_size + 1,
+        }
+        alias[new_rank] = info.rank
+    return specs, alias
+
+
+def _launch_once(args, infos, addr, extra_env, report=None,
+                 metrics_file=None, collector=None, health=None,
+                 trace_dir=None, tracer=None, on_rank_failure=None,
+                 min_np=None) -> int:
+    port = args.rendezvous_port or launch.find_free_port()
+    # The port's ranks meet at HOROVOD_COORDINATOR_ADDR (rank 0 serves the
+    # store there): a fresh address every attempt, so a relaunch never
+    # meets the dead attempt's store.
+    extra_env["HOROVOD_COORDINATOR_ADDR"] = f"{addr}:{port}"
+    multi_host = len({i.hostname for i in infos}) > 1
+    # Serialized host→slots map for hvd.topology() (recomputed per attempt,
+    # so elastic/fleet resizes re-export the surviving allocation).
+    extra_env["HOROVOD_TOPOLOGY"] = hosts.topology_string(infos)
+    env_per_rank = [
+        config_parser.runtime_env(info, addr, port, extra_env,
+                                  multi_host=multi_host)
+        for info in infos
+    ]
+    if metrics_file and collector is not None:
+        # Per-rank dump paths are assigned HERE (not left to the ranks'
+        # own per_rank_path de-confliction) so the launcher knows exactly
+        # which files to fall back to when a rank's RPC push never lands.
+        for info, env in zip(infos, env_per_rank):
+            env["HOROVOD_METRICS_FILE"] = _per_rank_metrics_path(
+                metrics_file, info.rank)
+            env["HOROVOD_METRICS_RPC"] = f"{addr}:{collector.port}"
+    if trace_dir and tracer is not None:
+        # Tracing rides its own env triple: the flag arms the recorders
+        # (Python + native), the RPC endpoint is the push/time-sync
+        # target, and the dir is each rank's file fallback.
+        for env in env_per_rank:
+            env["HOROVOD_TRACE"] = "1"
+            env["HOROVOD_TRACE_DIR"] = trace_dir
+            env["HOROVOD_TRACE_RPC"] = f"{addr}:{tracer.port}"
+    watchdog = None
+    if health is not None:
+        for env in env_per_rank:
+            env["HOROVOD_HEALTH_RPC"] = f"{addr}:{health.port}"
+            env["HOROVOD_HEARTBEAT_INTERVAL"] = str(health.interval)
+        health.begin_attempt([i.rank for i in infos])
+        watchdog = health.watchdog
+    if args.verbose:
+        for info in infos:
+            print(f"hvdrun: rank {info.rank} -> {info.hostname} "
+                  f"(local {info.local_rank}/{info.local_size}, "
+                  f"cross {info.cross_rank}/{info.cross_size})")
+    reform = None
+    if health is not None and on_rank_failure in ("shrink",
+                                                  "shrink-then-restart"):
+        def reform(dead_info, rc, survivors):
+            floor = min_np or 1
+            if len(survivors) < floor:
+                print(f"hvdrun: not reforming in-process: "
+                      f"{len(survivors)} survivor(s) < --min-np {floor}",
+                      file=sys.stderr, flush=True)
+                return False
+            epoch = health.world_epoch + 1
+            # Fresh rendezvous port: the dead world's listener may
+            # linger in TIME_WAIT and survivors must not rejoin it.
+            new_port = launch.find_free_port()
+            ordered = sorted(survivors, key=lambda i: i.rank)
+            new_addr = ("127.0.0.1"
+                        if all(launch.is_local(i.hostname)
+                               for i in ordered)
+                        else ordered[0].hostname)
+            specs, alias = _plan_reformation(ordered, new_addr,
+                                             new_port, epoch)
+            health.request_reform(specs, alias, epoch)
+            # Booked ONCE, launcher-side, so the merged metrics count
+            # each reformation event exactly once regardless of how
+            # many ranks survive it.
+            telemetry.counter(
+                "hvd_failinplace_reformations_total",
+                "In-process world reformations after a rank death "
+                "(fail-in-place shrink, no elastic restart)").inc()
+            telemetry.gauge(
+                "hvd_failinplace_world_epoch",
+                "Membership epoch of the running attempt's world "
+                "(0 = never reformed)").set(float(epoch))
+            print(f"hvdrun: fail-in-place: rank {dead_info.rank} "
+                  f"(host {dead_info.hostname}) died with code {rc}; "
+                  f"reforming the world in-process as epoch {epoch} "
+                  f"with {len(ordered)} rank(s)",
+                  file=sys.stderr, flush=True)
+            return True
+    # Keyword only when armed: callers (and tests) that stub launch_job
+    # with the historical signature stay compatible on the default path.
+    lkw = {"reform": reform} if reform is not None else {}
+    return launch.launch_job(
+        infos, args.command, env_per_rank,
+        output_dir=args.output_filename,
+        start_timeout=args.start_timeout,
+        report=report,
+        watchdog=watchdog,
+        **lkw)
+
+
+def main(argv: List[str] = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.check_build:
+        print(check_build())
+        return 0
+    config_parser.apply_config_file(args, parser)
+    if args.command and args.command[0] == "--":
+        args.command = args.command[1:]
+    if not args.command:
+        parser.error("no command given")
+    return run_command(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

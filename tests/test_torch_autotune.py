@@ -10,11 +10,15 @@ the reference's C++ (``horovod_tpu/native/cc``), on the CPU.
   C++ loop for loop with the C library's ``exp``, ``log`` and ``erfc``).
   Fed the same bytes, the port's ``ParameterManager`` writes the
   reference's trial log line for line, pin and re-open included.
+* Where the two-level plane is available, the 5-D search (the two
+  hierarchical booleans as categorical dimensions): the parameters after
+  every busy cycle equal the C++ loop's bit for bit, and the trial log
+  is the reference's line for line.
 * The reference's gates, on the port: the convergence gate of
   ``native/cc/tests/test_bayes_oracle.cc`` (two-peak objectives, 20 and
   40 trials, 95 % of the grid maximum in 3-D, 90 % in 5-D, 97 % at 40)
   and the drift-monitor gate of ``test_param_monitor.cc``.
-* Under the reference's launcher (``--autotune --autotune-log-file``,
+* Under the port's launcher (``--autotune --autotune-log-file``,
   2 gloo ranks), the counterparts of ``tests/test_autotune.py``'s
   ``test_autotune_tunes_and_pins`` and ``test_autotune_off_by_default``:
   the log has at least 5 rows, a parameter varies, the last row is
@@ -34,7 +38,7 @@ import numpy as np
 import pytest
 
 from horovod_tpu_torch.native import autotune
-from torch_support import REPO, run_job
+from torch_support import PORT_LAUNCHER, REPO, run_job
 
 CC = os.path.join(REPO, "horovod_tpu", "native", "cc")
 
@@ -85,10 +89,21 @@ int main(int argc, char** argv) {
     return 0;
   }
   // "pm": one Update per byte count on stdin, the log under the env.
+  // "pm5": the same on a topology where the two hierarchical booleans are
+  // available (5-D), printing the parameters after every Update.
+  const bool five = std::strcmp(argv[1], "pm5") == 0;
   hvd::ParameterManager pm;
-  pm.Initialize(0, 1.0, 64 * 1024 * 1024, true);
+  pm.Initialize(0, 1.0, 64 * 1024 * 1024, true, false, false, five);
   long long b;
-  while (std::scanf("%lld", &b) == 1) pm.Update(b);
+  while (std::scanf("%lld", &b) == 1) {
+    pm.Update(b);
+    if (!five) continue;
+    hvd::TunedParams p = pm.Current();
+    std::printf("%d %.17g %lld %d %d %d\n", p.tuning ? 1 : 0,
+                p.cycle_time_ms, static_cast<long long>(p.fusion_threshold),
+                p.cache_enabled ? 1 : 0, p.hier_allreduce ? 1 : 0,
+                p.hier_allgather ? 1 : 0);
+  }
   return 0;
 }
 '''
@@ -183,6 +198,43 @@ def test_the_trial_log_is_the_references(oracle, tmp_path, monkeypatch):
     phases = [row.split(",")[-1] for row in want]
     assert "pinned" in phases and "reopen" in phases, phases
     assert pm.reopens == phases.count("reopen")
+
+
+def test_the_5d_search_is_the_references(oracle, tmp_path, monkeypatch):
+    """Where the two-level plane is available the booleans join the
+    search (5-D): after every busy cycle the port's parameters are the
+    C++ loop's bit for bit, and the trial logs are equal line for line.
+    Off an available topology the search stays 3-D."""
+    seq = _bytes_sequence()
+    ref_log = tmp_path / "ref.csv"
+    ref = subprocess.run([oracle, "pm5"], input=" ".join(map(str, seq)),
+                         check=True, capture_output=True, text=True,
+                         timeout=120,
+                         env=dict(os.environ, HOROVOD_AUTOTUNE_LOG=str(
+                             ref_log), **SCHEDULE)).stdout.split("\n")
+    port_log = tmp_path / "port.csv"
+    for k, v in dict(SCHEDULE, HOROVOD_AUTOTUNE_LOG=str(port_log)).items():
+        monkeypatch.setenv(k, v)
+    pm = autotune.ParameterManager(0, 1.0, 64 * 1024 * 1024, True,
+                                   hier_available=True)
+    assert pm.dims == 5 and len(pm.current_point()) == 5
+    seen = set()
+    for i, b in enumerate(seq):
+        pm.update(b, 0.0)
+        p = pm.current()
+        got = (f"{int(p.tuning)} {p.cycle_time_ms!r} {p.fusion_threshold} "
+               f"{int(p.cache_enabled)} {int(p.hier_allreduce)} "
+               f"{int(p.hier_allgather)}")
+        tuning, cycle, rest = ref[i].split(" ", 2)
+        assert float(cycle) == p.cycle_time_ms, (i, ref[i], got)
+        assert got.split(" ", 2)[2] == rest and int(tuning) == p.tuning, i
+        seen.add((p.hier_allreduce, p.hier_allgather))
+    pm.close()
+    assert port_log.read_text().splitlines() == ref_log.read_text(
+    ).splitlines()
+    assert len(seen) > 1, seen        # the search moved the booleans
+    flat = autotune.ParameterManager(0, 1.0, 64 * 1024 * 1024, True)
+    assert flat.dims == 3 and len(flat.current_point()) == 3
 
 
 def _grid_max(dims, steps):
@@ -301,7 +353,8 @@ def test_autotune_tunes_and_pins_under_the_launcher(tmp_path):
                          "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "3",
                          "HOROVOD_AUTOTUNE_SAMPLES": "3",
                          "HOROVOD_AUTOTUNE_BAYES_TRIALS": "10",
-                         "HOROVOD_AUTOTUNE_DRIFT_WINDOWS": "1000000"})
+                         "HOROVOD_AUTOTUNE_DRIFT_WINDOWS": "1000000"},
+                    launcher=PORT_LAUNCHER)
     for res in ranks:
         assert res["exact"].all() and res["exact"].size == 840
         assert not bool(res["exploring"])
@@ -343,7 +396,8 @@ def test_autotune_off_by_default_under_the_launcher(tmp_path):
     with ``HOROVOD_AUTOTUNE_LOG`` set."""
     log = tmp_path / "autotune.csv"
     ranks = run_job(OFF_JOB, str(tmp_path), np_=2,
-                    env={"HOROVOD_AUTOTUNE_LOG": str(log)})
+                    env={"HOROVOD_AUTOTUNE_LOG": str(log)},
+                    launcher=PORT_LAUNCHER)
     for res in ranks:
         np.testing.assert_array_equal(res["out"], np.full(4, 2.0))
         assert not bool(res["exploring"])

@@ -185,3 +185,37 @@ def test_port_under_launcher_matches_jax(tmp_path):
         assert res["sum"].tolist() == [6.0]
     assert [tuple(res["subset"]) for res in job] == [
         (0, 2, 4.0), (0, 1, 2.0), (1, 2, 4.0)]
+
+
+# The reference's public top-level names that only the JAX package has:
+# none (warm_restore was the last one).
+JAX_ONLY = frozenset()
+# The port's own additions: the mesh helpers, the SPMD fused ops, the
+# callbacks (a module of their own in the reference), the step guard's
+# functional form and the device accessors.
+PORT_ONLY = frozenset({
+    "BroadcastGlobalVariablesCallback", "Callback",
+    "LearningRateScheduleCallback", "LearningRateWarmupCallback", "Mesh",
+    "MetricAverageCallback", "apply_step_guard", "build_mesh", "data_axis",
+    "device", "fused_psum", "fused_pytree_mean", "grouped_allreduce_async",
+    "mesh_size", "resolve_device", "scaled_lr", "warmup_schedule"})
+
+
+def test_the_public_names_are_the_references():
+    """Functions, classes and constants; submodules appear as attributes
+    once anything imports them, so they are held by the reference's
+    ``__all__`` alone."""
+    import types
+
+    import horovod_tpu as jhvd
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not isinstance(getattr(mod, n), types.ModuleType)}
+
+    ref, port = public(jhvd), public(thvd)
+    assert ref - port == JAX_ONLY
+    assert port - ref == PORT_ONLY
+    assert set(jhvd.__all__) <= set(dir(thvd))
+    from horovod_tpu_torch import resilience
+    assert thvd.warm_restore is resilience.warm_restore

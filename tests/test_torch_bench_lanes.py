@@ -175,3 +175,56 @@ def test_step_guard_lane_runs_the_port(world1, capsys):  # noqa: F811
     assert res["metric"] == "step_guard_overhead_pct"
     assert res["baseline_img_sec"] > 0 and res["guarded_img_sec"] > 0
     assert "BENCH " in capsys.readouterr().out
+
+
+class _Parsed(Exception):
+    def __init__(self, parser):
+        self.parser = parser
+
+
+def _flags(parser):
+    return {opt: (a.dest, a.default) for a in parser._actions
+            for opt in a.option_strings}
+
+
+def test_the_cli_takes_the_reference_harnesss_flags(monkeypatch):
+    """``python -m horovod_tpu_torch.benchmark`` parses the reference's
+    ``_main`` flags with their defaults (its parser caught as it parses),
+    less ``--transport`` and ``--coordsim``, which argparse refuses; the
+    port adds ``--device`` and ``--input-dtype``, and its ``--model``
+    also names the LM's and decode's profiles."""
+    import argparse
+
+    def capture(self, *args, **kwargs):
+        raise _Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed) as caught:
+        jbench._main()
+    monkeypatch.undo()
+    want, got = _flags(caught.value.parser), _flags(tbench.build_parser())
+    assert set(want) - set(got) == {"--transport", "--coordsim"}
+    assert set(got) - set(want) == {"--device", "--input-dtype"}
+    for opt in set(got) & set(want):
+        assert got[opt] == want[opt], opt
+    for refused in ("--transport", "--coordsim"):
+        with pytest.raises(SystemExit) as e:
+            tbench.build_parser().parse_args([refused])
+        assert e.value.code == 2
+
+
+def test_the_hierarchical_lane_on_four_gloo_ranks(capsys):
+    """``run_hierarchical_benchmark(device="cpu")``: two ``-np 4`` runs of
+    the port's launcher, flat and two-level, each size's latency side by
+    side and the cross bytes half the flat bytes; the reference's keys."""
+    res = tbench.run_hierarchical_benchmark(device="cpu", verbose=False)
+    assert res["metric"] == "hierarchical_allreduce_latency"
+    assert (res["np"], res["local_size"]) == (4, 2)
+    assert [s["size"] for s in res["sizes"]] == [1 << 16, 1 << 20]
+    assert res["cross_bytes_ratio"] == [0.5, 0.5]
+    for s in res["sizes"]:
+        assert s["flat_bytes"] == 4 * 8 * 4 * s["size"]
+        assert s["flat_sec_per_op"] > 0 and s["hier_sec_per_op"] > 0
+    line = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("BENCH ")]
+    assert json.loads(line[-1][len("BENCH "):]) == res

@@ -2,7 +2,7 @@
 the coordinator failover of the port, on the CPU.
 
 * The scenario of ``tests/test_chaos.py:392-440`` in the port: an np=4
-  job under the reference's launcher across two hosts
+  job under the port's launcher across two hosts
   (``-H 127.0.1.1:2,localhost:2``; 127.0.1.1 routes to loopback but is
   not local, so its ranks ride ``ci/fake_ssh.sh``) with
   ``HOROVOD_COORD_TREE=1``: ``coord_tree_enabled()`` on every rank, the
@@ -33,7 +33,8 @@ import pytest
 
 from horovod_tpu.telemetry import aggregate
 from horovod_tpu_torch.native import coord_tree
-from torch_support import REPO, caplog, free_port  # noqa: F401
+from torch_support import (PORT_LAUNCHER, REPO, caplog,  # noqa: F401
+                           free_port)
 
 JOB_TIMEOUT = 120
 
@@ -94,8 +95,8 @@ def _launch(tmp_path, script, np_, hosts, flags=(), env=None, args=()):
         full.pop(var, None)
     full.update(env or {})
     return subprocess.Popen(
-        [sys.executable, "-m", "horovod_tpu.runner", "-np", str(np_),
-         "-H", hosts, *flags, "--jax-distributed", sys.executable,
+        [sys.executable, "-m", PORT_LAUNCHER, "-np", str(np_),
+         "-H", hosts, *flags, sys.executable,
          str(path), str(tmp_path), *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=full, cwd=REPO)

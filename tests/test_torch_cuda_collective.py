@@ -5,8 +5,10 @@ control plane answers names submitted in reversed orders and ``join``,
 the optimizer it wraps, and two ranks on two cards pair names by name
 and join with uneven batches, and across cards the parallel LM steps
 (dp x tp x sp, dp x pp, ZeRO-1), the ragged MoE exchange, a ZeRO-1
-state spilled at 2 ranks and warm-restored at 1 and a synchronized-BN
-ResNet step match gloo, and the scaling-efficiency lane runs.
+state spilled at 2 ranks and warm-restored at 1 (ranks started by the
+port's launcher), a synchronized-BN ResNet step and the eager plane's
+two-level collectives at 2 x 2 (``-k hier``, with the hierarchical
+lane's A/B) match gloo, and the scaling-efficiency lane runs.
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports torch and the port only, so it runs on a GPU
 host without JAX:
@@ -453,21 +455,18 @@ def test_ragged_exchange_moe_and_shape_check_nccl_match_gloo(tmp_path):
     print(chip_smoke.compare_moe_processes(nccl, gloo))
 
 
-def _warm_zero_worker(rank, size, addr, backend, out_dir):
-    """Two ZeRO-1 SGD steps on ``size`` ranks spilled every commit (a
-    gathered full state on each rank), or, at size 1, that state warm
+def _warm_zero_job(backend, out_dir):
+    """Two ZeRO-1 SGD steps on the launcher's ranks spilled every commit
+    (a gathered full state on each rank), or, at size 1, that state warm
     restored into a fresh one-rank ZeRO-1 state, saved for comparison."""
     import os
 
     from horovod_tpu_torch import optim, resilience
     from horovod_tpu_torch.parallel import zero
 
-    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(size),
-                      HOROVOD_LOCAL_RANK=str(rank),
-                      HOROVOD_LOCAL_SIZE=str(size),
-                      HOROVOD_COORDINATOR_ADDR=addr)
     hvd.init(device=None if backend == "nccl" else "cpu")
     try:
+        rank, size = hvd.rank(), hvd.size()
         dev = hvd.device()
         spill = os.path.join(out_dir, f"spill_{backend}")
         params = [torch.zeros(6, device=dev), torch.zeros(3, device=dev)]
@@ -495,25 +494,49 @@ def _warm_zero_worker(rank, size, addr, backend, out_dir):
         hvd.shutdown()
 
 
-def _run_warm_zero(backend: str, size: int, out_dir: str) -> None:
-    import socket
+def _launch(np_: int, call: str, env=None, timeout: float = 300) -> str:
+    """``call`` (an expression on this module, ``t``) in each of ``np_``
+    ranks under the port's launcher (``python -m
+    horovod_tpu_torch.runner``); returns the job's output."""
+    import os
+    import signal
+    import subprocess
+    import sys
 
-    import torch.multiprocessing as mp
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{s.getsockname()[1]}"
-    mp.start_processes(_warm_zero_worker,
-                       args=(size, addr, backend, out_dir), nprocs=size,
-                       start_method="spawn")
+    tests = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(tests)
+    full = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, tests]))
+    full.update(env or {})
+    code = f"import test_torch_cuda_collective as t; {call}"
+    p = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", str(np_),
+         sys.executable, "-c", code], cwd=repo, env=full,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        # The launcher's SIGINT tears its ranks down; keep what they said.
+        p.send_signal(signal.SIGINT)
+        out, err = p.communicate(timeout=60)
+        raise AssertionError(f"the job outlived {timeout} s:\n"
+                             f"{(out + err)[-6000:]}") from None
+    assert p.returncode == 0, (out + err)[-6000:]
+    return out
+
+
+def _run_warm_zero(backend: str, size: int, out_dir: str) -> None:
+    _launch(size, f"t._warm_zero_job({backend!r}, {out_dir!r})",
+            env={"OMP_NUM_THREADS": "1"} if backend == "gloo" else None)
 
 
 @pytest.mark.cuda
 def test_warm_restore_of_a_two_rank_zero_state_nccl_matches_gloo(tmp_path):
-    """Two NCCL ranks (one card each) spill their ZeRO-1 state at every
-    commit, in the full layout; one rank warm-restores it into a one-rank
-    ZeRO-1 state (``source == "spill"``, the spilled cursor), and the
-    restored parameters and momentum are bit for bit what the same
-    program on gloo ranks on the CPU restores (``-k warm``)."""
+    """Two NCCL ranks (one card each, started by the port's launcher)
+    spill their ZeRO-1 state at every commit, in the full layout; one
+    rank warm-restores it into a one-rank ZeRO-1 state (``source ==
+    "spill"``, the spilled cursor), and the restored parameters and
+    momentum are bit for bit what the same program on gloo ranks on the
+    CPU restores (``-k warm``)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     out = {}
@@ -610,3 +633,91 @@ def test_sync_bn_step_nccl_matches_gloo(tmp_path):
     nccl = chip_smoke.run_sync_bn_step("nccl", size, str(tmp_path))
     gloo = chip_smoke.run_sync_bn_step("gloo", size, str(tmp_path))
     print(chip_smoke.compare_sync_bn_step(nccl, gloo))
+
+
+HIER_SIZES = (1, 7, 100_003, 1_000_003)
+
+
+def _hier_job(backend: str, out_dir: str) -> None:
+    """One rank of a 4-rank job split into 2 hosts of 2 (``HOROVOD_LOCAL_*``
+    set before ``init``; on the card each rank keeps the card of its
+    launched local rank): the eager allreduce (Sum, Average) and allgather
+    (uneven first dimensions) at odd sizes in f32, bf16 and int32 on
+    integer-valued data, flat, then, after a re-init at a fresh
+    rendezvous, through the two-level plane at threshold 0."""
+    import os
+
+    import numpy as np
+
+    rank = int(os.environ["HOROVOD_RANK"])
+    card = int(os.environ["HOROVOD_LOCAL_RANK"])
+    os.environ["HOROVOD_LOCAL_SIZE"] = "2"
+    os.environ["HOROVOD_LOCAL_RANK"] = str(rank % 2)
+    out = {}
+    for mode in ("flat", "hier"):
+        if mode == "hier":
+            port = hvd.broadcast_object(
+                hvd.basics._free_localhost_port() if rank == 0 else None, 0)
+            hvd.shutdown()
+            os.environ["HOROVOD_COORDINATOR_ADDR"] = f"127.0.0.1:{port}"
+            os.environ.update(HOROVOD_HIERARCHICAL_ALLREDUCE="1",
+                              HOROVOD_HIERARCHICAL_ALLGATHER="1",
+                              HOROVOD_HIERARCHICAL_ALLREDUCE_THRESHOLD="0")
+        hvd.init(device=f"cuda:{card}" if backend == "nccl" else "cpu")
+        rt = hvd.basics.runtime()
+        dev = hvd.device()
+        out[f"{mode}/enabled"] = (rt.hierarchical_enabled(),
+                                  rt.hierarchical_allgather_enabled())
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for n in HIER_SIZES:
+                g = np.random.default_rng(1000 * rank + n)
+                x = torch.from_numpy(g.integers(-8, 8, n).astype(
+                    np.float32)).to(dtype).to(dev)
+                for op in (hvd.Sum, hvd.Average):
+                    out[f"{mode}/ar/{dtype}/{n}/{op}"] = hvd.allreduce(
+                        x, op=op, name=f"ar.{dtype}.{n}.{op}").cpu()
+                y = x[:max(n - 3 * rank, 1)]
+                out[f"{mode}/ag/{dtype}/{n}"] = hvd.allgather(
+                    y, name=f"ag.{dtype}.{n}").cpu()
+        out[f"{mode}/counters"] = dict(rt.hier_counters)
+    hvd.shutdown()
+    torch.save(out, f"{out_dir}/hier_{backend}{rank}.pt")
+
+
+def run_hier(backend: str, out_dir: str) -> list:
+    """:func:`_hier_job` on 4 ranks of ``backend``; each rank's results."""
+    _launch(4, f"t._hier_job({backend!r}, {out_dir!r})",
+            env={"OMP_NUM_THREADS": "1"} if backend == "gloo" else None)
+    return [torch.load(f"{out_dir}/hier_{backend}{r}.pt")
+            for r in range(4)]
+
+
+@pytest.mark.cuda
+def test_hierarchical_eager_collectives_over_nccl_match_gloo(tmp_path):
+    """The eager plane's two-level allreduce and allgather at 2 x 2 over
+    NCCL, one card a rank (``-k hier``): enabled on every rank, each
+    result bit for bit the flat plane's on the same cards and the gloo
+    job's on the CPU, the cross bytes summed over the ranks half the flat
+    bytes; then ``run_hierarchical_benchmark``'s A/B on the cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from horovod_tpu_torch.benchmark import run_hierarchical_benchmark
+
+    nccl = run_hier("nccl", str(tmp_path))
+    gloo = run_hier("gloo", str(tmp_path))
+    for run in (nccl, gloo):
+        flat = sum(res["flat/counters"]["flat_allreduce_bytes"]
+                   for res in run)
+        cross = sum(res["hier/counters"]["hier_cross_bytes"] for res in run)
+        assert flat > 0 and 2 * cross == flat, (flat, cross)
+    for r in range(4):
+        for res in (nccl[r], gloo[r]):
+            assert res.pop("flat/enabled") == (False, False)
+            assert res.pop("hier/enabled") == (True, True)
+            del res["flat/counters"], res["hier/counters"]
+        for key, want in nccl[r].items():
+            if key.startswith("hier/"):
+                assert torch.equal(want, nccl[r]["flat/" + key[5:]]), key
+            assert torch.equal(want, gloo[r][key]), (r, key)
+    res = run_hierarchical_benchmark(verbose=True)
+    assert res["cross_bytes_ratio"] == [0.5, 0.5], res

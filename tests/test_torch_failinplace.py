@@ -1,13 +1,13 @@
-"""Warm restart and fail-in-place of the port under the JAX package's
-launcher (``python -m horovod_tpu.runner``), on the CPU.
+"""Warm restart and fail-in-place of the port under the port's launcher
+(``python -m horovod_tpu_torch.runner``), on the CPU.
 
 * ``MembershipChangedError``: under ``HOROVOD_ON_RANK_FAILURE=shrink`` a
   runtime whose world changed fails every pending and later entry with
   it (a ``RuntimeError`` subclass); under ``restart`` nothing changes.
 * (i) The port's counterpart of ``tests/distributed/warm_restart_np2.py``
-  launched as ``ci/run_tests.sh:362-372`` launches it, plus
-  ``--jax-distributed`` (a fresh ``HOROVOD_COORDINATOR_ADDR`` every
-  attempt): two gloo ranks with a ZeRO-1 SGD state, rank 1 SIGKILLs
+  launched as ``ci/run_tests.sh:362-372`` launches it (the launcher
+  gives every attempt a fresh ``HOROVOD_COORDINATOR_ADDR``): two gloo
+  ranks with a ZeRO-1 SGD state, rank 1 SIGKILLs
   itself after committing step 4, the launcher relaunches at np=1, and
   ``warm_restore`` recovers ``source=spill committed=4`` with the spilled
   cursor, ``elastic_transition`` gives ``(2, 0.5, 1)``, the ZeRO-1 state
@@ -36,7 +36,8 @@ import torch
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.native import runtime as runtime_mod
 from horovod_tpu_torch.native.runtime import MembershipChangedError
-from torch_support import REPO, caplog, run_port_job  # noqa: F401
+from torch_support import (PORT_LAUNCHER, REPO, caplog,  # noqa: F401
+                           run_port_job)
 
 JOB_TIMEOUT = 90
 
@@ -176,8 +177,8 @@ def _launch(tmp_path, script: str, np_: int, hosts: str, flags, env=None,
         full.pop(var, None)
     full.update(env or {})
     return subprocess.run(
-        [sys.executable, "-m", "horovod_tpu.runner", "-np", str(np_),
-         "-H", hosts, *flags, "--jax-distributed", sys.executable,
+        [sys.executable, "-m", PORT_LAUNCHER, "-np", str(np_),
+         "-H", hosts, *flags, sys.executable,
          str(path), str(tmp_path), *args],
         capture_output=True, text=True, timeout=JOB_TIMEOUT, env=full,
         cwd=REPO)

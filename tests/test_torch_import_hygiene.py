@@ -48,7 +48,13 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
             "horovod_tpu_torch.serving.replica, "
             "horovod_tpu_torch.serving.router, "
             "horovod_tpu_torch.utils.logging, "
-            "horovod_tpu_torch.utils.profiling\n"
+            "horovod_tpu_torch.utils.profiling, "
+            "horovod_tpu_torch.coordination, "
+            "horovod_tpu_torch.runner, horovod_tpu_torch.runner.run, "
+            "horovod_tpu_torch.runner.launch, "
+            "horovod_tpu_torch.runner.hosts, "
+            "horovod_tpu_torch.runner.config_parser, "
+            "horovod_tpu_torch.runner.network\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -123,3 +129,31 @@ def test_benchmark_runs_on_cpu_only_when_asked(no_gpu):
     assert res["mfu"] is None and res["max_memory_allocated"] is None
     assert len(res["step_losses"]) == 2
     assert all(l == l for l in res["step_losses"])
+
+
+def test_a_rank_without_a_card_fails_its_job(tmp_path):
+    """The launcher's job fails with a non-zero rc when a rank finds no
+    card and was not asked for the CPU (here: the CUDA runtime hidden),
+    instead of running on the CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    p = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
+         sys.executable, "-m", "horovod_tpu_torch.benchmark",
+         "--model", "resnet18", "--batch-size", "1", "--image-size", "32",
+         "--num-iters", "1"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=120)
+    assert p.returncode != 0, p.stdout + p.stderr
+    assert "device='cpu'" in p.stdout + p.stderr
+    assert "RESULT" not in p.stdout
+
+
+def test_the_fleet_subcommand_is_refused_not_run(tmp_path):
+    marker = tmp_path / "ran"
+    p = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "fleet",
+         sys.executable, "-c", f"open({str(marker)!r}, 'w')"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=60)
+    assert p.returncode != 0
+    assert "not ported" in p.stderr and not marker.exists()

@@ -3,7 +3,7 @@ coordinator, on the CPU.
 
 * The ``field`` and ``order`` scenarios of
   ``tests/distributed/schedule_check_np2.py``, as 2-rank port jobs under
-  the reference's launcher: after a matching collective, a same-named
+  the port's launcher: after a matching collective, a same-named
   broadcast with a rank-dependent root fails on both ranks with the
   reference's words ("mismatched field: root rank", "call #1", both
   ranks named), and two different names fail after the quiet window
@@ -30,7 +30,7 @@ from horovod_tpu_torch.native.message import (OpType, Request, RequestList,
                                               SCHED_DIGEST_INIT, sched_fold)
 from horovod_tpu_torch.native.response_cache import ResponseCache
 from horovod_tpu_torch.native.stall_inspector import StallInspector
-from torch_support import REPO, free_port
+from torch_support import PORT_LAUNCHER, REPO, free_port
 
 PRELUDE = r'''
 import os
@@ -127,7 +127,7 @@ def _start(tmp_path, tag, script, *args):
                 "HOROVOD_COORDINATOR_ADDR", "HOROVOD_METRICS_FILE"):
         env.pop(var, None)
     return subprocess.Popen(
-        [sys.executable, "-m", "horovod_tpu.runner", "-np", "2",
+        [sys.executable, "-m", PORT_LAUNCHER, "-np", "2",
          sys.executable, str(path), *args], cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 

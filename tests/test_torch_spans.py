@@ -5,7 +5,8 @@ held against the reference's, on the CPU.
   names and occurrence numbers.
 * Sampling, the buffer bound and the document match the reference's
   recorder fed the same calls.
-* A 2-rank port job under ``hvdrun --trace DIR`` (the counterpart of
+* A 2-rank port job under the port's launcher with ``--trace DIR`` (the
+  counterpart of
   ``tests/distributed/trace_workload_np2.py``): the launcher merges the
   ranks' documents into ``trace.json`` and ``critical_path.json``, the
   reference's ``trace_merge`` and ``critical_path`` read the port's rank
@@ -25,7 +26,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from horovod_tpu.telemetry import critical_path, trace_merge
-from torch_support import REPO, free_port
+from torch_support import PORT_LAUNCHER, REPO, free_port
 
 spans = importlib.import_module("horovod_tpu_torch.telemetry.spans")
 ref_spans = importlib.import_module("horovod_tpu.telemetry.spans")
@@ -109,7 +110,7 @@ def _run(tmp_path, args):
                 "HOROVOD_SIZE", "HOROVOD_COORDINATOR_ADDR"):
         env.pop(var, None)
     return subprocess.Popen(
-        [sys.executable, "-m", "horovod_tpu.runner", "-np", "2", *args,
+        [sys.executable, "-m", PORT_LAUNCHER, "-np", "2", *args,
          sys.executable, str(script)],
         cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)

@@ -12,10 +12,10 @@ reference's (``horovod_tpu/telemetry``), on the CPU.
   and step-guard series.
 * The exporters: the HTTP server and the ``horovod_tpu.metrics.v1``
   document; the eager timeline's SUBMIT/WAIT/FINISH rows.
-* End to end: a 2-rank port job under ``hvdrun --metrics-file`` (the
-  counterpart of ``tests/distributed/metrics_workload_np2.py``), merged
-  by the reference launcher's ``aggregate``, beside the reference's own
-  job: the same series names, types, help texts, labels and bounds, and
+* End to end: a 2-rank port job under the port's launcher with
+  ``--metrics-file`` (the counterpart of
+  ``tests/distributed/metrics_workload_np2.py``), merged by the port's
+  ``aggregate``, beside the reference's own job under its launcher: the same series names, types, help texts, labels and bounds, and
   the same op counts, apart from the series each side has alone (listed
   below with the reason).
 """
@@ -38,21 +38,19 @@ from horovod_tpu_torch.parallel import zero
 from horovod_tpu_torch.telemetry import exporter
 from horovod_tpu_torch.telemetry.eager_timeline import (EagerTimelineWriter,
                                                         per_rank_path)
-from torch_support import REPO, free_port, world1  # noqa: F401
+from torch_support import (PORT_LAUNCHER, REF_LAUNCHER, REPO,  # noqa: F401
+                           free_port, world1)
 
 ref_telemetry = importlib.import_module("horovod_tpu.telemetry")
 # The packages' registry() accessors shadow the submodules.
 registry = importlib.import_module("horovod_tpu_torch.telemetry.registry")
 ref_registry = importlib.import_module("horovod_tpu.telemetry.registry")
 
-# Series only the reference's job publishes: the native transports' and
-# the two-level eager plane's (out of scope for the port), the native
-# chunk/shm/stripe knobs, and its flat-allreduce op counter.
-REF_ONLY = {"hvd_autotune_chunk_bytes", "hvd_autotune_hier_allgather",
-            "hvd_autotune_hier_allreduce", "hvd_autotune_shm_granule_bytes",
-            "hvd_autotune_transport_stripes", "hvd_flat_allreduce_ops_total",
-            "hvd_transport_bytes_total", "hvd_transport_ops_total",
-            "hvd_transport_seconds_total"}
+# Series only the reference's job publishes: the native transports'
+# (out of scope for the port) and the native chunk/shm/stripe knobs.
+REF_ONLY = {"hvd_autotune_chunk_bytes", "hvd_autotune_shm_granule_bytes",
+            "hvd_autotune_transport_stripes", "hvd_transport_bytes_total",
+            "hvd_transport_ops_total", "hvd_transport_seconds_total"}
 # Series only the port publishes: its fused eager responses as fusion
 # walks of kind "eager", and gauges of state the reference exposes as
 # native introspection symbols.
@@ -331,7 +329,7 @@ print(f"METRICS_WORKLOAD_OK rank={rank}", flush=True)
 '''
 
 
-def _launch(args, script, summary, tmp_path):
+def _launch(args, script, summary, tmp_path, launcher):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                OMP_NUM_THREADS="1")
@@ -339,7 +337,7 @@ def _launch(args, script, summary, tmp_path):
                 "HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_COORDINATOR_ADDR"):
         env.pop(var, None)
     return subprocess.Popen(
-        [sys.executable, "-m", "horovod_tpu.runner", "-np", "2",
+        [sys.executable, "-m", launcher, "-np", "2",
          "--metrics-file", summary, *args, sys.executable, script],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
@@ -349,10 +347,10 @@ def test_a_two_rank_job_merges_as_the_references(tmp_path):
     script = tmp_path / "job.py"
     script.write_text(PORT_METRICS)
     mine, ref = str(tmp_path / "port.json"), str(tmp_path / "ref.json")
-    procs = [_launch([], str(script), mine, tmp_path),
+    procs = [_launch([], str(script), mine, tmp_path, PORT_LAUNCHER),
              _launch([], os.path.join(REPO, "tests", "distributed",
                                       "metrics_workload_np2.py"), ref,
-                     tmp_path)]
+                     tmp_path, REF_LAUNCHER)]
     logs = [p.communicate(timeout=150)[0] for p in procs]
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]

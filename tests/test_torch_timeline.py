@@ -2,9 +2,9 @@
 the reference's, on the CPU.
 
 * ``tests/test_distributed.py:263-285``'s script (three allreduces and
-  an allgather) runs under the reference's launcher with
-  ``--timeline-filename --timeline-mark-cycles``, once through the port
-  and once through the reference.  Both files parse as JSON and hold
+  an allgather) runs with ``--timeline-filename --timeline-mark-cycles``,
+  once through the port under the port's launcher and once through the
+  reference under the reference's.  Both files parse as JSON and hold
   ``CYCLE_START``; per tensor the port's events carry the reference's
   ``NEGOTIATE_*`` and op names, and its activities are the reference's
   with ``TCP_<OP>`` read as ``GLOO_<OP>``.  Every tensor's events nest
@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 import horovod_tpu_torch as thvd
-from torch_support import run_job
+from torch_support import PORT_LAUNCHER, REF_LAUNCHER, run_job
 
 REF = r'''
 import sys
@@ -66,7 +66,8 @@ def _timeline(script, tmp_path, key):
     out.mkdir()
     path = out / "timeline.json"
     run_job(script, str(out), np_=2,
-            args=["--timeline-filename", str(path), "--timeline-mark-cycles"])
+            args=["--timeline-filename", str(path), "--timeline-mark-cycles"],
+            launcher=PORT_LAUNCHER if script is PORT else REF_LAUNCHER)
     text = path.read_text()
     assert text.startswith("[\n") and text.endswith("]\n")
     return json.loads(text)

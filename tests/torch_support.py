@@ -1,9 +1,14 @@
 """Shared pieces of the port's ``hvd.*`` tests.
 
-* :func:`run_job` runs a script under the JAX package's launcher.  The
-  script gets the output directory as its one argument and writes
-  ``rank<r>.npz`` there; the reference's ranks meet through the launcher,
-  the port's gloo world through ``MASTER_ADDR``/``MASTER_PORT``.
+* :func:`run_job` runs a script under a launcher: the port's
+  (:data:`PORT_LAUNCHER`, ``python -m horovod_tpu_torch.runner``) for a
+  job whose ranks run only the port, the JAX package's
+  (:data:`REF_LAUNCHER`) for one in which the reference's ranks run too.
+  The script gets the output directory as its one argument and writes
+  ``rank<r>.npz`` there.  Under the port's launcher the port's gloo world
+  meets at the launcher's ``HOROVOD_COORDINATOR_ADDR``; under the
+  reference's the reference's ranks meet through the launcher and the
+  port's world through ``MASTER_ADDR``/``MASTER_PORT``.
   :func:`run_port_job` runs a script of the port alone the same way,
   without the launcher, and returns each rank's output too;
   :func:`start_port_job` starts one and returns what waits for it.
@@ -31,6 +36,8 @@ import pytest
 import horovod_tpu_torch as thvd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_LAUNCHER = "horovod_tpu_torch.runner"
+REF_LAUNCHER = "horovod_tpu.runner"
 
 
 def free_port() -> int:
@@ -40,9 +47,10 @@ def free_port() -> int:
 
 
 def run_job(script: str, out_dir: str, np_: int = 3, args=(), env=None,
-            timeout: int = 300):
-    """Run ``script`` with ``np_`` ranks (launcher options ``args``, extra
-    environment ``env``); returns every rank's ``.npz`` as a dict."""
+            timeout: int = 300, launcher: str = REF_LAUNCHER):
+    """Run ``script`` with ``np_`` ranks under ``launcher`` (a module run
+    with ``python -m``; its options ``args``, extra environment ``env``);
+    returns every rank's ``.npz`` as a dict."""
     path = os.path.join(out_dir, "job.py")
     with open(path, "w") as f:
         f.write(script)
@@ -51,7 +59,7 @@ def run_job(script: str, out_dir: str, np_: int = 3, args=(), env=None,
     full.pop("XLA_FLAGS", None)   # the ranks need no fake devices
     full.update(env or {})
     res = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu.runner", "-np", str(np_),
+        [sys.executable, "-m", launcher, "-np", str(np_),
          *args, sys.executable, path, out_dir],
         capture_output=True, text=True, timeout=timeout, env=full, cwd=REPO)
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
