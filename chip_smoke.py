@@ -237,13 +237,31 @@ any failure ends the run with a traceback and a non-zero exit:
    low beside phase 4's.  The NCCL
    form of (c) needs 4 cards: ``-k hier`` of
    ``tests/test_torch_cuda_collective.py``.
+21. the fleet controller (``python -m horovod_tpu_torch.runner fleet -H
+   localhost:1``) on the one card: (a) ``low`` (priority 0) trains phase
+   4's ResNet-50 ``s2d_fused`` step (batch 256, bf16) for phase 4's 13
+   steps; on its first attempt it waits at step FLEET_LOW_HOLD for its
+   preemption.  ``high`` (priority 10, submitted FLEET_HIGH_AFTER s in)
+   runs the LM of record of phase 7 for 1 warm-up and 1 timed step.
+   ``high`` starves past the deadline, ``low`` is preempted (SIGTERM,
+   coordinated save, rc 75, no host blamed), ``high`` runs to rc 0, and
+   ``low`` is re-admitted and resumes at its saved step; its losses from
+   step 3 on equal phase 4's bit for bit.  The fleet's summary counts 3
+   admissions and 1 preemption; every attempt ran on the card; the
+   fused-stem launches of ``low``'s two attempts and the flash launches
+   of ``high`` come from each attempt's metrics file.  (b) on the CPU
+   beside (a): a 2-rank gloo job of the launcher with
+   ``--elastic-restarts 1`` under ``site=allreduce,kind=crash,after=3,
+   attempt=0`` resumes from its checkpoint and ends at the state of the
+   same job run without the fault, bit for bit.
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
 (b), 13 (a), 14 (b, c), 15, 17 (b) and, for the forward kernel, 12 (a);
 the fused stem's add phase 16's 73 or more (36 under the timeline, 36
 to 72 under the tuner, 1 bucketed step), phase 17's 39 and phase 18's
-104 forward passes ((c) 3 x 13, (d) 3 x 13, (e) 2 x 13) and phase 20
-(a)'s to phase 4's.
+104 forward passes ((c) 3 x 13, (d) 3 x 13, (e) 2 x 13), phase 20
+(a)'s and phase 21 (a)'s 13 to phase 4's; the flash rows add phase 21
+(a)'s 20 each.
 It prints one JSON line of kernel numbers and, last, one JSON line
 naming the device.  With no GPU
 it exits non-zero and prints no result.
@@ -5235,6 +5253,340 @@ def _launcher_hierarchical():
     return finish
 
 
+# Phase 21 (a): the fleet on the one card.  low runs phase 4's 13 steps
+# (WARMUP_STEPS + TIMED_STEPS), so its losses from step 3 on are phase
+# 4's timed ones; its first attempt waits at FLEET_LOW_HOLD for the
+# preemption (at most FLEET_HOLD_S), so the preemption lands mid-run.
+FLEET_LOW_STEPS = WARMUP_STEPS + TIMED_STEPS
+FLEET_LOW_HOLD = 4
+FLEET_HOLD_S = 300.0
+FLEET_HIGH_AFTER = 25.0
+FLEET_STARVATION = 2.0
+FLEET_LM_STEPS = (1, 1)          # (warm-up, timed) steps of high
+# Phase 21 (b): the crash-and-restart job on gloo.
+CHAOS_STEPS = 5
+CHAOS_SPEC = "rank=1,site=allreduce,after=3,kind=crash,attempt=0"
+# A job's command: a SIGTERM that lands while torch still imports is
+# noted, and the worker acts on it at its first step boundary.
+_FLEET_STUB = ("import os, signal, sys; early = []; "
+               "signal.signal(signal.SIGTERM, lambda s, f: early.append(s));"
+               " sys.path.insert(0, {root!r}); import chip_smoke; "
+               "chip_smoke._fleet_worker({job!r}, {out!r}, early)")
+
+
+def _fleet_worker(job: str, out_dir: str, early: list) -> None:
+    """A job of phase 21 (a), one attempt: its metrics file is
+    ``<job>.attempt<N>.json`` under ``out_dir``."""
+    import os
+
+    attempt = os.environ.get("HOROVOD_RESTART_ATTEMPT", "0")
+    os.environ["HOROVOD_METRICS_FILE"] = os.path.join(
+        out_dir, f"{job}.attempt{attempt}.json")
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import resilience
+
+    hvd.init()
+    resilience.install_preemption_handler()
+    if early:
+        resilience.request_preemption()
+    on = hvd.device()
+    print("FLEET_DEVICE " + json.dumps({
+        "job": job, "attempt": attempt, "local_rank": hvd.local_rank(),
+        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "platform": "gpu" if on.type == "cuda" else on.type,
+        "device": (torch.cuda.get_device_name(on) if on.type == "cuda"
+                   else "cpu")}), flush=True)
+    if job == "low":
+        _fleet_low(out_dir, attempt)
+    else:
+        _fleet_high()
+    hvd.shutdown()
+
+
+def _fleet_low(out_dir: str, attempt: str) -> None:
+    import os
+
+    from horovod_tpu_torch import benchmark, checkpoint, resilience
+
+    st = benchmark.make_bench_state("resnet50", BATCH, image_size=IMAGE,
+                                    input_dtype="bfloat16",
+                                    stem="s2d_fused")
+    step = benchmark.make_train_step(st.model, st.optimizer, st.mesh,
+                                     st.axis)
+    params = [p for g in st.optimizer.param_groups for p in g["params"]]
+    ckpt = os.path.join(out_dir, "low_ckpt")
+
+    def state(n):
+        return {"model": dict(st.model.state_dict()),
+                "momentum": [st.optimizer.state[p].get(
+                    "momentum_buffer", torch.zeros_like(p)) for p in params],
+                "step": n}
+
+    start = 0
+    if checkpoint.latest_step(ckpt) is not None:
+        back = checkpoint.restore(ckpt, state(0))
+        with torch.no_grad():
+            st.model.load_state_dict(back["model"])
+        for p, m in zip(params, back["momentum"]):
+            st.optimizer.state[p]["momentum_buffer"] = m.to(p.device).clone()
+        start = int(back["step"])
+        print(f"FLEET_RESUME job=low start={start} prev_np="
+              f"{os.environ.get('HOROVOD_ELASTIC_PREV_SIZE', '')}",
+              flush=True)
+    for i in range(start, FLEET_LOW_STEPS):
+        loss = float(step(st.images, st.labels))
+        print(f"FLEET_LOSS step={i} {loss.hex()}", flush=True)
+        if attempt == "0" and i + 1 == FLEET_LOW_HOLD:
+            deadline = time.monotonic() + FLEET_HOLD_S
+            while not resilience.preemption_requested():
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"low: no preemption within "
+                                     f"{FLEET_HOLD_S:g} s")
+                time.sleep(0.05)
+        if resilience.preemption_requested():
+            # Read once: a SIGTERM between a test and the save's own
+            # test would save a step this line does not name.
+            print(f"FLEET_SAVE job=low step={i + 1}", flush=True)
+            resilience.maybe_save_and_exit(ckpt, state(i + 1), i + 1)
+    print(f"FLEET_OK job=low steps={FLEET_LOW_STEPS}", flush=True)
+
+
+def _fleet_high() -> None:
+    from horovod_tpu_torch.benchmark import run_lm_benchmark
+
+    res = run_lm_benchmark(
+        **LM, attention="flash", remat="none", momentum_dtype="bfloat16",
+        num_warmup_batches=FLEET_LM_STEPS[0], num_batches_per_iter=1,
+        num_iters=FLEET_LM_STEPS[1])
+    losses = res["step_losses"]
+    check(all(v == v and abs(v) != float("inf") for v in losses),
+          f"high: LM losses {losses}")
+    print("FLEET_OK job=high " + json.dumps(
+        {"ms_per_step": res["ms_per_step"], "losses": losses,
+         "tok_sec_per_chip": res["tok_sec_per_chip"]}), flush=True)
+
+
+def _chaos_worker(ckpt: str, out: str) -> None:
+    """Phase 21 (b)'s rank: CHAOS_STEPS allreduces on gloo, each step
+    checkpointed; a relaunch resumes from the last one."""
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint
+
+    torch.set_num_threads(1)
+    hvd.init(device="cpu")
+    attempt = os.environ.get("HOROVOD_RESTART_ATTEMPT", "0")
+    state = {"w": torch.zeros(4), "step": torch.zeros((), dtype=torch.int64)}
+    state = checkpoint.restore(ckpt, state)
+    start = int(state["step"])
+    if attempt == "1" and start != 3:
+        raise SystemExit(f"attempt 1 resumed at step {start}, not 3")
+    for step in range(start, CHAOS_STEPS):
+        g = torch.full((4,), float(step + hvd.rank())) / 3
+        state["w"] = state["w"] + hvd.allreduce(g, name=f"chaos.{step}")
+        state["step"] = torch.tensor(step + 1)
+        checkpoint.save(ckpt, state, step + 1)
+    if hvd.rank() == 0:
+        torch.save(state["w"], out)
+        print(f"CHAOS_OK attempt={attempt} start={start}", flush=True)
+    hvd.shutdown()
+
+
+def _fleet_chaos_cpu():
+    """Phase 21 (b): starts the faulted job and the clean one; returns the
+    function that waits for both and checks them."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    env = {"OMP_NUM_THREADS": "1", "HOROVOD_TERMINATE_GRACE_SECONDS": "3"}
+    procs = {}
+    for name, spec in (("fault", CHAOS_SPEC), ("clean", "")):
+        procs[name] = _launcher(
+            ["-np", "2", "--elastic-restarts", "1", sys.executable,
+             os.path.abspath(__file__), "--chaos-worker",
+             os.path.join(tmp, f"{name}_ckpt"),
+             os.path.join(tmp, f"{name}.pt")],
+            env=dict(env, HOROVOD_FAULT_SPEC=spec), wait=False)
+
+    ended = {}
+
+    def watch(name, proc):
+        proc.wait()
+        ended[name] = time.perf_counter()
+
+    import threading
+    watchers = [threading.Thread(target=watch, args=item, daemon=True)
+                for item in procs.items()]
+    for w in watchers:
+        w.start()
+
+    def finish() -> None:
+        try:
+            outs = {}
+            for name, proc in procs.items():
+                rc = proc.wait(timeout=300)
+                proc.out.seek(0)
+                proc.err.seek(0)
+                outs[name] = (rc, proc.out.read(), proc.err.read())
+                check(rc == 0, f"phase 21 (b): the {name} job exited {rc}:"
+                      f"\n{outs[name][1][-3000:]}\n{outs[name][2][-3000:]}")
+            for w in watchers:
+                w.join(timeout=10)
+            seconds = max(ended.values()) - t0
+            got = torch.load(os.path.join(tmp, "fault.pt"))
+            want = torch.load(os.path.join(tmp, "clean.pt"))
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.out.close()
+                proc.err.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+        _, out, err = outs["fault"]
+        check("firing kind=crash" in out + err
+              and "elastic restart 1/1" in err
+              and "CHAOS_OK attempt=1 start=3" in out,
+              f"phase 21 (b): no crash, restart and resume at step 3:\n"
+              f"{out[-2000:]}\n{err[-2000:]}")
+        check(torch.equal(got, want), f"phase 21 (b): resumed state "
+              f"{got.tolist()} != uninterrupted {want.tolist()}")
+        print(f"phase 21 (b): 2 gloo ranks under {CHAOS_SPEC!r} in "
+              f"{seconds:.1f} s (beside (a)): rank 1 SIGKILLed at its 4th "
+              f"allreduce, elastic restart 1/1 resumed at step 3 and "
+              f"ended at the uninterrupted run's state bit for bit",
+              flush=True)
+
+    return finish
+
+
+def _kernel_launches(path: str) -> dict:
+    """``hvd_kernel_launches`` of a rank's metrics file, by kernel."""
+    with open(path) as f:
+        doc = json.load(f)
+    fam = doc["metrics"].get("hvd_kernel_launches", {"values": []})
+    return {v["labels"]["kernel"]: int(v["value"]) for v in fam["values"]}
+
+
+def phase_fleet(smi: str, main: dict) -> tuple:
+    """Phase 21; returns (the fused-stem launches of (a), the flash
+    launches of (a) by counter name)."""
+    import gc
+    import glob
+    import os
+    import re
+    import shlex
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.telemetry import aggregate
+
+    finish_chaos = _fleet_chaos_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp()
+    summary = os.path.join(tmp, "fleet.json")
+
+    def job(name: str) -> str:
+        stub = _FLEET_STUB.format(root=root, job=name, out=tmp)
+        return f"{sys.executable} -c {shlex.quote(stub)}"
+
+    t0 = time.perf_counter()
+    try:
+        p = _launcher(
+            ["fleet", "-H", "localhost:1", "--starvation-deadline",
+             str(FLEET_STARVATION), "--tick-interval", "0.25",
+             "--metrics-file", summary, "--fleet-dir",
+             os.path.join(tmp, "fleet"),
+             "--job", f"low 0 1 -- {job('low')}",
+             "--job", f"high 10 1 after={FLEET_HIGH_AFTER} -- "
+                      f"{job('high')}"],
+            env={"HOROVOD_TERMINATE_GRACE_SECONDS": "60"}, timeout=900)
+        seconds = time.perf_counter() - t0
+        log = f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}"
+        check(p.returncode == 0, f"phase 21 (a): the fleet exited "
+              f"{p.returncode}:\n{log}")
+        for line in ("admit job low np=1", "preempting job low", "starved",
+                     "job low preempted (rc 75)", "admit job high np=1",
+                     "job high finished ok", "(resume)",
+                     "job low finished ok"):
+            check(line in p.stderr, f"phase 21 (a): no {line!r}:\n{log}")
+        check("blacklisting host" not in p.stderr,
+              f"phase 21 (a): a host was blamed:\n{log}")
+        devices = [json.loads(m) for m in re.findall(
+            r"<stdout>:FLEET_DEVICE (\{.*\})$", p.stdout, re.M)]
+        check(sorted((d["job"], d["attempt"]) for d in devices)
+              == [("high", "0"), ("low", "0"), ("low", "1")]
+              and all(d["platform"] == "gpu"
+                      and d["device"] == torch.cuda.get_device_name(0)
+                      and d["visible"] == "0" for d in devices),
+              f"phase 21 (a): attempts and devices {devices}")
+        saved = [int(v) for v in re.findall(r"FLEET_SAVE job=low step=(\d+)",
+                                            p.stdout)]
+        resumed = [int(v) for v in re.findall(
+            r"FLEET_RESUME job=low start=(\d+)", p.stdout)]
+        check(len(saved) == 1 and 1 <= saved[0] <= FLEET_LOW_HOLD
+              and resumed == saved,
+              f"phase 21 (a): saved at {saved}, resumed at {resumed}")
+        losses = {int(i): float.fromhex(v) for i, v in re.findall(
+            r"FLEET_LOSS step=(\d+) (\S+)$", p.stdout, re.M)}
+        check(sorted(losses) == list(range(FLEET_LOW_STEPS)),
+              f"phase 21 (a): low's steps {sorted(losses)}")
+        timed = [losses[i] for i in range(WARMUP_STEPS, FLEET_LOW_STEPS)]
+        check(timed == main["step_losses"],
+              f"phase 21 (a): low's losses {timed} are not phase 4's "
+              f"{main['step_losses']}")
+        with open(summary) as f:
+            doc = json.load(f)
+        snap = doc["controller"]["metrics"]
+        adm = aggregate.counter_total(snap, "hvd_fleet_admissions_total")
+        pre = aggregate.counter_total(snap, "hvd_fleet_preemptions_total")
+        check(doc["schema"] == "horovod_tpu.fleet.summary.v1"
+              and adm == 3 and pre == 1
+              and doc["jobs"]["low"]["preemptions"] == 1
+              and doc["jobs"]["low"]["attempts"] == 2
+              and doc["jobs"]["low"]["state"] == "done"
+              and doc["jobs"]["high"]["state"] == "done",
+              f"phase 21 (a): summary admissions {adm}, preemptions {pre}, "
+              f"jobs {doc['jobs']}")
+        runs = {os.path.basename(f)[:-5]: _kernel_launches(f) for f in
+                glob.glob(os.path.join(tmp, "*.attempt*.json"))}
+        check(sorted(runs) == ["high.attempt0", "low.attempt0",
+                               "low.attempt1"],
+              f"phase 21 (a): metrics files {sorted(runs)}")
+        stem = [runs.get(f"low.attempt{a}", {}).get("fused_stem", 0)
+                for a in (0, 1)]
+        check(stem == [saved[0], FLEET_LOW_STEPS - saved[0]],
+              f"phase 21 (a): fused_stem launches {stem} in low's metrics "
+              f"files, expected [{saved[0]}, "
+              f"{FLEET_LOW_STEPS - saved[0]}]")
+        flash = {c.name: runs.get("high.attempt0", {}).get(c.name, 0)
+                 for c in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)}
+        want = LM["n_layers"] * sum(FLEET_LM_STEPS)
+        check(all(v == want for v in flash.values()),
+              f"phase 21 (a): flash launches {flash} in high's metrics "
+              f"file, expected {want} each")
+        high = json.loads(re.search(r"FLEET_OK job=high (\{.*\})$",
+                                    p.stdout, re.M).group(1))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 21 (a): fleet on {smi} in {seconds:.1f} s: low (ResNet-50 "
+          f"s2d_fused, batch {BATCH}) preempted at step {saved[0]} (rc 75, "
+          f"no host blamed) for high (LM of record, "
+          f"{high['ms_per_step']:.1f} ms/step, not gated), resumed at step "
+          f"{resumed[0]}; losses of steps {WARMUP_STEPS}-"
+          f"{FLEET_LOW_STEPS - 1} bit for bit phase 4's; admissions "
+          f"{int(adm)}, preemptions {int(pre)}; fused_stem launches "
+          f"{stem}, flash {flash} (metrics files)", flush=True)
+    finish_chaos()
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
+    return sum(stem), flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5270,12 +5622,15 @@ def main() -> int:
     stem_row["launches"] += phase_zoo_and_lanes(smi, main_summary)
     phase_serving(smi)
     stem_row["launches"] += phase_launcher(smi, main_summary)
+    fleet_stem, fleet_flash = phase_fleet(smi, main_summary)
+    stem_row["launches"] += fleet_stem
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
-                           zero, guard, warm, tele_flash):
+                           zero, guard, warm, tele_flash,
+                           fleet_flash.values()):
         check(all(count), f"{row['name']} did not launch on every path: "
               f"phase 7, 11 (a), 11 (b), 12 (b), 13 (a), 14 (b, c), 15, "
-              f"17 (b) {count}")
+              f"17 (b), 21 (a) {count}")
         row["launches"] = sum(count)
     flash_rows[0]["launches"] += decode[0]
     hvd.shutdown()
@@ -5308,6 +5663,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--hier-worker"]:
         _hier_worker(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--chaos-worker"]:
+        _chaos_worker(*sys.argv[2:4])
         sys.exit(0)
     if sys.argv[1:2] == ["--telemetry-worker"]:
         _telemetry_worker(*sys.argv[2:4])

@@ -224,6 +224,11 @@ _var("HOROVOD_HANG_DEADLINE", "float", 0.0,
 _var("HOROVOD_COORD_LEASE_SECONDS", "float", 10.0,
      "Coordinator lease term: heartbeats renew it, expiry triggers the "
      "deterministic re-election of the lowest healthy leader host")
+_var("HOROVOD_COORD_MSG_RETRIES", "int", 4,
+     "Bounded retransmits per control message (jittered exponential "
+     "backoff between attempts)")
+_var("HOROVOD_COORD_MSG_DEADLINE", "float", 10.0,
+     "Total per-control-message deadline across all retransmits")
 _var("HOROVOD_FLEET_JOB", "str", None,
      "Job name injected by the fleet controller (labels metric exports)")
 

@@ -32,11 +32,20 @@ log = get_logger("horovod_tpu_torch.controller")
 
 
 class TreePlan:
-    """The host-major grouping of ``slot_sizes`` ranks per host."""
+    """The host-major aggregation tree over ``slot_sizes`` ranks per host
+    (``horovod_tpu/coordination.py`` ``TreePlan``, which
+    :mod:`horovod_tpu_torch.coordination` re-exports).  Level 0: each
+    rank's leader is the first rank of its host.  Above that the leaders
+    form a k-ary tree (``arity``) rooted at rank 0, the shape the
+    protocol's :class:`~horovod_tpu_torch.coordination.Node` reports
+    along."""
 
-    def __init__(self, slot_sizes: Sequence[int]):
+    def __init__(self, slot_sizes: Sequence[int], arity: int = 4):
         if not slot_sizes or any(s < 1 for s in slot_sizes):
             raise ValueError(f"bad slot sizes {slot_sizes!r}")
+        if arity < 2:
+            raise ValueError(f"tree arity must be >= 2, got {arity}")
+        self.arity = arity
         self.slot_sizes = tuple(slot_sizes)
         self.size = sum(slot_sizes)
         self.leaders: List[int] = []
@@ -47,18 +56,74 @@ class TreePlan:
             for r in range(base, base + s):
                 self._leader_of[r] = base
             base += s
+        self._leader_index = {r: i for i, r in enumerate(self.leaders)}
+
+    def is_leader(self, rank: int) -> bool:
+        return rank in self._leader_index
 
     def leader_of(self, rank: int) -> int:
         return self._leader_of[rank]
 
     def members_of(self, leader: int) -> List[int]:
         """The other ranks of ``leader``'s host."""
-        i = self.leaders.index(leader)
+        i = self._leader_index[leader]
         return list(range(leader + 1, leader + self.slot_sizes[i]))
 
     def host_ranks(self, i: int) -> List[int]:
         return list(range(self.leaders[i],
                           self.leaders[i] + self.slot_sizes[i]))
+
+    def parent_of(self, rank: int) -> Optional[int]:
+        """The rank this one reports to (None for the root): a member's
+        leader, or a leader's parent in the leaders' k-ary tree."""
+        if rank not in self._leader_index:
+            return self._leader_of[rank]
+        i = self._leader_index[rank]
+        if i == 0:
+            return None
+        return self.leaders[(i - 1) // self.arity]
+
+    def children_of(self, rank: int) -> List[int]:
+        """A leader's members, then its child leaders; [] for a member."""
+        if rank not in self._leader_index:
+            return []
+        i = self._leader_index[rank]
+        kids = self.members_of(rank)
+        lo = i * self.arity + 1
+        for j in range(lo, min(lo + self.arity, len(self.leaders))):
+            kids.append(self.leaders[j])
+        return kids
+
+    def depth(self) -> int:
+        """Hops from the deepest member to the root."""
+        d = 1 if any(s > 1 for s in self.slot_sizes) else 0
+        n = len(self.leaders)
+        hops = 0
+        while n > 1:
+            n = (n + self.arity - 1) // self.arity
+            hops += 1
+        return d + hops
+
+    def max_fan_in(self) -> int:
+        """Messages the busiest node takes in a tick."""
+        return max((len(self.children_of(r)) for r in self.leaders),
+                   default=0)
+
+    @staticmethod
+    def flat_fan_in(size: int) -> int:
+        """The flat star's: the coordinator hears every other rank."""
+        return size - 1
+
+    @classmethod
+    def from_topology_string(cls, topo: str, arity: int = 4) -> "TreePlan":
+        """From the ``"h1:2,h2:2"`` dialect of ``HOROVOD_TOPOLOGY``."""
+        sizes = []
+        for part in topo.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            sizes.append(int(part.rsplit(":", 1)[1]) if ":" in part else 1)
+        return cls(sizes, arity=arity)
 
 
 def slot_sizes(spec: str) -> Optional[List[int]]:

@@ -90,7 +90,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch import config, telemetry
+from horovod_tpu_torch import config, faults, telemetry
 from horovod_tpu_torch.native import data_plane
 from horovod_tpu_torch.native.autotune import ParameterManager
 from horovod_tpu_torch.native.controller import Controller, fuse
@@ -288,7 +288,10 @@ class Runtime:
         return self.hier is not None and self.hier.allgather
 
     def submit(self, entries: Sequence[TensorEntry], kind: str) -> None:
-        """File ``entries`` for the next cycle (a short append)."""
+        """File ``entries`` for the next cycle (a short append).  Each
+        entry passes the ``native_submit`` fault site first."""
+        for e in entries:
+            faults.inject("native_submit", e.name, rank=self.rank)
         now = time.monotonic()
         for e in entries:
             if self.shrink:
@@ -307,6 +310,12 @@ class Runtime:
                     self._inflight[next(self._inflight_seq)] = e
         requests.count += len(entries)
         self._wake.set()
+
+    def wait(self, e: TensorEntry):
+        """``e``'s raw result, waited for (:meth:`TensorEntry.result`)
+        after the ``native_wait`` fault site."""
+        faults.inject("native_wait", e.name, rank=self.rank)
+        return e.result()
 
     # -- telemetry ----------------------------------------------------------------
 

@@ -197,20 +197,22 @@ class _Pending:
     """Submitted entries and the function that turns their raw results
     into the caller's result."""
 
-    def __init__(self, entries: Sequence[TensorEntry], finish):
+    def __init__(self, entries: Sequence[TensorEntry], finish, runtime):
         self.entries = list(entries)
         self.finish = finish
+        self.runtime = runtime
 
     def done(self) -> bool:
         return all(e.done() for e in self.entries)
 
     def result(self):
-        return self.finish([e.result() for e in self.entries])
+        return self.finish([self.runtime.wait(e) for e in self.entries])
 
 
 def _submit(entries: Sequence[TensorEntry], kind: str, finish) -> _Pending:
-    basics.runtime().submit(entries, kind)
-    return _Pending(entries, finish)
+    rt = basics.runtime()
+    rt.submit(entries, kind)
+    return _Pending(entries, finish, rt)
 
 
 def _run(entries: Sequence[TensorEntry], kind: str):
@@ -368,7 +370,11 @@ def _allreduce_result(raw, tensor, op, postscale, n, name) -> torch.Tensor:
 def _allreduces(tensors, names, op, prescale, postscale, set_id, n,
                 pick) -> _Pending:
     """Every tensor under its name, submitted together (the runtime fuses
-    them); ``pick`` turns the list of results into the caller's."""
+    them); ``pick`` turns the list of results into the caller's.  Each
+    tensor passes the ``allreduce`` fault site, as each of the
+    reference's per-tensor calls does."""
+    for nm in names:
+        faults.inject("allreduce", nm)
     entries = [_allreduce_entry(t, op, nm, prescale, set_id)
                for t, nm in zip(tensors, names)]
     return _submit(entries, "allreduce", lambda raws: pick([
@@ -409,6 +415,7 @@ def _start_allgather(tensor, name, process_set, with_rows=False
     set_id, members = _set_args(process_set)
     x = tensor.reshape(1) if tensor.dim() == 0 else tensor
     name = _auto_name("allgather", name, set_id)
+    faults.inject("allgather", name)
     entry = TensorEntry(OpType.ALLGATHER, name, x, set_id=set_id)
 
     def finish(raws):
@@ -431,6 +438,7 @@ def _start_broadcast(tensor, root_rank, name, process_set,
         raise ValueError(f"broadcast root_rank {root_rank} is not a member "
                          f"of process set {members}")
     name = _auto_name("broadcast", name, set_id)
+    faults.inject("broadcast", name)
     entry = TensorEntry(OpType.BROADCAST, name, tensor, arg=root_rank,
                         set_id=set_id)
 
@@ -610,6 +618,7 @@ def reducescatter(tensor, op=None, name=None,
                          f"by {n} ranks; got shape "
                          f"{tuple(tensor.shape)}")
     name = _auto_name("reducescatter", name, set_id)
+    faults.inject("reducescatter", name)
     raw, = _run([TensorEntry(OpType.REDUCESCATTER, name, tensor,
                              arg=rop.code, set_id=set_id)], "reducescatter")
     out = raw.reshape((tensor.shape[0] // n,) + tuple(tensor.shape[1:]))
@@ -639,6 +648,7 @@ def alltoall(tensor, splits=None, name=None, process_set=None):
             raise ValueError(f"alltoall splits {send} do not match first "
                              f"dimension {rows} for size-{n} job")
     name = _auto_name("alltoall", name, set_id)
+    faults.inject("alltoall", name)
     (flat, recv), = _run([TensorEntry(OpType.ALLTOALL, name, x,
                                       set_id=set_id, splits=send)],
                          "alltoall")
@@ -654,8 +664,9 @@ def barrier(name=None, process_set=None) -> None:
     """Block until every member has arrived (reference ``:1021``): the
     negotiation is the barrier."""
     set_id, _ = _set_args(process_set)
-    _run([TensorEntry(OpType.BARRIER, _auto_name("barrier", name, set_id),
-                      set_id=set_id)], "barrier")
+    name = _auto_name("barrier", name, set_id)
+    faults.inject("barrier", name)
+    _run([TensorEntry(OpType.BARRIER, name, set_id=set_id)], "barrier")
 
 
 def join() -> int:

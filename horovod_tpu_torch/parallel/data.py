@@ -45,7 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from horovod_tpu_torch import basics, config, resilience
+from horovod_tpu_torch import basics, config, faults, resilience
 from horovod_tpu_torch.ops import collective
 from horovod_tpu_torch.ops import compression as compression_mod
 from horovod_tpu_torch.ops import fusion
@@ -443,6 +443,8 @@ def _make_sharded_training_step(loss_fn, model, params, optimizer, group,
     sharded = zero.ShardedUpdate(zopt, params)
 
     def step(batch):
+        if faults.drop_residual():
+            sharded.state = _drop_residuals(sharded.state)
         loss = loss_fn(model, batch)
         grads = torch.autograd.grad(loss, params)
         return resilience.apply_step_guard(
@@ -502,6 +504,8 @@ def _make_compressed_training_step(loss_fn, model, params, optimizer, group,
                 "call step.init(params) before the first step: the "
                 "compressed wire's bucket plan is derived from the "
                 "parameter tree at init")
+        if faults.drop_residual():
+            wire.state = _drop_residuals(wire.state)
         loss = loss_fn(model, batch)
         grads = torch.autograd.grad(loss, params)
         return resilience.apply_step_guard(

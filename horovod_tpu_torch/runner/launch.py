@@ -13,9 +13,9 @@ and ``NCCL_*``, ``CUDA_*`` and ``TORCH_*`` where the reference forwards
 SIGTERM to every other rank, SIGKILL after
 ``HOROVOD_TERMINATE_GRACE_SECONDS`` (10 s by default).  The launcher's
 own SIGINT/SIGTERM makes the job's rc 130; a rank's preemption rc (75)
-is no host's fault.  The reference's launcher-side fault site
-(``faults.inject("spawn")``) has no counterpart: the port's fault specs
-act on the ranks' planes only.
+is no host's fault.  Each rank's spawn passes the ``spawn`` fault site
+in the launcher (``faults.inject``, detail: the host, on behalf of the
+rank being started).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-from horovod_tpu_torch import config, telemetry
+from horovod_tpu_torch import config, faults, telemetry
 from horovod_tpu_torch.coordination import PREEMPTION_RC
 from horovod_tpu_torch.runner.hosts import RankInfo
 
@@ -82,6 +82,7 @@ class RankProcess:
         self.terminated_by_launcher = False
 
     def start(self) -> None:
+        faults.inject("spawn", self.info.hostname, rank=self.info.rank)
         self._stdin_secret = None   # set only on the ssh path
         if is_local(self.info.hostname):
             cmd = self.command

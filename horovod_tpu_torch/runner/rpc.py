@@ -3,8 +3,10 @@
 Counterpart of ``horovod_tpu/runner/rpc.py``: ``AuthError``,
 ``_send_msg``, ``_recv_exact`` and ``_recv_msg`` (``:30-60``),
 ``RpcServer`` (``:63-113``), ``connect_with_retry`` and ``rpc_call``
-(``:116-200``), ``time_sync_reply`` (``:201``), ``KeepaliveMonitor``
-(``:340``) and ``job_key_bytes`` (``:474``).  A message is an ``!Q``
+(``:116-200``), ``time_sync_reply`` (``:201``), the coordination plane's
+``control_call``, ``probe_reachable`` and ``local_addresses``
+(``:243-338``), ``KeepaliveMonitor`` (``:340``) and ``job_key_bytes``
+(``:474``).  A message is an ``!Q``
 payload length, the HMAC-SHA256 digest of the payload under the job's
 key (``HOROVOD_SECRET_KEY``), then the pickled payload: byte for byte
 what the reference launcher's ``RpcServer`` reads, so the port's
@@ -34,7 +36,7 @@ import threading
 import time
 from typing import Any, Callable, Optional
 
-from horovod_tpu_torch import telemetry
+from horovod_tpu_torch import config, faults, telemetry
 
 
 class AuthError(RuntimeError):
@@ -175,7 +177,10 @@ def rpc_call(addr: str, port: int, request: Any, key: bytes,
              timeout: float = 30.0, retries: int = 4) -> Any:
     """One authenticated request/response round trip (``retries=0``: a
     single dial).  The time-sync probe records no span: it runs during
-    the span export itself."""
+    the span export itself.  The call passes the ``rpc`` fault site
+    first (detail: the request's kind)."""
+    faults.inject("rpc", str(request.get("kind"))
+                  if isinstance(request, dict) else None)
     kind = (str(request.get("kind")) if isinstance(request, dict)
             else "raw")
     telemetry.counter("hvd_rpc_calls_total",
@@ -222,6 +227,105 @@ def measure_clock_offset(addr: str, port: int, key: bytes,
         if best is None or rtt < best[1]:
             best = (offset, rtt)
     return best
+
+
+def control_call(addr: str, port: int, request: dict, key: bytes,
+                 *, epoch: int = 0, seq: int = 0,
+                 retries: Optional[int] = None,
+                 deadline: Optional[float] = None,
+                 timeout: float = 5.0,
+                 sleep: Callable[[float], None] = time.sleep,
+                 rng: Callable[[], float] = random.random,
+                 clock: Callable[[], float] = time.monotonic) -> Any:
+    """A coordination-plane round trip: :func:`rpc_call` hardened.
+
+    The request is stamped with ``(epoch, seq)`` so that the receiver can
+    drop stale epochs and de-duplicate retransmits
+    (:class:`~horovod_tpu_torch.coordination.DedupFilter`), which makes
+    retrying the whole round trip safe here, where :func:`rpc_call` may
+    retry only the dial.  Retransmits back off under a
+    :class:`~horovod_tpu_torch.coordination.RetryPolicy` of
+    ``HOROVOD_COORD_MSG_RETRIES`` retries within a total budget of
+    ``HOROVOD_COORD_MSG_DEADLINE`` seconds, each counted in
+    ``hvd_coord_msg_retries_total{kind}``.  Each send polls the
+    ``control`` fault site (:func:`horovod_tpu_torch.faults.control_chaos`):
+    ``msg_drop`` and ``partition`` fail the send, ``msg_dup`` sends it
+    twice and ``msg_delay`` stalls it."""
+    from horovod_tpu_torch.coordination import RetryPolicy
+    if retries is None:
+        retries = config.env_int("HOROVOD_COORD_MSG_RETRIES")
+    if deadline is None:
+        deadline = config.env_float("HOROVOD_COORD_MSG_DEADLINE")
+    policy = RetryPolicy(retries=retries, deadline=deadline)
+    request = dict(request, epoch=int(epoch), seq=int(seq))
+    kind = str(request.get("kind"))
+    started = clock()
+    attempt = 0
+    last_err: Optional[Exception] = None
+    while not policy.give_up(attempt, clock() - started):
+        send_copies = 1
+        try:
+            for fault_kind, arg in faults.control_chaos():
+                if fault_kind == "msg_drop":
+                    raise ConnectionError("chaos: control message dropped")
+                if fault_kind == "msg_dup":
+                    send_copies = 2
+                elif fault_kind == "msg_delay":
+                    sleep(float(arg) / 1000.0 if arg is not None else 0.1)
+                elif fault_kind == "partition":
+                    raise ConnectionError("chaos: control partition")
+            resp = None
+            for _ in range(send_copies):
+                with connect_with_retry(addr, port, timeout=timeout,
+                                        retries=0, deadline=timeout,
+                                        clock=clock) as sock:
+                    _send_msg(sock, pickle.dumps(request), key)
+                    resp = pickle.loads(_recv_msg(sock, key))
+            return resp
+        except (OSError, AuthError, pickle.PickleError) as e:
+            last_err = e
+            attempt += 1
+            telemetry.counter(
+                "hvd_coord_msg_retries_total",
+                "Control-plane messages retransmitted after a failed "
+                "round trip", kind=kind).inc()
+            sleep(policy.backoff(attempt - 1, rng))
+    raise ConnectionError(
+        f"control message kind={kind} epoch={epoch} seq={seq} to "
+        f"{addr}:{port} failed after {attempt} attempts: {last_err}")
+
+
+def probe_reachable(host: str, port: int, timeout: float = 3.0) -> bool:
+    """True when a TCP connection to ``host:port`` opens within
+    ``timeout`` (the reachability probe, without a shell)."""
+    try:
+        with socket.create_connection((host, port), timeout=timeout):
+            return True
+    except OSError:
+        return False
+
+
+def local_addresses() -> list:
+    """This host's routable IPv4 addresses, sorted (``127.0.0.1`` when it
+    has none): those its hostname resolves to, and the one a datagram
+    socket would leave by (connected, never sent on), loopback left out.
+    A task reports them and the driver intersects."""
+    addrs = set()
+    try:
+        for info in socket.getaddrinfo(socket.gethostname(), None,
+                                       family=socket.AF_INET):
+            addrs.add(info[4][0])
+    except socket.gaierror:
+        pass
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.connect(("10.255.255.255", 1))
+        addrs.add(s.getsockname()[0])
+        s.close()
+    except OSError:
+        pass
+    addrs.discard("127.0.0.1")
+    return sorted(addrs) or ["127.0.0.1"]
 
 
 class KeepaliveMonitor:

@@ -54,7 +54,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
             "horovod_tpu_torch.runner.launch, "
             "horovod_tpu_torch.runner.hosts, "
             "horovod_tpu_torch.runner.config_parser, "
-            "horovod_tpu_torch.runner.network\n"
+            "horovod_tpu_torch.runner.network, "
+            "horovod_tpu_torch.runner.fleet\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -149,11 +150,36 @@ def test_a_rank_without_a_card_fails_its_job(tmp_path):
 
 
 def test_the_fleet_subcommand_is_refused_not_run(tmp_path):
+    """``python -m horovod_tpu_torch.runner fleet`` is the port's fleet
+    controller: it starts where ``import jax`` and ``import horovod_tpu``
+    fail, takes the reference's flags, and runs a job to its end.  (The
+    name is kept from when the subcommand was refused.)"""
+    stub = tmp_path / "stub"
+    for pkg in ("jax", "horovod_tpu"):
+        (stub / pkg).mkdir(parents=True)
+        (stub / pkg / "__init__.py").write_text(
+            f"raise ImportError('{pkg} is not installed on this host')\n")
+    env = dict(os.environ, PYTHONPATH=f"{stub}{os.pathsep}{REPO}")
+    env.pop("HOROVOD_FAULT_SPEC", None)
+    probe = subprocess.run([sys.executable, "-c", "import jax"], env=env,
+                           capture_output=True, text=True, timeout=60)
+    assert probe.returncode != 0 and "not installed" in probe.stderr
+    p = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "fleet",
+         "--help"], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=60)
+    assert p.returncode == 0, p.stderr
+    from horovod_tpu.runner import fleet as ref_fleet
+    for action in ref_fleet.build_parser()._actions:
+        for flag in action.option_strings:
+            assert flag in p.stdout, flag
     marker = tmp_path / "ran"
     p = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.runner", "fleet",
-         sys.executable, "-c", f"open({str(marker)!r}, 'w')"],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
-        capture_output=True, text=True, timeout=60)
-    assert p.returncode != 0
-    assert "not ported" in p.stderr and not marker.exists()
+         "-H", "localhost:1", "--tick-interval", "0.05", "--job",
+         f"only 0 1 -- {sys.executable} -c "
+         f"\"import sys; assert 'jax' not in sys.modules; "
+         f"open({str(marker)!r}, 'w')\""],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert "admit job only np=1" in p.stderr and marker.exists()

@@ -524,14 +524,24 @@ def test_attempt_key_fires_only_on_its_attempt(attempt, tmp_path,
         assert mod.mangle_spill(str(path), rank=0) == (attempt == "1")
 
 
-@pytest.mark.parametrize("kind", ["crash", "rank_kill", "residual_drop",
-                                  "preempt_storm"])
+@pytest.mark.parametrize("kind", ["krash", "rank_kill", "frame_corrupt",
+                                  "shm_stall:5"])
 def test_other_kinds_stay_refused_with_the_references_words(kind):
-    with pytest.raises(faults.FaultSpecError,
-                       match=r"unknown fault kind .*; valid kinds: nan, "
-                             r"corrupt, heartbeat_drop, spill_corrupt, "
-                             r"replica_crash, request_storm$"):
+    # Every kind of the reference but its transport kinds is ported: an
+    # unknown kind is refused in the reference's words, a transport kind
+    # (rank_kill anywhere but at site fleet) by name.
+    with pytest.raises(faults.FaultSpecError) as got:
         faults.parse_spec(f"kind={kind}")
+    if kind == "krash":
+        from horovod_tpu import faults as ref_faults
+        with pytest.raises(ref_faults.FaultSpecError) as want:
+            ref_faults.parse_spec(f"kind={kind}")
+        assert str(got.value).split("; valid kinds: ")[0] == \
+            str(want.value).split("; valid kinds: ")[0]
+        assert str(got.value).endswith("coord_crash, rank_kill")
+    else:
+        assert f"fault kind '{kind.split(':')[0]}' acts on the " \
+            f"reference's native transports" in str(got.value)
 
 
 def test_report_progress_is_monotonic():

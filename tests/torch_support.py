@@ -5,7 +5,10 @@
   job whose ranks run only the port, the JAX package's
   (:data:`REF_LAUNCHER`) for one in which the reference's ranks run too.
   The script gets the output directory as its one argument and writes
-  ``rank<r>.npz`` there.  Under the port's launcher the port's gloo world
+  ``rank<r>.npz`` there.  A job inherits this process's environment but
+  for :data:`JOB_SHAPE_VARS` (the world's shape and routing, which an
+  earlier test in the same xdist worker may have left behind), and its
+  rendezvous port comes from :func:`free_port`.  Under the port's launcher the port's gloo world
   meets at the launcher's ``HOROVOD_COORDINATOR_ADDR``; under the
   reference's the reference's ranks meet through the launcher and the
   port's world through ``MASTER_ADDR``/``MASTER_PORT``.
@@ -40,10 +43,66 @@ PORT_LAUNCHER = "horovod_tpu_torch.runner"
 REF_LAUNCHER = "horovod_tpu.runner"
 
 
+# What a job's ranks would take from the test process's environment
+# that sets the world's shape or routing: the launchers set the ranks'
+# own, so a value left in this process by an earlier test would only
+# change what the job computes.  A caller that wants one passes it in
+# ``env``.
+JOB_SHAPE_VARS = (
+    "HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+    "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK", "HOROVOD_CROSS_SIZE",
+    "HOROVOD_TOPOLOGY", "HOROVOD_HOSTNAME", "HOROVOD_COORDINATOR_ADDR",
+    "HOROVOD_HIERARCHICAL_ALLREDUCE", "HOROVOD_HIERARCHICAL_ALLGATHER",
+    "HOROVOD_HIERARCHICAL_ALLREDUCE_THRESHOLD", "HOROVOD_COORD_TREE",
+    "HOROVOD_SCHEDULE_CHECK", "HOROVOD_WORLD_EPOCH", "HOROVOD_COORD_EPOCH",
+    "HOROVOD_COORD_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+PORT_WINDOW = 2000
+_next_port = iter(range(os.getpid() % PORT_WINDOW, 1 << 30))
+
+
+def _ephemeral_low() -> int:
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def free_port() -> int:
+    """A free localhost port for a job's rendezvous.
+
+    A port the kernel hands out for ``bind(0)`` is free only until the
+    job binds it; meanwhile any other process's ``bind(0)`` (another
+    job's store or launcher, in this or another xdist worker) may take
+    it.  So the port comes from a window below the kernel's ephemeral
+    range that belongs to this xdist worker alone (``gwN``: ``10000 +
+    2000 N`` onward), cycling through it, and only a port free now is
+    returned.  Where the window would reach the ephemeral range the
+    kernel picks."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    n = int(worker[2:]) if worker[2:].isdigit() else 0
+    base = 10000 + PORT_WINDOW * n
+    if base + PORT_WINDOW <= _ephemeral_low():
+        for _ in range(PORT_WINDOW):
+            port = base + next(_next_port) % PORT_WINDOW
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+                return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def job_environ(**extra) -> dict:
+    """This process's environment without :data:`JOB_SHAPE_VARS`, with
+    ``extra`` on top."""
+    env = {k: v for k, v in os.environ.items() if k not in JOB_SHAPE_VARS}
+    env.update(extra)
+    return env
 
 
 def run_job(script: str, out_dir: str, np_: int = 3, args=(), env=None,
@@ -54,8 +113,8 @@ def run_job(script: str, out_dir: str, np_: int = 3, args=(), env=None,
     path = os.path.join(out_dir, "job.py")
     with open(path, "w") as f:
         f.write(script)
-    full = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    full = job_environ(JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
     full.pop("XLA_FLAGS", None)   # the ranks need no fake devices
     full.update(env or {})
     res = subprocess.run(
@@ -77,8 +136,8 @@ def start_port_job(script: str, out_dir: str, np_: int = 2, env=None,
     path = os.path.join(out_dir, "job.py")
     with open(path, "w") as f:
         f.write(script)
-    base = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(free_port()), HOROVOD_SIZE=str(np_))
+    base = job_environ(PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(free_port()), HOROVOD_SIZE=str(np_))
     base.update(env or {})
     procs = [subprocess.Popen(
         [sys.executable, path, out_dir], cwd=REPO, text=True,
