@@ -19,19 +19,30 @@ any failure ends the run with a traceback and a non-zero exit:
 5. reference: a small ResNet's train step on the GPU against the same step
    on the CPU (the CPU port is held against the JAX package by the tests);
 6. flash kernel check: the forward, dQ and dK/dV flash-attention kernels
-   against their plain PyTorch versions in bf16, row by row, at the LM's
+   against their plain PyTorch versions, row by row, in bf16 at the LM's
    shape and at small ones (non-causal, a custom scale, segment ids with a
    fully masked row, ragged T, tiles half empty or cut by T or by segment
-   borders, every head dim), the autograd Function's output and
-   gradients against the plain versions, and each kernel's time
-   beside its bound, its plain version's and
-   ``scaled_dot_product_attention``'s;
+   borders, every head dim), then every other instance: f16 and f32 at
+   the LM's shape [4, 2048, 24, 128], bf16, f16 and f32 at [4, 2048, 12,
+   256], and in each dtype small cases at D 256 and at the padded 80 and
+   96 (non-causal with a fully masked row, segments, ragged T, tiles cut
+   by T), f32 within FLASH_F32_ROW_*; the autograd Function's output and
+   gradients against the plain versions in every dtype; and each
+   instance's time beside its bound (f32 at the FFMA rate), its plain
+   version's and ``scaled_dot_product_attention``'s in the same dtype;
 7. LM main path: the transformer-LM benchmark of record (``bench.py``'s
    d3072/L10/H24, T 2048, batch 4, flash attention, bf16 momentum) for 2
    warmup and 10 timed steps, with the flash launch counts read around it;
-8. LM reference: a small f32 LM step on the GPU against the CPU, and a
-   small packed bf16 LM's logits and gradients through the flash route
-   against the local one;
+   (b) the same LM at f32 with flash (the f32 kernels, TF32 off) through
+   ``make_train_step`` at batch 4, 1 warm-up and 2 timed steps: tok/s,
+   the f32 launches (10 of each a step) and the first loss against the
+   same forward through the local route at relative 1e-5; (c) its width
+   with 12 heads of 256 (bf16, flash) for 2 warm-up and 3 timed steps:
+   tok/s beside phase 7's and the head-dim-256 launches;
+8. LM reference: a small f32 LM step on the GPU against the CPU and
+   through the flash route against the local one, and small packed LMs
+   (bf16 and f16 at head dims 128 and 256, f32 at 256) whose logits and
+   gradients go through the flash route against the local one;
 9. the ``hvd.*`` API on the card (the NCCL group of size 1): every
    collective on CUDA tensors in f32, bf16, f16, int32 and int64 (a
    0-dim and an empty tensor too) against its size-1 result, the async
@@ -257,6 +268,8 @@ any failure ends the run with a traceback and a non-zero exit:
 
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
 (b), 13 (a), 14 (b, c), 15, 17 (b) and, for the forward kernel, 12 (a);
+the rows of the other instances (f16 and f32 at head dim 128, bf16, f16
+and f32 at 256) count phases 7 (b), 7 (c) and 8;
 the fused stem's add phase 16's 73 or more (36 under the timeline, 36
 to 72 under the tuner, 1 bucketed step), phase 17's 39 and phase 18's
 104 forward passes ((c) 3 x 13, (d) 3 x 13, (e) 2 x 13), phase 20
@@ -268,7 +281,9 @@ it exits non-zero and prints no result.
 
 Other modes: ``--avg-pool-check`` prints phase 18 (a)'s average-pool
 check ungated; ``--inception-readings`` prints Inception-v3's f32 step
-distances that set phase 18 (a)'s limits.
+distances that set phase 18 (a)'s limits; ``--flash-f32-readings`` the
+f32 flash kernels' worst rows and their distances from f64 that set
+FLASH_F32_ROW_ATOL.
 """
 
 from __future__ import annotations
@@ -293,6 +308,15 @@ LM = dict(d_model=3072, n_layers=10, n_heads=24, d_ff=12288,
           vocab_size=32768, seq_len=2048, batch_size=4)
 LM_WARMUP_STEPS = 2
 LM_TIMED_STEPS = 10
+# Phase 7 (b): the LM of record in f32 (the f32 flash kernels, TF32 off)
+# through make_train_step at phase 7's batch, (warm-up, timed) steps; its
+# first loss held to the same forward through the local route.
+LM_F32_STEPS = (1, 2)
+LM_F32_LOSS_RTOL = 1e-5
+# Phase 7 (c): the LM of record's width with 12 heads of 256 (bf16, flash;
+# Gemma-7B's attention is 16 heads of 256 at d_model 3072).
+LM_WIDE = dict(LM, n_heads=12)
+LM_WIDE_STEPS = (2, 3)
 # First and last timed LM loss with the earlier wmma forward and dK/dV
 # kernels (same seeds), printed beside this run's for the record: the
 # summation order differs, so they are not expected bit for bit.
@@ -316,12 +340,36 @@ FLASH_ROW_RTOL = 2 ** -6
 FLASH_ROW_ATOL = 2 ** -8
 FLASH_O_TOL = 2e-2
 FLASH_ML_TOL = 1e-4
+# f16 operands are held to bf16's limits.  f32 operands (the FFMA kernels
+# of flash_attention_f32.cu, the plain versions with TF32 off): the same
+# row form 1024x tighter in its relative term, far above f32 summation
+# noise over T 2048 (about 3e-6 of a row).  Its floor is 256x tighter: dq
+# of a causal row's first query is 0 in exact arithmetic (its one key
+# gives dS = dO.v0 - dO.o0 = 0), and both versions leave f32 cancellation
+# noise there, 3.9e-6 (kernel) and 4.6e-6 (plain) from an f64 reference at
+# [96, 2048, 128] (``--flash-f32-readings`` on the H100); against a floor
+# of 2^-18 the kernel's row 0 read 1.75x its limit, against 2^-16 0.44x.
+FLASH_F32_ROW_RTOL = 2 ** -16
+FLASH_F32_ROW_ATOL = 2 ** -16
+# Phase 6's instances beyond bf16 at the LM's head dim, each at the shape
+# of the path that runs it: (dtype, heads, head dim) at B 4, T 2048.
+FLASH_INSTANCES = ((torch.float16, 24, 128), (torch.float32, 24, 128),
+                   (torch.bfloat16, 12, 256), (torch.float16, 12, 256),
+                   (torch.float32, 12, 256))
 # The flash route in a small bf16 LM against the local route: logits row
 # by row (one row per token), ||a_r - b_r|| / ||b_r||, and loss_fn's
 # gradients leaf by leaf, ||a - b|| / ||b||.  The local route rounds its
 # scores and probabilities to bf16, so it is the noisier of the two.
 LM_LOGIT_TOL = 2 ** -5
 LM_GRAD_TOL = 2 ** -4
+# Phase 8's small packed LMs, flash against local on the card: (dtype,
+# d_model) at 2 heads (head dims 128 and 256).  f32 is held to
+# LM_F32_FLASH_TOL: both routes compute in f32 (TF32 off) and differ only
+# in the order of their sums.
+SMALL_FLASH_LMS = ((torch.bfloat16, 256), (torch.bfloat16, 512),
+                   (torch.float16, 256), (torch.float16, 512),
+                   (torch.float32, 512))
+LM_F32_FLASH_TOL = 1e-4
 # Phase 11 (a): ring-flash, ring and Ulysses attention at 4 virtual ranks
 # (threads of this process on the one card) at the LM of record's width:
 # (B, T_global, H, D, ranks); T_local 2048, bf16.  Packed segments over
@@ -570,6 +618,18 @@ REMATS = ("lean", "full")
 # leaves parameters and momentum as a fresh start has them).  The math is
 # the same and cuDNN picks the same algorithms for the same shapes, so
 # every timed loss must equal phase 4's bit for bit.
+
+
+_LAPS = [time.perf_counter()]
+
+
+def _lap(label: str) -> None:
+    """Prints the seconds since the previous lap: the phases' own times,
+    and the script's so far."""
+    now = time.perf_counter()
+    print(f"time: {label} {now - _LAPS[-1]:.1f} s (script "
+          f"{now - _LAPS[0]:.1f} s)", flush=True)
+    _LAPS.append(now)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -986,8 +1046,19 @@ def phase_reference(cases=REFERENCE, tag="reference") -> None:
 # Flash attention and the transformer LM
 # ---------------------------------------------------------------------------
 
-def _bf16(shape, gen):
-    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def _randn(shape, gen, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _short(dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float16: "f16",
+            torch.float32: "f32"}[dtype]
+
+
+def _row_limits(dtype) -> tuple:
+    if dtype == torch.float32:
+        return FLASH_F32_ROW_RTOL, FLASH_F32_ROW_ATOL
+    return FLASH_ROW_RTOL, FLASH_ROW_ATOL
 
 
 def _max_abs(a, b) -> float:
@@ -1002,13 +1073,13 @@ def _rel_to_one(a, b) -> float:
     return err.max().item()
 
 
-def _row_ratio(a, b) -> float:
-    """The worst row's ||a_r - b_r|| over its limit FLASH_ROW_RTOL *
-    ||b_r|| + FLASH_ROW_ATOL * median_r ||b_r||, rows along the last
-    dimension; the check passes at <= 1."""
+def _row_ratio(a, b, rtol=FLASH_ROW_RTOL, atol=FLASH_ROW_ATOL) -> float:
+    """The worst row's ||a_r - b_r|| over its limit rtol * ||b_r|| + atol
+    * median_r ||b_r||, rows along the last dimension; the check passes at
+    <= 1."""
     a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
     err, ref = (a - b).norm(dim=-1), b.norm(dim=-1)
-    limit = FLASH_ROW_RTOL * ref + FLASH_ROW_ATOL * ref.median()
+    limit = rtol * ref + atol * ref.median()
     return torch.where(err == 0, 0.0, err / limit).max().item()
 
 
@@ -1019,11 +1090,13 @@ def _segments(b, t, lengths, device="cuda"):
     return ids[None].repeat(b, 1).to(device=device, dtype=torch.int32)
 
 
-def _flash_case(fa, b, t, h, d, causal, scale, qseg, kseg, seed, label):
+def _flash_case(fa, b, t, h, d, causal, scale, qseg, kseg, seed, label,
+                dtype=torch.bfloat16):
     """One shape: the three kernels against their plain versions on the
-    same inputs; returns the errors by name and the inputs."""
+    same inputs, in ``dtype`` with its row limits; returns the errors by
+    name and the inputs."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (_bf16((b * h, t, d), gen) for _ in range(4))
+    q, k, v, do = (_randn((b * h, t, d), gen, dtype) for _ in range(4))
     sc = d ** -0.5 if scale is None else scale
     before = (fa.fwd_launches.count, fa.dq_launches.count,
               fa.dkv_launches.count)
@@ -1043,28 +1116,32 @@ def _flash_case(fa, b, t, h, d, causal, scale, qseg, kseg, seed, label):
     for name, x in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
         check(bool(torch.isfinite(x).all()), f"flash {label}: {name} has "
               f"non-finite values")
+        check(x.dtype == dtype and x.shape == q.shape, f"flash {label}: "
+              f"{name} is {x.dtype} {tuple(x.shape)}")
     errs = {
         "o": _max_abs(o, ro),
         "ml": max(_rel_to_one(m, rm), _rel_to_one(l, rl)),
         "dq_abs": _max_abs(dq, rdq),
         "dkv_abs": max(_max_abs(dk, rdk), _max_abs(dv, rdv)),
     }
-    rows = {"o": _row_ratio(o, ro), "dq": _row_ratio(dq, rdq),
-            "dk": _row_ratio(dk, rdk), "dv": _row_ratio(dv, rdv)}
+    lim = _row_limits(dtype)
+    rows = {"o": _row_ratio(o, ro, *lim), "dq": _row_ratio(dq, rdq, *lim),
+            "dk": _row_ratio(dk, rdk, *lim), "dv": _row_ratio(dv, rdv, *lim)}
     check(errs["o"] <= FLASH_O_TOL, f"flash {label}: o err {errs['o']}")
     check(errs["ml"] <= FLASH_ML_TOL, f"flash {label}: m/l err "
           f"{errs['ml']}")
     for name, ratio in rows.items():
         check(ratio <= 1.0, f"flash {label}: {name} row error at {ratio:.3g}"
               f" x its limit")
-    print(f"flash {label} [B*H={b * h}, T={t}, D={d}] causal={causal} "
-          f"scale={sc:.4g}: o max abs {errs['o']:.3g}, m/l rel "
+    print(f"flash {label} {_short(dtype)} [B*H={b * h}, T={t}, D={d}] "
+          f"causal={causal} scale={sc:.4g}: o max abs {errs['o']:.3g}, m/l rel "
           f"{errs['ml']:.3g}; worst row / limit: " + ", ".join(
               f"{n} {r:.3g}" for n, r in rows.items()), flush=True)
     return errs, (q, k, v, do)
 
 
-def _flash_grad_case(fa, b, t, h, d, seg, seed, label):
+def _flash_grad_case(fa, b, t, h, d, seg, seed, label,
+                     dtype=torch.bfloat16):
     """The autograd Function ([B, T, H, D] read in place): its o against
     the plain forward, and its gradients against the plain backward fed
     the o the Function saved.  The backward takes di = rowsum(dO*O) from
@@ -1073,7 +1150,7 @@ def _flash_grad_case(fa, b, t, h, d, seg, seed, label):
     one) moves di on rows whose attention sits on one key by several
     times the row limit."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, g = (_bf16((b, t, h, d), gen) for _ in range(4))
+    q, k, v, g = (_randn((b, t, h, d), gen, dtype) for _ in range(4))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=True, block_q=64, block_k=64,
                              segment_ids=seg)
@@ -1084,13 +1161,16 @@ def _flash_grad_case(fa, b, t, h, d, seg, seed, label):
                                rl, seg, seg, True, d ** -0.5)
     err_o = _max_abs(fa._fold(out), ro)
     check(err_o <= FLASH_O_TOL, f"flash grads {label}: o err {err_o}")
-    rows = {name: _row_ratio(fa._fold(a), w)
+    check(out.dtype == dtype and all(x.dtype == dtype for x in got),
+          f"flash grads {label}: outputs not in {dtype}")
+    rows = {name: _row_ratio(fa._fold(a), w, *_row_limits(dtype))
             for name, a, w in zip(("o", "dq", "dk", "dv"), (out,) + got,
                                   (ro,) + want)}
     for name, ratio in rows.items():
         check(ratio <= 1.0, f"flash grads {label}: {name} row error at "
               f"{ratio:.3g} x its limit")
-    print(f"flash grads {label} [{b}, {t}, {h}, {d}]: Function vs the plain "
+    print(f"flash grads {label} {_short(dtype)} [{b}, {t}, {h}, {d}]: "
+          f"Function vs the plain "
           f"versions; worst row / limit: " + ", ".join(
               f"{n} {r:.3g}" for n, r in rows.items()), flush=True)
 
@@ -1100,16 +1180,14 @@ def _attention_flops(b, t, h, d, causal, per_pair):
     return per_pair * d * pairs
 
 
-def _bound(flops, nbytes):
-    ops_ms = flops / BF16_OPS_PER_S * 1e3
+def _bound(flops, nbytes, ops_per_s=BF16_OPS_PER_S):
+    ops_ms = flops / ops_per_s * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
 def phase_flash_check() -> list:
-    import torch.nn.functional as F
-
     from horovod_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1166,9 +1244,53 @@ def phase_flash_check() -> list:
                      "segments T=192")
     _flash_grad_case(fa, b, t, h, d, None, 19, "main shape")
 
-    # Times at the main-path shape and layout ([B, T, H, D] in place).
+    rows = _flash_rows(fa, b, t, h, d, torch.bfloat16, main, "")
+
+    # The other instances: f16 and f32 at the LM's shape, head dim 256 at
+    # the 256-wide-head LM's (phase 7 (c)); small cases at D 256 and at the
+    # padded 80 and 96 (non-causal, a fully masked row, ragged T, tiles
+    # cut by T); the Function's gradients in every dtype.
+    for i, (dtype, hh, dd) in enumerate(FLASH_INSTANCES):
+        errs, _ = _flash_case(fa, b, t, hh, dd, True, None, None, None,
+                              40 + i, "main shape", dtype)
+        rows += _flash_rows(fa, b, t, hh, dd, dtype, errs,
+                            f"_{_short(dtype)}_d{dd}")
+    qseg = _segments(2, 192, [64, 64, 40, 24])
+    kseg = _segments(2, 192, [64, 64, 64])
+    for i, dtype in enumerate((torch.bfloat16, torch.float16,
+                               torch.float32)):
+        _, (q, k, v, do) = _flash_case(fa, 2, 192, 2, 256, False, None,
+                                       qseg, kseg, 50 + i,
+                                       "D=256 fully masked rows", dtype)
+        o, m, l = fa._fwd_parts(q, k, v, qseg, kseg, False, 256 ** -0.5)
+        check(bool((o[:, 168:] == 0).all()) and
+              bool((l[:, 0, 168:] == 0).all()),
+              f"D=256 {dtype}: fully masked rows must give o = 0, l = 0")
+        _flash_case(fa, 2, 320, 2, 80, True, None, None, None, 53 + i,
+                    "padded D=80 causal T=320", dtype)
+        _flash_case(fa, 1, 40, 2, 96, True, None, None, None, 56 + i,
+                    "padded D=96 ragged T=40", dtype)
+        seg = _segments(2, 512, [100, 200, 150, 62])
+        _flash_case(fa, 2, 512, 2, 256, True, 0.05, seg, seg, 59 + i,
+                    "D=256 segments T=512", dtype)
+        _flash_grad_case(fa, 2, 256, 2, 128, None, 62 + i, "T=256", dtype)
+        _flash_grad_case(fa, 1, 192, 2, 256, _segments(1, 192, [100, 92]),
+                         65 + i, "D=256 segments T=192", dtype)
+        _flash_grad_case(fa, 2, 128, 2, 96, None, 68 + i, "padded D=96",
+                         dtype)
+    return rows
+
+
+def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
+    """The kernels' rows of the kernels line at ``[B, T, H, D]`` in
+    ``dtype`` (causal, the main path's layout, read in place): each
+    kernel's ms beside its plain version's, its bound (f32 at the card's
+    FFMA rate, bf16 and f16 at the tensor cores') and SDPA's in the same
+    dtype; ``errs`` are the main-shape case's errors."""
+    import torch.nn.functional as F
+
     gen = torch.Generator(device="cuda").manual_seed(20)
-    q, k, v, do = (_bf16((b, t, h, d), gen) for _ in range(4))
+    q, k, v, do = (_randn((b, t, h, d), gen, dtype) for _ in range(4))
     sc = d ** -0.5
     o, m, l = fa._launch_fwd(q, k, v, None, None, True, sc)
     qf, kf, vf, of, dof = (fa._fold(x).contiguous() for x in (q, k, v, o,
@@ -1206,22 +1328,26 @@ def phase_flash_check() -> list:
         F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
         doh))
     del out, leaves
-    n = b * t * h * d * 2                    # bytes of one bf16 operand
+    size = torch.finfo(dtype).bits // 8
+    n = b * t * h * d * size                 # bytes of one operand
     ml = 2 * b * h * t * 4                   # m and l, f32
     work = {
         "fwd": (_attention_flops(b, t, h, d, True, 4), 4 * n + ml),
         "dq": (_attention_flops(b, t, h, d, True, 6), 6 * n + ml),
         "dkv": (_attention_flops(b, t, h, d, True, 8), 7 * n + ml),
     }
+    f32 = dtype == torch.float32
     rows = []
     for key, name, line, err in (
-            ("fwd", "flash_attention_fwd", 108, main["o"]),
-            ("dq", "flash_attention_bwd_dq", 173, main["dq_abs"]),
-            ("dkv", "flash_attention_bwd_dkv", 226, main["dkv_abs"])):
-        bound_ms, bound_by = _bound(*work[key])
+            ("fwd", "flash_attention_fwd", 108, errs["o"]),
+            ("dq", "flash_attention_bwd_dq", 173, errs["dq_abs"]),
+            ("dkv", "flash_attention_bwd_dkv", 226, errs["dkv_abs"])):
+        bound_ms, bound_by = _bound(*work[key], F32_OPS_PER_S if f32
+                                    else BF16_OPS_PER_S)
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+            "name": name + suffix, "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/flash_attention" +
+                      ("_f32.cu" if f32 else ".cu"),
             "replaces": f"horovod_tpu/ops/flash_attention.py:{line}",
             "launches": None, "max_abs_err": err, "ms": ms[key],
             "plain_ms": plain_ms[key], "bound_ms": bound_ms,
@@ -1229,16 +1355,74 @@ def phase_flash_check() -> list:
             # dq and dkv share SDPA's one backward time.
             "library_ms": sdpa_fwd if key == "fwd" else sdpa_bwd,
             "flops": work[key][0], "bytes": work[key][1],
+            # (kernel, instance, head dim): which counter its launches
+            # are read from; dropped before the line is printed.
+            "instance": ("fwd" if key == "fwd" else "bwd_" + key,
+                         _short(dtype), d),
         })
-        print(f"{name} at [{b}, {t}, {h}, {d}] bf16 causal: kernel "
-              f"{ms[key]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{work[key][0]:.4g} FLOP, {work[key][1]} bytes; "
+        print(f"{name + suffix} at [{b}, {t}, {h}, {d}] {_short(dtype)} "
+              f"causal: kernel {ms[key]:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {work[key][0]:.4g} FLOP, {work[key][1]} bytes; "
               f"{bound_ms / ms[key] * 100:.1f} % of bound), plain "
               f"{plain_ms[key]:.4f} ms", flush=True)
-    print(f"scaled_dot_product_attention at [{b}, {h}, {t}, {d}] bf16 "
-          f"causal: forward {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms, "
-          f"forward+backward {sdpa_fwd_bwd:.4f} ms", flush=True)
+    print(f"scaled_dot_product_attention at [{b}, {h}, {t}, {d}] "
+          f"{_short(dtype)} causal: forward {sdpa_fwd:.4f} ms, backward "
+          f"{sdpa_bwd:.4f} ms, forward+backward {sdpa_fwd_bwd:.4f} ms",
+          flush=True)
     return rows
+
+
+def flash_f32_readings() -> None:
+    """The f32 kernels' rows against the plain versions at phase 6's
+    shapes, each worst row with its reference's norm, and both versions'
+    distances from an f64 reference (dense attention on 4 batch*heads):
+    the readings behind FLASH_F32_ROW_ATOL."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def f64_grads(q, k, v, do, scale):
+        q, k, v, do = (x.double() for x in (q, k, v, do))
+        t = q.shape[1]
+        s = (q @ k.transpose(1, 2) * scale).masked_fill(torch.ones(
+            t, t, dtype=torch.bool, device="cuda").triu(1), float("-inf"))
+        p = torch.softmax(s, -1)
+        o = p @ v
+        ds = p * (do @ v.transpose(1, 2) - (do * o).sum(-1, keepdim=True))
+        return o, ds @ k * scale, ds.transpose(1, 2) @ q * scale, \
+            p.transpose(1, 2) @ do
+
+    def row_errs(a, b):
+        a, b = a.double().flatten(0, -2), b.double().flatten(0, -2)
+        return (a - b).norm(dim=-1), b.norm(dim=-1)
+
+    for bh, d in ((96, 128), (48, 256)):
+        gen = torch.Generator(device="cuda").manual_seed(40)
+        q, k, v, do = (torch.randn((bh, 2048, d), generator=gen,
+                                   device="cuda") for _ in range(4))
+        sc = d ** -0.5
+        ro, rm, rl = fa._fwd_parts_plain(q, k, v, None, None, True, sc)
+        o, _, _ = fa._fwd_parts(q, k, v, None, None, True, sc)
+        kern = (o,) + fa._bwd_parts(q, k, v, ro, do, rm, rl, None, None,
+                                    True, sc)
+        plain = (ro,) + fa._bwd_parts_plain(q, k, v, ro, do, rm, rl, None,
+                                            None, True, sc)
+        truth = f64_grads(q[:4], k[:4], v[:4], do[:4], sc)
+        for name, a, b, tr in zip(("o", "dq", "dk", "dv"), kern, plain,
+                                  truth):
+            err, ref = row_errs(a, b)
+            ratio = torch.where(err == 0, 0.0, err / (
+                FLASH_F32_ROW_RTOL * ref + FLASH_F32_ROW_ATOL * ref.median()))
+            i = int(ratio.argmax())
+            ek, _ = row_errs(a[:4], tr)
+            ep, _ = row_errs(b[:4], tr)
+            print(f"f32 D={d} {name}: worst row (batch*head {i // 2048}, "
+                  f"t {i % 2048}) at {ratio[i].item():.3g}x its limit: "
+                  f"||err|| {err[i].item():.3g}, ||ref|| {ref[i].item():.3g},"
+                  f" median ||ref|| {ref.median().item():.3g}; max row "
+                  f"distance from f64 (4 batch*heads): kernel "
+                  f"{ek.max().item():.3g}, plain {ep.max().item():.3g}",
+                  flush=True)
 
 
 def phase_lm_main_path(smi: str) -> tuple:
@@ -1292,6 +1476,122 @@ def phase_lm_main_path(smi: str) -> tuple:
     return counts, summary
 
 
+def _instance_counts(fa) -> dict:
+    """The flash launches by instance since the counters' last reset:
+    ``{(instance, head dim): {kernel: launches}}`` of those above 0."""
+    out = {}
+    for (kind, inst, d), c in fa.instance_launches.items():
+        if c.count:
+            out.setdefault((inst, d), {})[kind] = c.count
+    return out
+
+
+def phase_lm_f32(smi: str, lm7: dict) -> dict:
+    """Phase 7 (b): the LM of record at f32 with ``attention="flash"``
+    through ``make_train_step`` (TF32 off), LM_F32_STEPS steps: tok/s,
+    the f32 kernels' launches (one of each a layer and step) and the
+    first loss against the same forward through the local route."""
+    import numpy as np
+
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.models.convert import lm_ordered_parameters
+    from horovod_tpu_torch.optim import SGD
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.topology import build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b, t = LM["batch_size"], LM["seq_len"]
+    cfg = tfm.TransformerConfig(
+        vocab_size=LM["vocab_size"], d_model=LM["d_model"],
+        n_heads=LM["n_heads"], n_layers=LM["n_layers"], d_ff=LM["d_ff"],
+        max_seq=t, dtype=torch.float32)
+    model = tfm.TransformerLM(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    opt = SGD([p for _, p in lm_ordered_parameters(model)], 1e-4, 0.9)
+    toks = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], (b, t + 1)).astype(np.int64)
+    tokens, labels = (torch.from_numpy(x.copy()).cuda()
+                      for x in (toks[:, :-1], toks[:, 1:]))
+    with torch.no_grad():
+        local = float(tfm.xent(tfm.forward(model.tree(), tokens, cfg,
+                                           attention="local"), labels))
+    step = tfm.make_train_step(model, opt, build_mesh(None, "cuda"),
+                               attention="flash")
+    for c in fa.instance_launches.values():
+        c.reset()
+    warm, timed = LM_F32_STEPS
+    losses = [step(tokens, labels) for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(tokens, labels) for _ in range(timed)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    counts = _instance_counts(fa)
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * (warm + timed)
+    check(counts == {("f32", 128): {"fwd": want, "bwd_dq": want,
+                                    "bwd_dkv": want}},
+          f"f32 LM: flash launches {counts}, expected {want} of each f32 "
+          f"kernel at head dim 128 and no other")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"f32 LM losses not finite: {losses}")
+    rel = abs(losses[0] - local) / abs(local)
+    check(rel <= LM_F32_LOSS_RTOL, f"f32 LM first loss {losses[0]} vs the "
+          f"local route's {local}: relative {rel:.3g}")
+    summary = {"dtype": "float32", "attention": "flash", "batch_size": b,
+               "seq_len": t, "ms_per_step": ms,
+               "tok_sec_per_chip": b * t / ms * 1e3, "step_losses": losses,
+               "first_loss_local": local, "first_loss_rel": rel,
+               "max_memory_allocated": peak,
+               "flash_launches": counts[("f32", 128)], "nvidia_smi": smi}
+    print(f"LM f32 of record (phase 7 (b)): {summary['tok_sec_per_chip']:.1f}"
+          f" tok/s ({ms:.1f} ms/step; phase 7 bf16: "
+          f"{lm7['tok_sec_per_chip']:.1f} tok/s); first loss {losses[0]:.7f}"
+          f" vs local {local:.7f} (rel {rel:.3g}, limit "
+          f"{LM_F32_LOSS_RTOL}); f32 flash launches "
+          f"{counts[('f32', 128)]}; " + json.dumps(summary), flush=True)
+    del step, opt, model, tokens, labels
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_wide(smi: str, lm7: dict) -> dict:
+    """Phase 7 (c): the LM of record's width with 12 heads of 256 (bf16,
+    flash) through ``run_lm_benchmark``: tok/s beside phase 7's and the
+    head-dim-256 kernels' launches."""
+    from horovod_tpu_torch.benchmark import run_lm_benchmark
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    for c in fa.instance_launches.values():
+        c.reset()
+    warm, timed = LM_WIDE_STEPS
+    res = run_lm_benchmark(
+        **LM_WIDE, attention="flash", remat="none", momentum_dtype="bfloat16",
+        num_warmup_batches=warm, num_batches_per_iter=1, num_iters=timed)
+    counts = _instance_counts(fa)
+    want = LM_WIDE["n_layers"] * (warm + timed)
+    check(counts == {("bf16", 256): {"fwd": want, "bwd_dq": want,
+                                     "bwd_dkv": want}},
+          f"H12 LM: flash launches {counts}, expected {want} of each bf16 "
+          f"kernel at head dim 256 and no other")
+    check(all(x == x and abs(x) != float("inf") for x in res["step_losses"]),
+          f"H12 LM losses not finite: {res['step_losses']}")
+    print(f"LM d3072/H12 (head dim 256, phase 7 (c)): "
+          f"{res['tok_sec_per_chip']:.1f} tok/s ({res['ms_per_step']:.1f} "
+          f"ms/step) beside phase 7's H24 {lm7['tok_sec_per_chip']:.1f} "
+          f"tok/s; losses {res['step_losses'][0]:.6f} -> "
+          f"{res['step_losses'][-1]:.6f}; bf16 D=256 flash launches "
+          f"{counts[('bf16', 256)]}; peak memory "
+          f"{res['max_memory_allocated']}; {smi}", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _small_lm_params(cfg, seed):
     """A seeded LM parameter tree (numpy), as the port's state_dict."""
     from horovod_tpu_torch.models.convert import lm_params_to_torch
@@ -1324,10 +1624,12 @@ def _small_lm_tree(cfg, seed):
     }
 
 
-def phase_lm_reference() -> None:
-    """A small f32 LM step on the GPU against the CPU, and a small bf16
-    LM's logits and gradients through the flash route against the local
-    one, on the GPU."""
+def phase_lm_reference() -> dict:
+    """A small f32 LM step on the GPU against the CPU and, on the GPU,
+    through the flash route against the local one; then small packed LMs
+    (SMALL_FLASH_LMS) whose logits and gradients go through the flash
+    route against the local one.  Returns the packed LMs' flash launches
+    by instance."""
     import numpy as np
     import torch.distributed as dist
 
@@ -1348,20 +1650,26 @@ def phase_lm_reference() -> None:
                                                           toks[:, 1:]))
     gloo = dist.new_group(backend="gloo")
     out = {}
-    for dev, group in (("cuda", None), ("cpu", gloo)):
+    counts = {}
+    for dev, group, route in (("cuda", None, "local"), ("cpu", gloo, "local"),
+                              ("cuda", None, "flash")):
         model = tfm.TransformerLM(cfg, device=dev)
         model.load_state_dict(sd)
         opt = SGD([p for _, p in lm_ordered_parameters(model)], 0.1, 0.9,
                   torch.bfloat16)
         step = tfm.make_train_step(model, opt, build_mesh(group, dev),
-                                   attention="local")
+                                   attention=route)
+        for c in fa.instance_launches.values():
+            c.reset()
         loss = step(tokens.to(dev), labels.to(dev))
         loss2 = step(tokens.to(dev), labels.to(dev))
+        _add_counts(counts, _instance_counts(fa))
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         state.update({f"trace{i}": t.float().cpu()
                       for i, t in enumerate(opt.trace)})
-        out[dev] = (float(loss), float(loss2), state)
-    (lg, lg2, sg), (lc, lc2, sc) = out["cuda"], out["cpu"]
+        out[(dev, route)] = (float(loss), float(loss2), state)
+    (lg, lg2, sg), (lc, lc2, sc) = out[("cuda", "local")], \
+        out[("cpu", "local")]
     for a, c in ((lg, lc), (lg2, lc2)):
         check(abs(a - c) <= 1e-5 * max(1.0, abs(c)),
               f"small LM loss gpu {a} vs cpu {c}")
@@ -1372,15 +1680,55 @@ def phase_lm_reference() -> None:
           f"{lg2:.6f} vs cpu {lc:.6f} {lc2:.6f}; params and bf16 momentum "
           f"max abs diff {worst:.3g} (tolerance 1e-4, TF32 off)", flush=True)
     dist.destroy_process_group(gloo)
+    # The same two steps through the flash route on the card (the f32
+    # kernels at head dim 16), held to the local route's.
+    lf, lf2, sf = out[("cuda", "flash")]
+    want = 2 * cfg.n_layers
+    check(counts == {("f32", 16): {"fwd": want, "bwd_dq": want,
+                                   "bwd_dkv": want}},
+          f"small f32 LM flash route: launches {counts}")
+    for a, c in ((lf, lg), (lf2, lg2)):
+        check(abs(a - c) <= 1e-5 * abs(c),
+              f"small f32 LM loss flash {a} vs local {c}")
+    worst = max((sf[k] - sg[k]).abs().max().item() for k in sg)
+    check(worst <= 1e-4, f"small f32 LM state after two steps differs by "
+          f"{worst} between the flash and local routes")
+    print(f"LM reference: small f32 LM, two steps on the card, flash "
+          f"losses {lf:.7f} {lf2:.7f} vs local {lg:.7f} {lg2:.7f} (relative"
+          f" tolerance 1e-5); params and momentum max abs diff {worst:.3g} "
+          f"(tolerance 1e-4); f32 D=16 launches {counts[('f32', 16)]}",
+          flush=True)
+    counts = {}
 
     # The flash route inside the model ([B, T, H, D] read in place, the
-    # segment ids passed through) against the local route, both bf16 on
-    # the GPU, packed, the same weights.  The loss alone has no power here
-    # (about ln 512 at random init whatever attention returns), so the
-    # logits and the gradients are compared; the loss is printed only.
-    cfg = tfm.TransformerConfig(vocab_size=512, d_model=256, n_heads=2,
+    # segment ids passed through) against the local route, both on the
+    # GPU in the same dtype, packed, the same weights.  The loss alone has
+    # no power here (about ln 512 at random init whatever attention
+    # returns), so the logits and the gradients are compared; the loss is
+    # printed only.
+    for dtype, width in SMALL_FLASH_LMS:
+        _add_counts(counts, _small_flash_lm(tfm, fa, dtype, width))
+    return counts
+
+
+def _add_counts(total: dict, more: dict) -> None:
+    for key, by_kind in more.items():
+        for kind, n in by_kind.items():
+            total.setdefault(key, {}).setdefault(kind, 0)
+            total[key][kind] += n
+
+
+def _small_flash_lm(tfm, fa, dtype, width) -> dict:
+    """Phase 8's packed LM of ``width`` at 2 heads in ``dtype``: logits
+    and gradients through the flash route against the local route on the
+    card; returns the flash launches by instance."""
+    import numpy as np
+
+    from horovod_tpu_torch.models.convert import lm_ordered_parameters
+
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=width, n_heads=2,
                                 n_layers=2, d_ff=512, max_seq=256,
-                                dtype=torch.bfloat16)
+                                dtype=dtype)
     model = tfm.TransformerLM(cfg, generator=torch.Generator(
         device="cuda").manual_seed(2), device="cuda")
     leaves = [p for _, p in lm_ordered_parameters(model)]
@@ -1389,6 +1737,8 @@ def phase_lm_reference() -> None:
     seg = _segments(2, 256, [100, 60, 96])
     counters = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
     before = [c.count for c in counters]
+    for c in fa.instance_launches.values():
+        c.reset()
     out = {}
     for route in ("flash", "local"):
         logits = tfm.forward(model.tree(), toks[:, :-1], cfg,
@@ -1396,25 +1746,36 @@ def phase_lm_reference() -> None:
         loss = tfm.xent(logits, toks[:, 1:])
         out[route] = (logits.detach(), float(loss.detach()),
                       torch.autograd.grad(loss, leaves))
+    counts = _instance_counts(fa)
+    inst = (_short(dtype), width // 2)
     check([c.count - n for c, n in zip(counters, before)] ==
-          [cfg.n_layers] * 3, "the flash route did not launch the forward, "
-          "dq and dkv kernels once per layer")
+          [cfg.n_layers] * 3 and counts == {inst: {
+              "fwd": cfg.n_layers, "bwd_dq": cfg.n_layers,
+              "bwd_dkv": cfg.n_layers}},
+          f"the flash route did not launch the {inst} forward, dq and dkv "
+          f"kernels once per layer: {counts}")
     (lf, loss_f, gf), (ll, loss_l, gl) = out["flash"], out["local"]
     logit_err = ((lf - ll).norm(dim=-1) / ll.norm(dim=-1)).max().item()
     grad_err = {name: ((a - b).norm() / b.norm()).item()
                 for (name, _), a, b in zip(lm_ordered_parameters(model), gf,
                                            gl)}
     worst = max(grad_err, key=grad_err.get)
-    check(logit_err <= LM_LOGIT_TOL, f"small bf16 LM logits flash vs local:"
-          f" worst row {logit_err:.3g} > {LM_LOGIT_TOL}")
-    check(grad_err[worst] <= LM_GRAD_TOL, f"small bf16 LM grads flash vs "
-          f"local: {worst} {grad_err[worst]:.3g} > {LM_GRAD_TOL}")
-    print(f"LM reference: small packed bf16 LM on the GPU, flash vs local "
+    logit_tol, grad_tol = ((LM_F32_FLASH_TOL, LM_F32_FLASH_TOL)
+                           if dtype == torch.float32
+                           else (LM_LOGIT_TOL, LM_GRAD_TOL))
+    label = f"small {_short(dtype)} LM d{width} (head dim {width // 2})"
+    check(logit_err <= logit_tol, f"{label} logits flash vs local: worst "
+          f"row {logit_err:.3g} > {logit_tol}")
+    check(grad_err[worst] <= grad_tol, f"{label} grads flash vs local: "
+          f"{worst} {grad_err[worst]:.3g} > {grad_tol}")
+    print(f"LM reference: {label}, packed, on the GPU, flash vs local "
           f"route: logits worst row {logit_err:.3g} (max abs "
-          f"{_max_abs(lf, ll):.3g}; tolerance {LM_LOGIT_TOL}), grads worst "
+          f"{_max_abs(lf, ll):.3g}; tolerance {logit_tol}), grads worst "
           f"leaf {worst} {grad_err[worst]:.3g} (median "
           f"{statistics.median(grad_err.values()):.3g}; tolerance "
-          f"{LM_GRAD_TOL}); loss {loss_f:.6f} vs {loss_l:.6f}", flush=True)
+          f"{grad_tol}); loss {loss_f:.6f} vs {loss_l:.6f}; launches "
+          f"{counts[inst]}", flush=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -5595,34 +5956,66 @@ def main() -> int:
 
     smi = phase_card()
     phase_build()
+    _lap("phases 1 and 2")
     stem_row = phase_kernel_check()
+    _lap("phase 3")
     stem_row["launches"], _, main_summary = phase_main_path(smi)
+    _lap("phase 4")
     phase_reference()
+    _lap("phase 5")
     flash_rows = phase_flash_check()
+    _lap("phase 6")
     counts, lm_summary = phase_lm_main_path(smi)
-    phase_lm_reference()
+    _lap("phase 7")
+    instance_counts = {}
+    _add_counts(instance_counts, phase_lm_f32(smi, lm_summary))
+    _lap("phase 7 (b)")
+    _add_counts(instance_counts, phase_lm_wide(smi, lm_summary))
+    _lap("phase 7 (c)")
+    _add_counts(instance_counts, phase_lm_reference())
+    _lap("phase 8")
     phase_hvd_api(smi, main_summary)
+    _lap("phase 9")
     control = phase_control_plane(smi, main_summary)
+    _lap("phase 10")
     ring = phase_sequence_parallel(smi)
+    _lap("phase 11 (a)")
     lm_sp = phase_lm_parallel(smi, lm_summary)
+    _lap("phase 11 (b)")
     phase_parallel_processes(smi)
+    _lap("phase 11 (c)")
     decode = phase_decode(smi)
+    _lap("phase 12 (a)")
     remat = phase_remat(smi, lm_summary)
+    _lap("phase 12 (b)")
     phase_pipeline(smi)
+    _lap("phase 12 (c)")
     phase_pipeline_processes(smi)
+    _lap("phase 12 (d)")
     zero = phase_zero(smi, lm_summary)
+    _lap("phase 13 (a)")
     phase_zero_processes(smi)
+    _lap("phase 13 (b)")
     guard = phase_moe_and_resilience(smi, lm_summary)
+    _lap("phase 14")
     phase_moe_processes(smi)
+    _lap("phase 14 (e)")
     warm = phase_warm_restart(smi, lm_summary)
+    _lap("phase 15")
     stem_row["launches"] += phase_control_instruments(smi, main_summary,
                                                       control)
+    _lap("phase 16")
     tele_stem, tele_flash = phase_telemetry(smi, main_summary, control)
+    _lap("phase 17")
     stem_row["launches"] += tele_stem
     stem_row["launches"] += phase_zoo_and_lanes(smi, main_summary)
+    _lap("phase 18")
     phase_serving(smi)
+    _lap("phase 19")
     stem_row["launches"] += phase_launcher(smi, main_summary)
+    _lap("phase 20")
     fleet_stem, fleet_flash = phase_fleet(smi, main_summary)
+    _lap("phase 21")
     stem_row["launches"] += fleet_stem
     check(decode[0] > 0, "phase 12 (a) did not launch the flash forward")
     for row, *count in zip(flash_rows, counts.values(), ring, lm_sp, remat,
@@ -5633,6 +6026,14 @@ def main() -> int:
               f"17 (b), 21 (a) {count}")
         row["launches"] = sum(count)
     flash_rows[0]["launches"] += decode[0]
+    # The other instances' rows: their launches on phases 7 (b), 7 (c)
+    # and 8, the paths that run them.
+    for row in flash_rows[3:]:
+        kind, inst, d = row["instance"]
+        row["launches"] = instance_counts.get((inst, d), {}).get(kind, 0)
+        check(row["launches"] > 0, f"{row['name']} was launched on no path")
+    for row in flash_rows:
+        del row["instance"]
     hvd.shutdown()
     print(smi, flush=True)
     print(json.dumps({"kernels": [stem_row] + flash_rows}), flush=True)
@@ -5657,6 +6058,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--inception-readings"]:
         inception_readings()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--flash-f32-readings"]:
+        flash_f32_readings()
         sys.exit(0)
     if sys.argv[1:2] == ["--avg-pool-check"]:
         avg_pool_check(gate=False)

@@ -1,5 +1,7 @@
-// Flash attention for Hopper: the forward, dQ and dK/dV kernels, bf16 in,
-// f32 softmax state and accumulation.
+// Flash attention for Hopper: the forward, dQ and dK/dV kernels, bf16 or
+// f16 in (one instance of each kernel per element type and head dim), f32
+// softmax state and accumulation.  f32 operands take the FFMA kernels of
+// flash_attention_f32.cu.
 //
 // Replaces the three TPU kernels of horovod_tpu/ops/flash_attention.py:
 //   _fwd_kernel     (:108), launched by _fwd_parts (:330) -> flash_fwd_kernel
@@ -35,7 +37,7 @@
 //   registers); P is rounded to bf16 in registers and is the A operand of
 //   O += P.V, V read MN-major from shared memory.  O, m and l never leave
 //   the registers until the epilogue.  The producer is one warp (288
-//   threads).
+//   threads; at D = 256 a warpgroup, see below).
 // * dK/dV, per 128-key tile: K and V once, then Q, dO and O tiles of 64
 //   rows through three stages.  A producer warpgroup loads them and
 //   computes each row's di (from the loaded O), m and l into the stage
@@ -59,6 +61,20 @@
 //   stays in registers over the whole key loop; the epilogue stages it
 //   through shared memory for 16-byte stores.  64-key tiles keep S, dP,
 //   dS and dQ in registers together (144 a thread at D = 128).
+// * Head dim 256 (Tiles<256>): the tiles above do not fit the 232,448
+//   bytes a block may hold (the forward's would take 459,856), so the
+//   forward walks key tiles of 64 through two stages (197,688 B; O is 64 x
+//   256 f32 a warpgroup, 128 registers a thread, beside S's 32, so its
+//   producer is a warpgroup that gives its registers away); dQ keeps
+//   Q and dO resident but not O (the producer reads each row of O from
+//   device memory for di), with key tiles of 32 through two stages
+//   (199,744 B); and dK/dV, whose two accumulators would take 256
+//   registers a thread, splits the outputs' head dim over two blocks per
+//   key tile (blockIdx.z): each block computes S^T and dP^T over the whole
+//   head dim and accumulates its 128 columns of dK and dV (1.5x the
+//   products; 128 registers a thread, as at D = 128), through one stage
+//   (231,456 B).  Sums keep a fixed order; there are no atomics.  P . V at
+//   D = 256 is two wgmma products of 128 columns.
 // * Tiles are [rows, D] in TMA's swizzled layout (flash_hopper.cuh); the
 //   maps address [B, T, H, D] in place as a 4-D (d, t, h, b) tensor, and
 //   the folded [B*H, T, D] layout of _fwd_parts as H = 1.  m and l are
@@ -83,8 +99,8 @@
 //    index; rows past T are not written.  The scale multiplies s after
 //    the Q.K product, and dQ and dK after their products; q is not
 //    pre-scaled.
-// 4. di = rowsum(dO * O) comes from the stored bf16 o, upcast, summed in
-//    f32, in both backward kernels.
+// 4. di = rowsum(dO * O) comes from the stored bf16 or f16 o, upcast,
+//    summed in f32, in both backward kernels.
 // 5. NaN propagates: the row max is NaN-propagating (jnp.max is; fmaxf is
 //    not), so a NaN input poisons its rows as in the reference.
 
@@ -100,6 +116,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 struct Geometry {
   int H;                 // heads in the batch*head index (1 for [B*H, T, D])
@@ -121,11 +138,10 @@ __device__ __forceinline__ long long base_offset(const Geometry& g, int y) {
 // ---------------------------------------------------------------------------
 
 // Two consumer warpgroups of 128 threads and a producer: one warp in the
-// forward; in dQ and dK/dV a whole warpgroup, so that setmaxnreg can move
+// forward (a warpgroup at D = 256); in dQ and dK/dV a whole warpgroup, so that setmaxnreg can move
 // its registers to the consumers (dK and dV alone take 128 a thread; dQ,
 // S, dP and dS 144).
 constexpr int CONSUMERS = 256;
-constexpr int FWD_THREADS = CONSUMERS + 32;
 constexpr int DQ_THREADS = CONSUMERS + 128;
 constexpr int DKV_THREADS = CONSUMERS + 128;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -133,18 +149,32 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Forward tiles: 128 q rows per block (64 per consumer warpgroup), key
 // tiles of 128 through a ring of three stages (225 KB at D = 128).
 constexpr int FWD_BR = 128;
-constexpr int FWD_BC = 128;
-constexpr int FWD_STAGES = 3;
 // dQ tiles: 128 q rows per block (64 per consumer warpgroup), key tiles
 // of 64 through a ring of three stages (196 KB at D = 128).
 constexpr int DQ_BR = 128;
-constexpr int DQ_BC = 64;
-constexpr int DQ_STAGES = 3;
 // dK/dV tiles: 128 keys per block (64 per consumer warpgroup), q tiles of
 // 64 through a ring of three stages.
 constexpr int DKV_BK = 128;
 constexpr int DKV_BQ = 64;
-constexpr int DKV_STAGES = 3;
+// The opt-in shared memory of one block.
+constexpr int SMEM_LIMIT = 232448;
+
+// What varies with the head dim (see the head of the file for D = 256).
+template <int D>
+struct Tiles {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int FWD_BC = WIDE ? 64 : 128;
+  // At D = 256 the forward's producer is a warpgroup, so that setmaxnreg
+  // can give its registers to the consumers (O alone takes 128 a thread):
+  // with one producer warp the 288 threads get 168 registers each.
+  static constexpr int FWD_THREADS = WIDE ? CONSUMERS + 128 : CONSUMERS + 32;
+  static constexpr int FWD_STAGES = WIDE ? 2 : 3;
+  static constexpr int DQ_BC = WIDE ? 32 : 64;
+  static constexpr int DQ_STAGES = WIDE ? 2 : 3;
+  static constexpr bool DQ_O_TILE = !WIDE;  // O resident in dQ's smem
+  static constexpr int DKV_STAGES = WIDE ? 1 : 3;
+  static constexpr int DKV_COLS = WIDE ? 128 : D;  // dK/dV columns a block
+};
 
 // The first 1024-aligned byte of the dynamic shared memory (its shared
 // address and its generic pointer); launches ask for 1024 bytes more.
@@ -161,16 +191,18 @@ __device__ __forceinline__ SmemBase smem_base(unsigned char* raw) {
 
 // Causal skipping (trouble spot 2), one helper per kernel so that the
 // producer and the consumers walk the same tiles.  Forward: the q tile at
-// q0 visits key tiles up to its last row, k0 < min(T, q0 + FWD_BR).
+// q0 visits key tiles of BC up to its last row, k0 < min(T, q0 + FWD_BR).
+template <int BC>
 __device__ __forceinline__ int fwd_key_tiles(int q0, int T, int causal) {
   const int kend = causal ? min(T, q0 + FWD_BR) : T;
-  return (kend + FWD_BC - 1) / FWD_BC;
+  return (kend + BC - 1) / BC;
 }
 
-// dQ: the q tile at q0 visits key tiles of DQ_BC up to its last row.
+// dQ: the q tile at q0 visits key tiles of BC up to its last row.
+template <int BC>
 __device__ __forceinline__ int dq_key_tiles(int q0, int T, int causal) {
   const int kend = causal ? min(T, q0 + DQ_BR) : T;
-  return (kend + DQ_BC - 1) / DQ_BC;
+  return (kend + BC - 1) / BC;
 }
 
 // dK/dV: the key tile at k0 visits q tiles from the first one holding a
@@ -184,16 +216,27 @@ __device__ __forceinline__ int dkv_first_q_tile(int k0, int causal) {
 template <int ROWS>
 struct RowStats {
   float mlog2[ROWS];  // log2(exp(safe_m) * denom): p = 2^(s log2e - this)
-  float di[ROWS];     // rowsum(dO * O), O the stored bf16 o
+  float di[ROWS];     // rowsum(dO * O), O the stored o
   int seg[ROWS];      // q-side segment ids (0 without segments)
 };
+
+// The partial di of one 16-byte chunk each of dO and O (8 elements).
+template <typename E>
+__device__ __forceinline__ float chunk_dot(uint4 x, uint4 w, float part) {
+  const E* px = reinterpret_cast<const E*>(&x);
+  const E* pw = reinterpret_cast<const E*>(&w);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    part += hop::Elem<E>::to_float(px[e]) * hop::Elem<E>::to_float(pw[e]);
+  return part;
+}
 
 // di of row rr of an R-row tile pair (dO, O) in shared memory (generic
 // pointers to the 1024-aligned tiles), two threads a row: `half` sums its
 // half of the row and the pair adds by a shuffle (trouble spot 4: the
-// stored bf16 o, upcast, summed in f32).  Rows past T were loaded as
-// zeros: di = 0.
-template <int D, int R>
+// stored o, upcast, summed in f32).  Rows past T were loaded as zeros:
+// di = 0.
+template <int D, int R, typename E>
 __device__ __forceinline__ float row_di(const unsigned char* tile_do,
                                         const unsigned char* tile_o, int rr,
                                         int half) {
@@ -202,15 +245,55 @@ __device__ __forceinline__ float row_di(const unsigned char* tile_do,
 #pragma unroll
   for (int j = 0; j < HALF; ++j) {
     const uint32_t at = hop::chunk_addr<D, R>(0u, rr, half * HALF + j);
-    const uint4 x = *reinterpret_cast<const uint4*>(tile_do + at);
-    const uint4 w = *reinterpret_cast<const uint4*>(tile_o + at);
-    const bf16* px = reinterpret_cast<const bf16*>(&x);
-    const bf16* pw = reinterpret_cast<const bf16*>(&w);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      part += __bfloat162float(px[e]) * __bfloat162float(pw[e]);
+    part = chunk_dot<E>(*reinterpret_cast<const uint4*>(tile_do + at),
+                        *reinterpret_cast<const uint4*>(tile_o + at), part);
   }
   return part + __shfl_xor_sync(0xffffffffu, part, 1);
+}
+
+// The same with O's row read from device memory (o_row, null past T: di =
+// 0), for the tilings that keep no O tile.
+template <int D, int R, typename E>
+__device__ __forceinline__ float row_di_global(const unsigned char* tile_do,
+                                               const E* o_row, int rr,
+                                               int half) {
+  constexpr int HALF = D / 16;
+  float part = 0.f;
+  if (o_row != nullptr) {
+#pragma unroll 4
+    for (int j = 0; j < HALF; ++j) {
+      const int c = half * HALF + j;
+      const uint32_t at = hop::chunk_addr<D, R>(0u, rr, c);
+      part = chunk_dot<E>(*reinterpret_cast<const uint4*>(tile_do + at),
+                          *reinterpret_cast<const uint4*>(o_row + 8 * c),
+                          part);
+    }
+  }
+  return part + __shfl_xor_sync(0xffffffffu, part, 1);
+}
+
+// acc (64 x N f32) += A . B: A 16 rows of the reduction in registers (the
+// accumulator layout, packed by Elem<E>::pack), B rows [16 kk, 16 kk + 16)
+// and columns [c0, c0 + N) of an R-row tile of head dim D, MN-major.  N =
+// 256 is two products of 128 columns.
+template <int D, int R, int N, typename E>
+__device__ __forceinline__ void mma_rs(float (&acc)[N / 2],
+                                       const uint32_t (&a)[4], uint32_t tile,
+                                       int c0, int kk) {
+  using S = hop::Swizzle<D>;
+  constexpr int NN = N > 128 ? 128 : N;
+#pragma unroll
+  for (int h = 0; h < N / NN; ++h) {
+    const uint32_t at = tile + ((c0 + h * NN) / S::BOX) * R * S::W;
+    hop::wgmma_rs<NN, E>(*reinterpret_cast<float(*)[NN / 2]>(acc + h * NN / 2),
+                         a, hop::mnmajor<D, R>(at, kk), 1);
+  }
+}
+
+// Two f32 values rounded to E, stored at p (4-byte aligned).
+template <typename E>
+__device__ __forceinline__ void store2(E* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = hop::Elem<E>::pack(lo, hi);
 }
 
 // ---------------------------------------------------------------------------
@@ -219,20 +302,23 @@ __device__ __forceinline__ float row_di(const unsigned char* tile_do,
 
 template <int D>
 constexpr int fwd_smem_bytes() {
-  return 1024 + FWD_BR * D * 2 + FWD_STAGES * 2 * FWD_BC * D * 2 +
-         8 * (1 + 3 * FWD_STAGES);
+  return 1024 + FWD_BR * D * 2 +
+         Tiles<D>::FWD_STAGES * 2 * Tiles<D>::FWD_BC * D * 2 +
+         8 * (1 + 3 * Tiles<D>::FWD_STAGES);
 }
 
-template <int D>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
+template <int D, typename E>
+__global__ void __launch_bounds__(Tiles<D>::FWD_THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     bf16* __restrict__ o, float* __restrict__ m_out,
+                     E* __restrict__ o, float* __restrict__ m_out,
                      float* __restrict__ l_out,
                      const int* __restrict__ qseg,
                      const int* __restrict__ kseg, Geometry g, int causal,
                      float scale) {
+  constexpr int FWD_BC = Tiles<D>::FWD_BC;
+  constexpr int FWD_STAGES = Tiles<D>::FWD_STAGES;
   constexpr int Q_BYTES = FWD_BR * D * 2;
   constexpr int KV_BYTES = FWD_BC * D * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -250,7 +336,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   // first and the short ones fill the tail.
   const int T = g.T, y = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * FWD_BR;
-  const int n_tiles = fwd_key_tiles(q0, T, causal);
+  const int n_tiles = fwd_key_tiles<FWD_BC>(q0, T, causal);
 
   if (threadIdx.x == 0) {
     hop::mbar_init(q_full, 1);
@@ -265,6 +351,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 
   if (threadIdx.x >= CONSUMERS) {
     // Producer: one thread keeps the ring of K/V tiles filled by TMA.
+    if constexpr (Tiles<D>::WIDE) hop::setmaxnreg_dec<40>();
     if (threadIdx.x == CONSUMERS) {
       const int h = y % g.H, b = y / g.H;
       hop::mbar_arrive_expect_tx(q_full, Q_BYTES);
@@ -283,6 +370,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     return;
   }
 
+  if constexpr (Tiles<D>::WIDE) hop::setmaxnreg_inc<232>();
   // Consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64);
   // this thread holds rows row[0] and row[1] = row[0] + 8 of S and O.
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
@@ -313,8 +401,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     hop::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hop::wgmma_ss<FWD_BC>(sc, hop::kmajor<D, FWD_BR>(sQ, wg * 64, kk),
-                            hop::kmajor<D, FWD_BC>(sK, 0, kk), kk > 0);
+      hop::wgmma_ss<FWD_BC, E>(sc, hop::kmajor<D, FWD_BR>(sQ, wg * 64, kk),
+                               hop::kmajor<D, FWD_BC>(sK, 0, kk), kk > 0);
     hop::wgmma_commit();
     hop::wgmma_wait_all();
     hop::fence_regs(sc);
@@ -369,20 +457,21 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) acc[j] *= corr[(j / 2) % 2];
 
-    // O += P . V, P rounded to bf16 as the register A operand (its
+    // O += P . V, P rounded to E as the register A operand (its
     // accumulator layout is the A layout of 16-column slices).
     uint32_t pa[FWD_BC / 16][4];
 #pragma unroll
     for (int kk = 0; kk < FWD_BC / 16; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        pa[kk][e] = hop::pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+        pa[kk][e] =
+            hop::Elem<E>::pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
     hop::mbar_wait(v_full + 8 * s, (i / FWD_STAGES) & 1);
     hop::wgmma_fence();
     hop::fence_regs(acc);
 #pragma unroll
     for (int kk = 0; kk < FWD_BC / 16; ++kk)
-      hop::wgmma_rs<D>(acc, pa[kk], hop::mnmajor<D, FWD_BC>(sV, kk), 1);
+      mma_rs<D, FWD_BC, D, E>(acc, pa[kk], sV, 0, kk);
     hop::wgmma_commit();
     hop::wgmma_wait_all();
     hop::fence_regs(acc);
@@ -400,11 +489,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (row[r] >= T) continue;
     const float denom = (l == 0.f) ? 1.f : l;
-    bf16* dst = o + off + (long long)row[r] * g.st + 2 * (lane % 4);
+    E* dst = o + off + (long long)row[r] * g.st + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+      store2(dst + 8 * j, acc[4 * j + 2 * r] / denom,
+             acc[4 * j + 2 * r + 1] / denom);
     if (lane % 4 == 0) {
       m_out[(long long)y * T + row[r]] = m_i[r];
       l_out[(long long)y * T + row[r]] = l;
@@ -422,11 +511,12 @@ static_assert(sizeof(DqStats) <= 2048, "the statistics fit their slot");
 
 template <int D>
 constexpr int dq_smem_bytes() {
-  return 1024 + 3 * DQ_BR * D * 2 + 2048 + DQ_STAGES * 2 * DQ_BC * D * 2 +
-         8 * (2 + 3 * DQ_STAGES);
+  return 1024 + (Tiles<D>::DQ_O_TILE ? 3 : 2) * DQ_BR * D * 2 + 2048 +
+         Tiles<D>::DQ_STAGES * 2 * Tiles<D>::DQ_BC * D * 2 +
+         8 * (2 + 3 * Tiles<D>::DQ_STAGES);
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -436,14 +526,20 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
                         const float* __restrict__ m_in,
                         const float* __restrict__ l_in,
                         const int* __restrict__ qseg,
-                        const int* __restrict__ kseg, bf16* __restrict__ dq,
+                        const int* __restrict__ kseg,
+                        const E* __restrict__ o_glob, E* __restrict__ dq,
                         Geometry g, int causal, float scale) {
+  constexpr int DQ_BC = Tiles<D>::DQ_BC;
+  constexpr int DQ_STAGES = Tiles<D>::DQ_STAGES;
+  constexpr bool O_TILE = Tiles<D>::DQ_O_TILE;
   constexpr int Q_BYTES = DQ_BR * D * 2;
   constexpr int KV_BYTES = DQ_BC * D * 2;
   extern __shared__ unsigned char smem_raw[];
   const SmemBase sm = smem_base(smem_raw);
+  // Without an O tile (D = 256) sO aliases the statistics' slot and is
+  // never read as a tile.
   const uint32_t sQ = sm.addr, sdO = sQ + Q_BYTES, sO = sdO + Q_BYTES;
-  const uint32_t sStats = sO + Q_BYTES;
+  const uint32_t sStats = sO + (O_TILE ? Q_BYTES : 0);
   const uint32_t sKV = sStats + 2048;  // stage s: K at + 2 s KV, V after it
   // Barriers: Q, dO and O loaded; the statistics written (the producer
   // warpgroup); per stage, K loaded, V loaded and freed by the consumers.
@@ -458,7 +554,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   // takes the last tile of every batch*head, as in the forward.
   const int T = g.T, y = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BR;
-  const int n_tiles = dq_key_tiles(q0, T, causal);
+  const int n_tiles = dq_key_tiles<DQ_BC>(q0, T, causal);
   const int* qs = qseg ? qseg + (long long)(y / g.seg_heads) * T : nullptr;
   const int* ks = kseg ? kseg + (long long)(y / g.seg_heads) * T : nullptr;
 
@@ -496,16 +592,26 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
     // statistics, and the rest of the ring after them.
     const int first = min(n_tiles, DQ_STAGES);
     if (pt == 0) {
-      hop::mbar_arrive_expect_tx(q_full, 3 * Q_BYTES);
+      hop::mbar_arrive_expect_tx(q_full, (O_TILE ? 3 : 2) * Q_BYTES);
       hop::tma_tile<D, DQ_BR>(sQ, &tm_q, q_full, q0, h, b);
       hop::tma_tile<D, DQ_BR>(sdO, &tm_do, q_full, q0, h, b);
-      hop::tma_tile<D, DQ_BR>(sO, &tm_o, q_full, q0, h, b);
+      if constexpr (O_TILE)
+        hop::tma_tile<D, DQ_BR>(sO, &tm_o, q_full, q0, h, b);
       for (int i = 0; i < first; ++i) load_kv(i);
     }
     hop::mbar_wait(q_full, 0);
+    const long long o_off = base_offset(g, y);
     for (int rr = pt / 2; rr < DQ_BR; rr += (DQ_THREADS - CONSUMERS) / 2) {
       const int qr = q0 + rr;
-      const float di = row_di<D, DQ_BR>(generic(sdO), generic(sO), rr, half);
+      float di;
+      if constexpr (O_TILE) {
+        di = row_di<D, DQ_BR, E>(generic(sdO), generic(sO), rr, half);
+      } else {
+        di = row_di_global<D, DQ_BR, E>(
+            generic(sdO), qr < T ? o_glob + o_off + (long long)qr * g.st
+                                 : nullptr,
+            rr, half);
+      }
       if (half == 0) {
         float m = -INFINITY, l = 0.f;
         int seg = 0;
@@ -567,14 +673,14 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
       hop::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hop::wgmma_ss<DQ_BC>(sc, hop::kmajor<D, DQ_BR>(sQ, wg * 64, kk),
-                             hop::kmajor<D, DQ_BC>(sK, 0, kk), kk > 0);
+        hop::wgmma_ss<DQ_BC, E>(sc, hop::kmajor<D, DQ_BR>(sQ, wg * 64, kk),
+                                hop::kmajor<D, DQ_BC>(sK, 0, kk), kk > 0);
       hop::wgmma_commit();
       hop::mbar_wait(v_full + 8 * s, parity);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hop::wgmma_ss<DQ_BC>(dp, hop::kmajor<D, DQ_BR>(sdO, wg * 64, kk),
-                             hop::kmajor<D, DQ_BC>(sV, 0, kk), kk > 0);
+        hop::wgmma_ss<DQ_BC, E>(dp, hop::kmajor<D, DQ_BR>(sdO, wg * 64, kk),
+                                hop::kmajor<D, DQ_BC>(sV, 0, kk), kk > 0);
       hop::wgmma_commit();
       hop::wgmma_wait_all();
       hop::fence_regs(sc);
@@ -596,7 +702,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         }
         dp[j] = p * (dp[j] - di[r]);
       }
-      // dQ += dS . K, dS rounded to bf16 as the register A operand and K
+      // dQ += dS . K, dS rounded to E as the register A operand and K
       // read MN-major (the reduction runs over its rows, the keys).
       uint32_t da[DQ_BC / 16][4];
 #pragma unroll
@@ -604,12 +710,12 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           da[kk][e] =
-              hop::pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+              hop::Elem<E>::pack(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
       hop::wgmma_fence();
       hop::fence_regs(acc);
 #pragma unroll
       for (int kk = 0; kk < DQ_BC / 16; ++kk)
-        hop::wgmma_rs<D>(acc, da[kk], hop::mnmajor<D, DQ_BC>(sK, kk), 1);
+        mma_rs<D, DQ_BC, D, E>(acc, da[kk], sK, 0, kk);
       hop::wgmma_commit();
       hop::wgmma_wait_all();
       hop::fence_regs(acc);
@@ -619,8 +725,22 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   }
 
   // Epilogue: the scale multiplies dQ after its products (trouble spot 3).
-  // Each warpgroup stages its 64 rows, rounded to bf16, in its half of the
-  // O tile (free once the statistics are written) in the swizzled layout,
+  const long long off = base_offset(g, y);
+  if constexpr (!O_TILE) {
+    // No O tile to stage through: each thread writes its pairs.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= T) continue;
+      E* dst = dq + off + (long long)row[r] * g.st + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(dst + 8 * j, acc[4 * j + 2 * r] * scale,
+               acc[4 * j + 2 * r + 1] * scale);
+    }
+    return;
+  }
+  // Each warpgroup stages its 64 rows, rounded to E, in its half of the O
+  // tile (free once the statistics are written) in the swizzled layout,
   // then writes whole 16-byte chunks of its rows below T.
   const uint32_t stage = sO + wg * 64 * D * 2;
 #pragma unroll
@@ -630,11 +750,10 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(
           generic(hop::chunk_addr<D, 64>(stage, lr, j) + 4 * (lane % 4))) =
-          hop::pack_bf16(acc[4 * j + 2 * r] * scale,
-                         acc[4 * j + 2 * r + 1] * scale);
+          hop::Elem<E>::pack(acc[4 * j + 2 * r] * scale,
+                             acc[4 * j + 2 * r + 1] * scale);
   }
   hop::named_barrier(1 + wg, 128);
-  const long long off = base_offset(g, y);
   constexpr int CHUNKS = D / 8;
 #pragma unroll
   for (int idx = threadIdx.x % 128; idx < 64 * CHUNKS; idx += 128) {
@@ -648,7 +767,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: one block per (128-key tile, batch*head); walks q tiles of 64.
+// dK/dV: one block per (128-key tile, batch*head, column half at D = 256);
+// walks q tiles of 64.
 // Warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64) and works on the
 // transposed scores S^T = K . Q^T, so P^T and dS^T, in registers, are the
 // A operands of dV += P^T . dO and dK += dS^T . Q.  The same Q and dO
@@ -665,11 +785,12 @@ __host__ __device__ constexpr int dkv_stage_bytes() {
 
 template <int D>
 constexpr int dkv_smem_bytes() {
-  return 1024 + 2 * DKV_BK * D * 2 + DKV_STAGES * dkv_stage_bytes<D>() +
-         8 * (1 + 3 * DKV_STAGES);
+  return 1024 + 2 * DKV_BK * D * 2 +
+         Tiles<D>::DKV_STAGES * dkv_stage_bytes<D>() +
+         8 * (1 + 3 * Tiles<D>::DKV_STAGES);
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -679,9 +800,13 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
                          const float* __restrict__ m_in,
                          const float* __restrict__ l_in,
                          const int* __restrict__ qseg,
-                         const int* __restrict__ kseg, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, Geometry g, int causal,
+                         const int* __restrict__ kseg, E* __restrict__ dk,
+                         E* __restrict__ dv, Geometry g, int causal,
                          float scale) {
+  constexpr int DKV_STAGES = Tiles<D>::DKV_STAGES;
+  // This block's columns of dK and dV: [c0, c0 + COLS).
+  constexpr int COLS = Tiles<D>::DKV_COLS;
+  const int c0 = blockIdx.z * COLS;
   constexpr int KV_BYTES = DKV_BK * D * 2;
   constexpr int QT_BYTES = DKV_BQ * D * 2;
   constexpr int STAGE = dkv_stage_bytes<D>();
@@ -753,7 +878,8 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
         hop::tma_tile<D, DKV_BQ>(sO, &tm_o, loaded + 8 * s, q0, h, b);
       }
       hop::mbar_wait(loaded + 8 * s, parity);
-      const float di = row_di<D, DKV_BQ>(generic(sdO), generic(sO), rr, half);
+      const float di =
+          row_di<D, DKV_BQ, E>(generic(sdO), generic(sO), rr, half);
       if (half == 0) {
         DkvStats* st = stats(s);
         const float safe_m = (m == -INFINITY) ? 0.f : m;
@@ -780,9 +906,9 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
   for (int r = 0; r < 2; ++r)
     key_seg[r] = (ks && key[r] < T) ? ks[key[r]] : 0;
 
-  float acc_dk[D / 2], acc_dv[D / 2];
+  float acc_dk[COLS / 2], acc_dv[COLS / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < COLS / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
   hop::mbar_wait(kv_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -798,12 +924,12 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
       hop::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hop::wgmma_ss<DKV_BQ>(sT, hop::kmajor<D, DKV_BK>(sK, wg * 64, kk),
-                              hop::kmajor<D, DKV_BQ>(sQ, 0, kk), kk > 0);
+        hop::wgmma_ss<DKV_BQ, E>(sT, hop::kmajor<D, DKV_BK>(sK, wg * 64, kk),
+                                 hop::kmajor<D, DKV_BQ>(sQ, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hop::wgmma_ss<DKV_BQ>(dpT, hop::kmajor<D, DKV_BK>(sV, wg * 64, kk),
-                              hop::kmajor<D, DKV_BQ>(sdO, 0, kk), kk > 0);
+        hop::wgmma_ss<DKV_BQ, E>(dpT, hop::kmajor<D, DKV_BK>(sV, wg * 64, kk),
+                                 hop::kmajor<D, DKV_BQ>(sdO, 0, kk), kk > 0);
       hop::wgmma_commit();
       hop::wgmma_wait_all();
       hop::fence_regs(sT);
@@ -833,19 +959,20 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
       for (int kk = 0; kk < DKV_BQ / 16; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          pa[kk][e] = hop::pack_bf16(sT[8 * kk + 2 * e], sT[8 * kk + 2 * e + 1]);
+          pa[kk][e] =
+              hop::Elem<E>::pack(sT[8 * kk + 2 * e], sT[8 * kk + 2 * e + 1]);
           da[kk][e] =
-              hop::pack_bf16(dpT[8 * kk + 2 * e], dpT[8 * kk + 2 * e + 1]);
+              hop::Elem<E>::pack(dpT[8 * kk + 2 * e], dpT[8 * kk + 2 * e + 1]);
         }
       hop::wgmma_fence();
       hop::fence_regs(acc_dv);
       hop::fence_regs(acc_dk);
 #pragma unroll
       for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-        hop::wgmma_rs<D>(acc_dv, pa[kk], hop::mnmajor<D, DKV_BQ>(sdO, kk), 1);
+        mma_rs<D, DKV_BQ, COLS, E>(acc_dv, pa[kk], sdO, c0, kk);
 #pragma unroll
       for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-        hop::wgmma_rs<D>(acc_dk, da[kk], hop::mnmajor<D, DKV_BQ>(sQ, kk), 1);
+        mma_rs<D, DKV_BQ, COLS, E>(acc_dk, da[kk], sQ, c0, kk);
       hop::wgmma_commit();
       hop::wgmma_wait_all();
       hop::fence_regs(acc_dv);
@@ -861,15 +988,14 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= T) continue;
-    const long long at = off + (long long)key[r] * g.st + 2 * (lane % 4);
+    const long long at =
+        off + (long long)key[r] * g.st + c0 + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
-          __floats2bfloat162_rn(acc_dk[4 * j + 2 * r] * scale,
-                                acc_dk[4 * j + 2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
-          __floats2bfloat162_rn(acc_dv[4 * j + 2 * r],
-                                acc_dv[4 * j + 2 * r + 1]);
+    for (int j = 0; j < COLS / 8; ++j) {
+      store2(dk + at + 8 * j, acc_dk[4 * j + 2 * r] * scale,
+             acc_dk[4 * j + 2 * r + 1] * scale);
+      store2(dv + at + 8 * j, acc_dv[4 * j + 2 * r],
+             acc_dv[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -920,7 +1046,7 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 // A 4-D map (d, t, h, b) over one operand, boxes of [rows, BOX] with the
 // head dim's swizzle; rows past T read as zeros.  The folded [B*H, T, D]
 // layout is H = 1 (its head stride is never stepped: any legal value).
-template <int D>
+template <int D, typename E>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int BH,
                      const Geometry& g, int rows) {
   auto encode = tensor_map_encoder();
@@ -933,7 +1059,7 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int BH,
                            (cuuint64_t)g.sb * 2};
   cuuint32_t box[4] = {(cuuint32_t)S::BOX, (cuuint32_t)rows, 1, 1};
   cuuint32_t step[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  CUresult r = encode(map, hop::Elem<E>::TMA, 4,
                       const_cast<void*>(ptr), dims, strides, box, step,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, S::TMA,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -941,143 +1067,145 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int BH,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* m, void* l, const void* qseg, const void* kseg,
                        int BH, const Geometry& g, int causal, float scale,
                        cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<D>();
+  static_assert(smem <= SMEM_LIMIT, "forward tiles fit a block");
+  constexpr int BC = Tiles<D>::FWD_BC;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = prepare(flash_fwd_kernel<D>, smem);
-  if (err == cudaSuccess) err = make_map<D>(&tq, q, BH, g, FWD_BR);
-  if (err == cudaSuccess) err = make_map<D>(&tk, k, BH, g, FWD_BC);
-  if (err == cudaSuccess) err = make_map<D>(&tv, v, BH, g, FWD_BC);
+  cudaError_t err = prepare(flash_fwd_kernel<D, E>, smem);
+  if (err == cudaSuccess) err = make_map<D, E>(&tq, q, BH, g, FWD_BR);
+  if (err == cudaSuccess) err = make_map<D, E>(&tk, k, BH, g, BC);
+  if (err == cudaSuccess) err = make_map<D, E>(&tv, v, BH, g, BC);
   if (err != cudaSuccess) return err;
   dim3 grid(BH, (g.T + FWD_BR - 1) / FWD_BR);
-  flash_fwd_kernel<D><<<grid, FWD_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(m),
+  flash_fwd_kernel<D, E><<<grid, Tiles<D>::FWD_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<E*>(o), static_cast<float*>(m),
       static_cast<float*>(l), static_cast<const int*>(qseg),
       static_cast<const int*>(kseg), g, causal, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const void* m,
                       const void* l, const void* qseg, const void* kseg,
                       void* dq, int BH, const Geometry& g, int causal,
                       float scale, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();
+  static_assert(smem <= SMEM_LIMIT, "dQ tiles fit a block");
+  constexpr int BC = Tiles<D>::DQ_BC;
   CUtensorMap tq, tk, tv, tdo, to;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<D>, smem);
-  if (err == cudaSuccess) err = make_map<D>(&tq, q, BH, g, DQ_BR);
-  if (err == cudaSuccess) err = make_map<D>(&tk, k, BH, g, DQ_BC);
-  if (err == cudaSuccess) err = make_map<D>(&tv, v, BH, g, DQ_BC);
-  if (err == cudaSuccess) err = make_map<D>(&tdo, dout, BH, g, DQ_BR);
-  if (err == cudaSuccess) err = make_map<D>(&to, o, BH, g, DQ_BR);
+  cudaError_t err = prepare(flash_bwd_dq_kernel<D, E>, smem);
+  if (err == cudaSuccess) err = make_map<D, E>(&tq, q, BH, g, DQ_BR);
+  if (err == cudaSuccess) err = make_map<D, E>(&tk, k, BH, g, BC);
+  if (err == cudaSuccess) err = make_map<D, E>(&tv, v, BH, g, BC);
+  if (err == cudaSuccess) err = make_map<D, E>(&tdo, dout, BH, g, DQ_BR);
+  if (err == cudaSuccess) err = make_map<D, E>(&to, o, BH, g, DQ_BR);
   if (err != cudaSuccess) return err;
   dim3 grid(BH, (g.T + DQ_BR - 1) / DQ_BR);
-  flash_bwd_dq_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<D, E><<<grid, DQ_THREADS, smem, stream>>>(
       tq, tk, tv, tdo, to, static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const int*>(qseg),
-      static_cast<const int*>(kseg), static_cast<bf16*>(dq), g, causal,
-      scale);
+      static_cast<const int*>(kseg), static_cast<const E*>(o),
+      static_cast<E*>(dq), g, causal, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const void* m,
                        const void* l, const void* qseg, const void* kseg,
                        void* dk, void* dv, int BH, const Geometry& g,
                        int causal, float scale, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<D>();
+  static_assert(smem <= SMEM_LIMIT, "dK/dV tiles fit a block");
   CUtensorMap tq, tk, tv, tdo, to;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, smem);
-  if (err == cudaSuccess) err = make_map<D>(&tq, q, BH, g, DKV_BQ);
-  if (err == cudaSuccess) err = make_map<D>(&tk, k, BH, g, DKV_BK);
-  if (err == cudaSuccess) err = make_map<D>(&tv, v, BH, g, DKV_BK);
-  if (err == cudaSuccess) err = make_map<D>(&tdo, dout, BH, g, DKV_BQ);
-  if (err == cudaSuccess) err = make_map<D>(&to, o, BH, g, DKV_BQ);
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<D, E>, smem);
+  if (err == cudaSuccess) err = make_map<D, E>(&tq, q, BH, g, DKV_BQ);
+  if (err == cudaSuccess) err = make_map<D, E>(&tk, k, BH, g, DKV_BK);
+  if (err == cudaSuccess) err = make_map<D, E>(&tv, v, BH, g, DKV_BK);
+  if (err == cudaSuccess) err = make_map<D, E>(&tdo, dout, BH, g, DKV_BQ);
+  if (err == cudaSuccess) err = make_map<D, E>(&to, o, BH, g, DKV_BQ);
   if (err != cudaSuccess) return err;
-  dim3 grid(BH, (g.T + DKV_BK - 1) / DKV_BK);
-  flash_bwd_dkv_kernel<D><<<grid, DKV_THREADS, smem, stream>>>(
+  dim3 grid(BH, (g.T + DKV_BK - 1) / DKV_BK, D / Tiles<D>::DKV_COLS);
+  flash_bwd_dkv_kernel<D, E><<<grid, DKV_THREADS, smem, stream>>>(
       tq, tk, tv, tdo, to, static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const int*>(qseg),
-      static_cast<const int*>(kseg), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), g, causal, scale);
+      static_cast<const int*>(kseg), static_cast<E*>(dk),
+      static_cast<E*>(dv), g, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The C interface, loaded with ctypes.  Tensors are bf16 except m and l
+// The C interface, loaded with ctypes: hvd_flash_<kernel>_bf16 and
+// hvd_flash_<kernel>_f16.  Tensors are of the suffix's type except m and l
 // (f32, [BH, T]) and the segment ids (int32, [BH / seg_heads, T], or null
 // for none).  Element (y, t, d) of q, k, v, o, dout, dq, dk, dv lives at
-// (y / H) * sb + (y % H) * sh + t * st + d.  D is 16, 32, 64 or 128.
+// (y / H) * sb + (y % H) * sh + t * st + d.  D is 16, 32, 64, 128 or 256.
 // Each returns the cudaError_t of its launch (0 on success).
 
-extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* m, void* l, const void* qseg,
-                             const void* kseg, int BH, int H, int seg_heads,
-                             int T, int D, long long sb, long long st,
-                             long long sh, int causal, float scale,
-                             void* stream) {
-  const Geometry g = make_geometry(H, seg_heads, T, sb, st, sh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HVD_CALL(DD) \
-  launch_fwd<DD>(q, k, v, o, m, l, qseg, kseg, BH, g, causal, scale, s)
-  switch (D) {
-    case 16: return (int)HVD_CALL(16);
-    case 32: return (int)HVD_CALL(32);
-    case 64: return (int)HVD_CALL(64);
-    case 128: return (int)HVD_CALL(128);
-    default: return (int)cudaErrorInvalidValue;
+#define HVD_SWITCH_D(CALL)                      \
+  switch (D) {                                  \
+    case 16: return (int)CALL(16);              \
+    case 32: return (int)CALL(32);              \
+    case 64: return (int)CALL(64);              \
+    case 128: return (int)CALL(128);            \
+    case 256: return (int)CALL(256);            \
+    default: return (int)cudaErrorInvalidValue; \
   }
-#undef HVD_CALL
-}
 
-extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* o, const void* dout,
-                                const void* m, const void* l,
-                                const void* qseg, const void* kseg, void* dq,
-                                int BH, int H, int seg_heads, int T, int D,
-                                long long sb, long long st, long long sh,
-                                int causal, float scale, void* stream) {
-  const Geometry g = make_geometry(H, seg_heads, T, sb, st, sh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HVD_CALL(DD)                                                       \
-  launch_dq<DD>(q, k, v, o, dout, m, l, qseg, kseg, dq, BH, g, causal, \
-                scale, s)
-  switch (D) {
-    case 16: return (int)HVD_CALL(16);
-    case 32: return (int)HVD_CALL(32);
-    case 64: return (int)HVD_CALL(64);
-    case 128: return (int)HVD_CALL(128);
-    default: return (int)cudaErrorInvalidValue;
+#define HVD_FLASH_ENTRY_POINTS(SUFFIX)                                        \
+  extern "C" int hvd_flash_fwd_##SUFFIX(                                      \
+      const void* q, const void* k, const void* v, void* o, void* m, void* l, \
+      const void* qseg, const void* kseg, int BH, int H, int seg_heads,       \
+      int T, int D, long long sb, long long st, long long sh, int causal,     \
+      float scale, void* stream) {                                            \
+    const Geometry g = make_geometry(H, seg_heads, T, sb, st, sh);            \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
+    HVD_SWITCH_D(FWD_##SUFFIX)                                                \
+  }                                                                           \
+  extern "C" int hvd_flash_bwd_dq_##SUFFIX(                                   \
+      const void* q, const void* k, const void* v, const void* o,             \
+      const void* dout, const void* m, const void* l, const void* qseg,       \
+      const void* kseg, void* dq, int BH, int H, int seg_heads, int T, int D, \
+      long long sb, long long st, long long sh, int causal, float scale,      \
+      void* stream) {                                                         \
+    const Geometry g = make_geometry(H, seg_heads, T, sb, st, sh);            \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
+    HVD_SWITCH_D(DQ_##SUFFIX)                                                 \
+  }                                                                           \
+  extern "C" int hvd_flash_bwd_dkv_##SUFFIX(                                  \
+      const void* q, const void* k, const void* v, const void* o,             \
+      const void* dout, const void* m, const void* l, const void* qseg,       \
+      const void* kseg, void* dk, void* dv, int BH, int H, int seg_heads,     \
+      int T, int D, long long sb, long long st, long long sh, int causal,     \
+      float scale, void* stream) {                                            \
+    const Geometry g = make_geometry(H, seg_heads, T, sb, st, sh);            \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
+    HVD_SWITCH_D(DKV_##SUFFIX)                                                \
   }
-#undef HVD_CALL
-}
 
-extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout,
-                                 const void* m, const void* l,
-                                 const void* qseg, const void* kseg, void* dk,
-                                 void* dv, int BH, int H, int seg_heads, int T,
-                                 int D, long long sb, long long st,
-                                 long long sh, int causal, float scale,
-                                 void* stream) {
-  const Geometry g = make_geometry(H, seg_heads, T, sb, st, sh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HVD_CALL(DD)                                                          \
-  launch_dkv<DD>(q, k, v, o, dout, m, l, qseg, kseg, dk, dv, BH, g, causal, \
-                 scale, s)
-  switch (D) {
-    case 16: return (int)HVD_CALL(16);
-    case 32: return (int)HVD_CALL(32);
-    case 64: return (int)HVD_CALL(64);
-    case 128: return (int)HVD_CALL(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef HVD_CALL
-}
+#define FWD_bf16(DD) \
+  launch_fwd<DD, bf16>(q, k, v, o, m, l, qseg, kseg, BH, g, causal, scale, s)
+#define FWD_f16(DD) \
+  launch_fwd<DD, f16>(q, k, v, o, m, l, qseg, kseg, BH, g, causal, scale, s)
+#define DQ_bf16(DD)                                                         \
+  launch_dq<DD, bf16>(q, k, v, o, dout, m, l, qseg, kseg, dq, BH, g, causal, \
+                      scale, s)
+#define DQ_f16(DD)                                                         \
+  launch_dq<DD, f16>(q, k, v, o, dout, m, l, qseg, kseg, dq, BH, g, causal, \
+                     scale, s)
+#define DKV_bf16(DD)                                                       \
+  launch_dkv<DD, bf16>(q, k, v, o, dout, m, l, qseg, kseg, dk, dv, BH, g, \
+                       causal, scale, s)
+#define DKV_f16(DD)                                                       \
+  launch_dkv<DD, f16>(q, k, v, o, dout, m, l, qseg, kseg, dk, dv, BH, g, \
+                      causal, scale, s)
+
+HVD_FLASH_ENTRY_POINTS(bf16)
+HVD_FLASH_ENTRY_POINTS(f16)

@@ -3,7 +3,8 @@ backward.
 
 Counterpart of ``horovod_tpu/ops/flash_attention.py``.  On CUDA tensors the
 forward, dQ and dK/dV passes are three hand-written Hopper kernels
-(``csrc/flash_attention.cu``); on CPU tensors they are the plain PyTorch
+(``csrc/flash_attention.cu`` for bf16 and f16, ``csrc/flash_attention_f32.cu``
+for f32); on CPU tensors they are the plain PyTorch
 versions below (``_fwd_parts_plain``, ``_bwd_dq_plain``,
 ``_bwd_dkv_plain``), the same blockwise math.  The plain versions serve the
 CPU and the checks against the kernels; nothing on the card's path falls
@@ -17,7 +18,8 @@ Contract, as the reference's:
 * ``T`` must divide by the effective blocks (``_eff_blocks``), with the
   reference's ``ValueError`` otherwise.  The blocks are checked but the
   kernels tile for Hopper (128-row q tiles in the forward and dQ, 128-key
-  tiles in dK/dV): the reference's 1024 blocks are a v5e VMEM choice.
+  tiles in dK/dV; 64 of each in the f32 kernels): the reference's 1024
+  blocks are a v5e VMEM choice.
 * ``_fwd_parts`` returns ``(o, m, l)``: ``m`` the row max of the scaled
   scores and ``l`` the UNnormalized row sum of ``exp(s - m)``, both
   ``[B*H, 1, T]`` f32.  ``_bwd_parts`` takes the global ``(m, l)``.  Both
@@ -26,8 +28,17 @@ Contract, as the reference's:
 * Fully masked rows give ``o = 0`` and zero gradients (``l == 0`` counts
   as a denominator of 1).
 
-The kernels take bf16 only; other dtypes on the card raise ``TypeError``
-(the f32 kernel is on the roadmap).
+The kernels take every float dtype the reference's kernels take, at any
+head dim up to 256 (``_kernel_plan``): bf16 and f16 run the Hopper
+kernels, f32 the FFMA kernels of ``csrc/flash_attention_f32.cu`` (f32
+products, as the reference multiplies its f32-upcast operands).  Head
+dims 16, 32, 64, 128 and 256 have instances of their own; any other
+``D <= 256`` is padded with zero columns to the next one (zero columns of
+q and k leave the scores unchanged, those of v give zero columns of o),
+with the caller's scale, and the outputs are sliced back.  ``o``, ``dq``,
+``dk`` and ``dv`` come back in the operands' dtype, ``m`` and ``l`` in
+f32.  f64 and ``D > 256`` on the card raise; nothing on a CUDA tensor
+falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -43,11 +54,24 @@ from horovod_tpu_torch.ops import _build
 fwd_launches = _build.CallCounter("flash_attention.fwd", kernel=True)
 dq_launches = _build.CallCounter("flash_attention.bwd_dq", kernel=True)
 dkv_launches = _build.CallCounter("flash_attention.bwd_dkv", kernel=True)
+_TOTALS = {"fwd": fwd_launches, "bwd_dq": dq_launches,
+           "bwd_dkv": dkv_launches}
 
 NEG_INF = float("-inf")
 # Head dims the kernels are built for (multiples of the 16-deep tensor-core
-# product; at most 128, which keeps a tile's operands in shared memory).
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# product); any other head dim up to the last is padded to the next one.
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+# The instance of each dtype the kernels take: bf16 and f16 run the Hopper
+# kernels of csrc/flash_attention.cu, f32 those of
+# csrc/flash_attention_f32.cu.
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16",
+                 torch.float32: "f32"}
+# Launches by (kernel, instance, kernel head dim), beside the totals above:
+# which instance a path ran.
+instance_launches = {
+    (kind, inst, d): _build.CallCounter(f"flash_attention.{kind}.{inst}.d{d}")
+    for kind in _TOTALS for inst in KERNEL_DTYPES.values()
+    for d in KERNEL_HEAD_DIMS}
 # Key block of the plain versions: bounds their score block to
 # [B*H, T, 128] f32.
 _PLAIN_BLOCK_K = 128
@@ -265,21 +289,36 @@ class _Geometry:
             self.seg_heads = self.bh // seg.shape[0]
 
 
+def _kernel_plan(dtype: torch.dtype, d: int):
+    """``(instance, d_kernel)``: the kernels a launch on ``dtype`` operands
+    of head dim ``d`` takes (``"bf16"``, ``"f16"`` or ``"f32"``) and the
+    head dim its operands are padded to.  Raises ``TypeError`` for a dtype
+    the kernels do not take and ``ValueError`` for ``d > 256``."""
+    inst = KERNEL_DTYPES.get(dtype)
+    if inst is None:
+        if dtype == torch.float64:
+            raise TypeError(
+                "the flash attention kernels take bfloat16, float16 or "
+                "float32; got torch.float64: the JAX package has no f64 "
+                "kernel on the TPU (without JAX's x64 mode an f64 array is "
+                "f32 there), so cast to float32")
+        raise TypeError(f"the flash attention kernels take bfloat16, "
+                        f"float16 or float32; got {dtype}")
+    if not 1 <= d <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {d}: the flash attention kernels take "
+                         f"head dims up to {KERNEL_HEAD_DIMS[-1]}")
+    return inst, next(x for x in KERNEL_HEAD_DIMS if x >= d)
+
+
 def _kernel_operands(*tensors):
     """Checks what the kernels take and returns the tensors with one
-    layout: one shape, contiguous, 16-byte aligned, on one CUDA device
-    (the kernels address every operand with the first one's strides, and
-    their TMA tensor maps need the aligned base and strides that are
-    multiples of 16 bytes, which a contiguous bf16 tensor of a kernel
-    head dim has)."""
+    layout: one shape, padded with zero columns to the plan's head dim,
+    contiguous, 16-byte aligned, on one CUDA device (the kernels address
+    every operand with the first one's strides, and the Hopper kernels'
+    TMA tensor maps need the aligned base and strides that are multiples
+    of 16 bytes, which a contiguous tensor of a kernel head dim has)."""
     ref = tensors[0]
-    if ref.dtype != torch.bfloat16:
-        raise TypeError(f"the flash attention kernels take bfloat16; got "
-                        f"{ref.dtype} (the f32 kernel is not ported yet)")
-    d = ref.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the flash attention kernels take "
-                         f"{KERNEL_HEAD_DIMS}")
+    _, d_kernel = _kernel_plan(ref.dtype, ref.shape[-1])
     out = []
     for t in tensors:
         if t.shape != ref.shape:
@@ -290,11 +329,18 @@ def _kernel_operands(*tensors):
             raise ValueError(f"flash attention operands must share dtype "
                              f"and device; got {t.dtype} on {t.device} and "
                              f"{ref.dtype} on {ref.device}")
+        if t.shape[-1] != d_kernel:
+            t = torch.nn.functional.pad(t, (0, d_kernel - t.shape[-1]))
         t = t.contiguous()
         if t.data_ptr() % 16:
             t = t.clone()
         out.append(t)
     return out
+
+
+def _unpad(x: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel output cut back to the caller's head dim ``d``."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def _kernel_segments(seg, t, device):
@@ -320,75 +366,109 @@ def _check_err(err: int, what: str) -> None:
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
+_N_PTRS = {"fwd": 8, "bwd_dq": 10, "bwd_dkv": 11}
 
 
-def _fn(name: str, n_ptrs: int):
-    fn = getattr(_build.load("flash_attention"), name)
-    fn.argtypes = [_P] * n_ptrs + [_I] * 5 + [_LL] * 3 + [_I, _F, _P]
+def _fn(inst: str, kind: str):
+    lib = "flash_attention_f32" if inst == "f32" else "flash_attention"
+    fn = getattr(_build.load(lib), f"hvd_flash_{kind}_{inst}")
+    fn.argtypes = [_P] * _N_PTRS[kind] + [_I] * 5 + [_LL] * 3 + [_I, _F, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_fwd(q, k, v, qseg, kseg, causal, scale):
-    """Forward kernel on ``[B, T, H, D]`` or ``[B*H, T, D]`` bf16 tensors;
-    returns ``(o, m, l)`` with ``m``, ``l`` as ``[B*H, T]`` f32."""
-    q, k, v = _kernel_operands(q, k, v)
-    qseg = _kernel_segments(qseg, q.shape[1], q.device)
-    kseg = _kernel_segments(kseg, q.shape[1], q.device)
+def _count(kind: str, inst: str, d_kernel: int) -> None:
+    _TOTALS[kind].add()
+    instance_launches[(kind, inst, d_kernel)].add()
+
+
+def _run(inst, kind, ptrs, g, causal, scale, device):
+    """One launch of ``kind``'s ``inst`` kernel on padded operands."""
+    with torch.cuda.device(device):
+        err = _fn(inst, kind)(*ptrs, g.bh, g.h, g.seg_heads, g.t, g.d,
+                              *g.strides, int(causal), float(scale),
+                              _stream(device))
+    _check_err(err, kind)
+
+
+def _run_fwd(inst, q, k, v, qseg, kseg, causal, scale):
+    """The forward kernel on operands of a kernel head dim; returns ``(o,
+    m, l)`` with ``m``, ``l`` as ``[B*H, T]`` f32."""
     g = _Geometry(q, qseg)
     o = torch.empty_like(q)
     m = torch.empty((g.bh, g.t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    fn = _fn("hvd_flash_fwd", 8)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 m.data_ptr(), l.data_ptr(), _ptr(qseg), _ptr(kseg), g.bh,
-                 g.h, g.seg_heads, g.t, g.d, *g.strides, int(causal),
-                 float(scale), _stream(q.device))
-    _check_err(err, "forward")
-    fwd_launches.add()
+    _run(inst, "fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(qseg),
+                       _ptr(kseg)), g, causal, scale, q.device)
     return o, m, l
 
 
-def _launch_dq(q, k, v, o, do, m, l, qseg, kseg, causal, scale):
-    q, k, v, o, do = _kernel_operands(q, k, v, o, do)
-    qseg = _kernel_segments(qseg, q.shape[1], q.device)
-    kseg = _kernel_segments(kseg, q.shape[1], q.device)
+def _run_dq(inst, q, k, v, o, do, m, l, qseg, kseg, causal, scale):
     g = _Geometry(q, qseg)
-    m = m.reshape(g.bh, g.t).float().contiguous()
-    l = l.reshape(g.bh, g.t).float().contiguous()
     dq = torch.empty_like(q)
-    fn = _fn("hvd_flash_bwd_dq", 10)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(qseg),
-                 _ptr(kseg), dq.data_ptr(), g.bh, g.h, g.seg_heads, g.t,
-                 g.d, *g.strides, int(causal), float(scale),
-                 _stream(q.device))
-    _check_err(err, "dq")
-    dq_launches.add()
+    _run(inst, "bwd_dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), do.data_ptr(), m.data_ptr(),
+                          l.data_ptr(), _ptr(qseg), _ptr(kseg),
+                          dq.data_ptr()), g, causal, scale, q.device)
     return dq
 
 
-def _launch_dkv(q, k, v, o, do, m, l, qseg, kseg, causal, scale):
+def _run_dkv(inst, q, k, v, o, do, m, l, qseg, kseg, causal, scale):
+    g = _Geometry(q, qseg)
+    dk = torch.empty_like(q)
+    dv = torch.empty_like(q)
+    _run(inst, "bwd_dkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), do.data_ptr(), m.data_ptr(),
+                           l.data_ptr(), _ptr(qseg), _ptr(kseg),
+                           dk.data_ptr(), dv.data_ptr()), g, causal, scale,
+         q.device)
+    return dk, dv
+
+
+def _stats(m, l, t):
+    """``m`` and ``l`` as the kernels read them: ``[B*H, T]`` f32."""
+    return (m.reshape(-1, t).float().contiguous(),
+            l.reshape(-1, t).float().contiguous())
+
+
+def _launch_fwd(q, k, v, qseg, kseg, causal, scale):
+    """Forward kernel on ``[B, T, H, D]`` or ``[B*H, T, D]`` tensors of a
+    dtype the plan takes; returns ``(o, m, l)`` with ``o`` in ``q``'s
+    dtype and head dim and ``m``, ``l`` as ``[B*H, T]`` f32.  ``scale``
+    is the caller's (that of the true head dim)."""
+    inst, d_kernel = _kernel_plan(q.dtype, q.shape[-1])
+    d = q.shape[-1]
+    q, k, v = _kernel_operands(q, k, v)
+    qseg = _kernel_segments(qseg, q.shape[1], q.device)
+    kseg = _kernel_segments(kseg, q.shape[1], q.device)
+    o, m, l = _run_fwd(inst, q, k, v, qseg, kseg, causal, scale)
+    _count("fwd", inst, d_kernel)
+    return _unpad(o, d), m, l
+
+
+def _launch_dq(q, k, v, o, do, m, l, qseg, kseg, causal, scale):
+    inst, d_kernel = _kernel_plan(q.dtype, q.shape[-1])
+    d = q.shape[-1]
     q, k, v, o, do = _kernel_operands(q, k, v, o, do)
     qseg = _kernel_segments(qseg, q.shape[1], q.device)
     kseg = _kernel_segments(kseg, q.shape[1], q.device)
-    g = _Geometry(q, qseg)
-    m = m.reshape(g.bh, g.t).float().contiguous()
-    l = l.reshape(g.bh, g.t).float().contiguous()
-    dk = torch.empty_like(q)
-    dv = torch.empty_like(q)
-    fn = _fn("hvd_flash_bwd_dkv", 11)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(qseg),
-                 _ptr(kseg), dk.data_ptr(), dv.data_ptr(), g.bh, g.h,
-                 g.seg_heads, g.t, g.d, *g.strides, int(causal),
-                 float(scale), _stream(q.device))
-    _check_err(err, "dkv")
-    dkv_launches.add()
-    return dk, dv
+    m, l = _stats(m, l, q.shape[1])
+    dq = _run_dq(inst, q, k, v, o, do, m, l, qseg, kseg, causal, scale)
+    _count("bwd_dq", inst, d_kernel)
+    return _unpad(dq, d)
+
+
+def _launch_dkv(q, k, v, o, do, m, l, qseg, kseg, causal, scale):
+    inst, d_kernel = _kernel_plan(q.dtype, q.shape[-1])
+    d = q.shape[-1]
+    q, k, v, o, do = _kernel_operands(q, k, v, o, do)
+    qseg = _kernel_segments(qseg, q.shape[1], q.device)
+    kseg = _kernel_segments(kseg, q.shape[1], q.device)
+    m, l = _stats(m, l, q.shape[1])
+    dk, dv = _run_dkv(inst, q, k, v, o, do, m, l, qseg, kseg, causal, scale)
+    _count("bwd_dkv", inst, d_kernel)
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def _route(x: torch.Tensor) -> str:

@@ -502,6 +502,9 @@ def _merge_online(m, l, acc, m_b, l_b, o_b, b, h):
 def _check_flash(q, k, v, segment_ids):
     bq, bk = fa._eff_blocks(q.shape[1], None, None, q.shape[-1])
     b, t, _, _ = fa._check_shapes(q, k, v, bq, bk)
+    if fa._route(q) == "cuda":
+        # What the kernels refuse raises here, before any block moves.
+        fa._kernel_plan(q.dtype, q.shape[-1])
     if segment_ids is not None:
         if tuple(segment_ids.shape) != (b, t):
             raise ValueError(
@@ -606,9 +609,10 @@ def ring_flash_attention(q, k, v, axis_name=None, causal: bool = True,
     """Ring attention with the flash kernels as the per-step block math.
 
     The same semantics as :func:`ring_attention`.  On CUDA tensors every
-    step launches the flash kernels (bf16, head dims 16-128; anything
-    else raises, as ``flash_attention`` does); on CPU tensors their plain
-    versions run.  Under ``causal`` the steps whose arriving block is
+    step launches the flash kernels of ``fa._kernel_plan`` (bf16, f16 or
+    f32 at any head dim up to 256, padded to a kernel head dim; f64 and
+    wider heads raise before any exchange, as ``flash_attention`` does);
+    on CPU tensors their plain versions run.  Under ``causal`` the steps whose arriving block is
     fully masked launch nothing: per rank ``idx``, ``1 + idx`` forward
     launches and as many dQ and dK/dV launches (``size`` each without
     ``causal``).

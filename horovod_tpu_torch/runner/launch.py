@@ -152,11 +152,13 @@ class RankProcess:
             sys.stdout.flush()
 
     def terminate(self) -> None:
+        # A rank that has already exited keeps its exit as its own: a
+        # peer's teardown must not excuse a rank that died first.
+        if self.proc is None or self.proc.poll() is not None:
+            return
         # Mark BEFORE signalling: a -SIGTERM exit after this point is
         # collateral teardown, not a failure of this rank.
         self.terminated_by_launcher = True
-        if self.proc is None or self.proc.poll() is not None:
-            return
         try:
             os.killpg(self.proc.pid, signal.SIGTERM)
         except (ProcessLookupError, PermissionError):
@@ -254,6 +256,16 @@ class JobControl:
             procs = list(self._procs or ())
         for p in procs:
             p.terminate()
+
+
+# Seconds between the supervision loop's polls of the ranks.
+_POLL_SECONDS = 0.05
+
+
+def _killed_by_signal(rc: int) -> bool:
+    """Whether an exit code is a death by signal: negative from
+    ``Popen``, 128 + N through a shell or ssh."""
+    return rc < 0 or 128 < rc < 160
 
 
 def launch_job(rank_infos: List[RankInfo], command: List[str],
@@ -414,7 +426,7 @@ def launch_job(rank_infos: List[RankInfo], command: List[str],
                             procs[j].terminate()
                     stop.set()
                 break
-            time.sleep(0.05)
+            time.sleep(_POLL_SECONDS)
         # Grace period (HOROVOD_TERMINATE_GRACE_SECONDS), then hard kill,
         # logging which ranks needed the hammer — a rank that regularly
         # outlives its grace is hiding a shutdown bug.
@@ -468,6 +480,12 @@ def launch_job(rank_infos: List[RankInfo], command: List[str],
                 # "peer closed connection" instead of the signal, and
                 # blaming ITS host would demote a healthy machine.
                 failed.append((p.info.rank, p.info.hostname, rc))
+        # Ranks found dead in one poll all failed on their own; a rank a
+        # signal killed (a crash, an OOM kill) is a cause, while one that
+        # exited with an error in the same window may be collateral (its
+        # peer's death failed its collectives): causes come first, so the
+        # host blame walks them first.
+        failed.sort(key=lambda f: not _killed_by_signal(f[2]))
         if preempt_req and not failed and preempted and \
                 exit_code in (0, -signal.SIGTERM, PREEMPTION_RC):
             # The whole gang went down under a requested preemption:

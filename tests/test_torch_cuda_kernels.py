@@ -85,11 +85,14 @@ def test_fused_stem_rejects_device_mismatch(cuda_device):
 # a kernel wrong on every late tile (test_flash_row_check_catches_...).
 O_TOL, ML_TOL = 2e-2, 1e-4
 ROW_RTOL, ROW_ATOL = 2 ** -6, 2 ** -8
+# f32 operands (the FFMA kernels): chip_smoke.py's FLASH_F32_ROW_* and
+# their reasons.
+F32_ROW_RTOL, F32_ROW_ATOL = 2 ** -16, 2 ** -16
 
 
-def _flash_inputs(bh, t, d, seed):
+def _flash_inputs(bh, t, d, seed, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn((bh, t, d), generator=g).to(torch.bfloat16).cuda()
+    return [torch.randn((bh, t, d), generator=g).to(dtype).cuda()
             for _ in range(4)]
 
 
@@ -99,11 +102,11 @@ def _rel_to_one(a, b):
         both, 0.0).max().item()
 
 
-def _row_ratio(a, b):
+def _row_ratio(a, b, rtol=ROW_RTOL, atol=ROW_ATOL):
     """The worst row's error over its limit (passes at <= 1)."""
     a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
     err, ref = (a - b).norm(dim=-1), b.norm(dim=-1)
-    limit = ROW_RTOL * ref + ROW_ATOL * ref.median()
+    limit = rtol * ref + atol * ref.median()
     return torch.where(err == 0, 0.0, err / limit).max().item()
 
 
@@ -184,10 +187,47 @@ def test_flash_function_gradients_match_plain_route(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_kernels_reject_float32(cuda_device):
-    x = torch.zeros((1, 64, 2, 64), device="cuda")
-    with pytest.raises(TypeError, match="float32"):
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("bh,t,d,causal,segs", [
+    (8, 256, 128, True, None),
+    (4, 320, 256, True, None),
+    (4, 192, 256, False, ([64, 64, 40, 24], [64, 64, 64])),
+    (4, 320, 80, True, None),
+    (2, 40, 96, True, None),
+    (2, 256, 16, True, None),
+])
+def test_flash_instances_match_plain_versions(cuda_device, dtype, bh, t, d,
+                                              causal, segs):
+    """The f16 (Hopper) and f32 (FFMA) instances and head dims 256, 80
+    and 96 (padded to 128): o, dq, dk and dv in the operands' dtype, row
+    by row against the plain versions (f32 at F32_ROW_*)."""
+    q, k, v, do = _flash_inputs(bh, t, d, seed=t + d, dtype=dtype)
+    qs = ks = None
+    if segs is not None:
+        qs, ks = _seg(bh // 2, segs[0]), _seg(bh // 2, segs[1])
+    sc = d ** -0.5
+    o, m, l = fa._fwd_parts(q, k, v, qs, ks, causal, sc)
+    ro, rm, rl = fa._fwd_parts_plain(q, k, v, qs, ks, causal, sc)
+    got = (o,) + fa._bwd_parts(q, k, v, ro, do, rm, rl, qs, ks, causal, sc)
+    want = (ro,) + fa._bwd_parts_plain(q, k, v, ro, do, rm, rl, qs, ks,
+                                       causal, sc)
+    torch.cuda.synchronize()
+    lim = (F32_ROW_RTOL, F32_ROW_ATOL) if dtype == torch.float32 else ()
+    assert _rel_to_one(m, rm) <= ML_TOL and _rel_to_one(l, rl) <= ML_TOL
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert _row_ratio(a, b, *lim) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_float64(cuda_device):
+    """f64 and head dims above 256 raise before any launch."""
+    x = torch.zeros((1, 64, 2, 64), device="cuda", dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
         fa.flash_attention(x, x, x)
+    y = torch.zeros((1, 64, 2, 272), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 272"):
+        fa.flash_attention(y, y, y)
 
 
 @pytest.mark.cuda

@@ -12,16 +12,22 @@ plain versions on the card (``tests/test_torch_cuda_kernels.py``,
 ``chip_smoke.py``).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from horovod_tpu.models import transformer as jtfm
 from horovod_tpu.ops import flash_attention as jfa
 from horovod_tpu.parallel.sequence import local_attention as jax_local
+from horovod_tpu_torch.models import convert
+from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import flash_attention as tfa
 from horovod_tpu_torch.parallel.sequence import local_attention
+from torch_support import flash_kernels_as_plain
 
 FWD_TOL = 2e-5
 GRAD_TOL = 2e-4
@@ -266,13 +272,20 @@ def test_shape_and_dtype_errors(bad, match):
 
 def test_kernel_wrapper_checks_run_before_any_launch():
     """What the CUDA kernels refuse, checked before any launch (the
-    wrapper's checks run on any device)."""
-    x = torch.zeros((1, 64, 2, 16))
-    with pytest.raises(TypeError, match="bfloat16.*float32"):
+    wrapper's checks run on any device): f64 and head dims above 256.
+    f32 and a head dim between the kernels' (48) get a plan instead: f32's
+    kernels, the operands padded with zero columns to 64."""
+    x = torch.zeros((1, 64, 2, 16), dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64.*x64"):
         tfa._kernel_operands(x, x, x)
-    y = torch.zeros((1, 64, 2, 48), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 48"):
+    y = torch.zeros((1, 64, 2, 272), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 272.*up to 256"):
         tfa._kernel_operands(y, y, y)
+    w = torch.randn((1, 64, 2, 48), generator=torch.Generator().manual_seed(0))
+    assert tfa._kernel_plan(w.dtype, 48) == ("f32", 64)
+    out = tfa._kernel_operands(w, w, w)
+    assert all(o.shape == (1, 64, 2, 64) and o.is_contiguous() for o in out)
+    assert torch.equal(out[0][..., :48], w) and not out[0][..., 48:].any()
     z = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="one shape"):
         tfa._kernel_operands(z, z[:, :32], z)
@@ -293,3 +306,197 @@ def test_unsupported_device_raises():
     q = torch.zeros((1, 64, 2, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa.flash_attention(q, q, q, True, None, 32, 32)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' whole input domain: f32 and f16 operands, head dims up to
+# 256 (16, 32, 64, 128 and 256 run their own instances; others pad).
+# ---------------------------------------------------------------------------
+
+WIDE_DIMS = (16, 80, 96, 256)
+_NP_DT = {"float32": np.float32, "float16": np.float16}
+_JNP_DT = {"float32": jnp.float32, "float16": jnp.float16}
+_TORCH_DT = {"float32": torch.float32, "float16": torch.float16}
+# f16 operands: both sides upcast to f32, accumulate there (in different
+# orders) and round o and the gradients to f16, whose half ulp is a
+# relative 2^-11 = 4.9e-4; the backward takes di from each side's own f16
+# o, so an o that rounds the other way moves a gradient by about an ulp
+# more.  Read on the CPU: o 3.0e-4, gradients 4.8e-4 (of 1 + |ref|).
+F16_TOL = 1e-3
+F16_GRAD_TOL = 2e-3
+
+
+def _tol(dtype, grad=False):
+    if dtype == "float32":
+        return GRAD_TOL if grad else FWD_TOL
+    return F16_GRAD_TOL if grad else F16_TOL
+
+
+def _wide_inputs(dtype, d, t=64, h=2):
+    """q, k, v and the cotangent's weights w, [1, T, H, D], numpy."""
+    rs = np.random.default_rng(d)
+    return [rs.standard_normal((1, t, h, d)).astype(_NP_DT[dtype])
+            for _ in range(4)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wide(dtype, d, causal=True):
+    """The JAX kernel (interpret mode) on ``_wide_inputs``: o and the
+    gradients of sum(o * w) (f32 numpy), computed once per case."""
+    q, k, v, w = (jnp.asarray(x) for x in _wide_inputs(dtype, d))
+    seg = jnp.asarray(_segments(1, [40, 24]))
+
+    def fn(q, k, v):
+        return jfa.flash_attention(q, k, v, causal, None, 32, 32, True,
+                                   segment_ids=seg)
+
+    @jax.jit
+    def run(q, k, v, w):
+        o, vjp = jax.vjp(fn, q, k, v)
+        return (o,) + vjp(w)
+
+    return [np.asarray(x, dtype=np.float32) for x in run(q, k, v, w)]
+
+
+def _port_wide(dtype, d, causal=True):
+    q, k, v, w = (torch.from_numpy(x) for x in _wide_inputs(dtype, d))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = tfa.flash_attention(*leaves, causal=causal, block_q=32, block_k=32,
+                            segment_ids=torch.from_numpy(_segments(1, [40,
+                                                                       24])))
+    grads = torch.autograd.grad(o, leaves, w)
+    assert o.dtype == _TORCH_DT[dtype]
+    assert all(g.dtype == _TORCH_DT[dtype] for g in grads)
+    return [x.detach().float().numpy() for x in (o,) + grads]
+
+
+def _assert_wide(got, want, dtype, what):
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        tol = _tol(dtype, grad=name != "o")
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol,
+                                   err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_f32_and_f16_match_jax_at_every_head_dim(dtype, d):
+    """The CPU route in f32 and f16 at D 16, 80, 96 and 256, packed and
+    causal: o and the gradients against the JAX kernel, in the operands'
+    dtype."""
+    _assert_wide(_port_wide(dtype, d), _jax_wide(dtype, d), dtype,
+                 f"{dtype} D={d}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("d", [80, 96])
+def test_padded_route_matches_jax(monkeypatch, dtype, d):
+    """The card's route at a head dim between the kernels': the operands
+    reach the kernel calls padded with zero columns to 128, with the
+    scale of the true head dim, and the outputs come back sliced, equal to
+    the JAX kernel's (the kernel calls run the plain versions here)."""
+    seen = flash_kernels_as_plain(monkeypatch)
+    inst = {"float32": "f32", "float16": "f16"}[dtype]
+    before = {k: c.count for k, c in tfa.instance_launches.items()}
+    got = _port_wide(dtype, d)
+    assert seen == [(kind, inst, (1, 64, 2, 128))
+                    for kind in ("fwd", "bwd_dq", "bwd_dkv")]
+    moved = {k: c.count - before[k] for k, c in
+             tfa.instance_launches.items() if c.count != before[k]}
+    assert moved == {(kind, inst, 128): 1
+                     for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+    _assert_wide(got, _jax_wide(dtype, d), dtype, f"padded {dtype} D={d}")
+
+
+@pytest.mark.parametrize("dtype,inst", [(torch.bfloat16, "bf16"),
+                                        (torch.float16, "f16"),
+                                        (torch.float32, "f32")])
+def test_kernel_plan_covers_every_head_dim(dtype, inst):
+    """Every head dim from 1 to 256 takes the dtype's kernels at the
+    smallest kernel head dim that holds it; 257 and up raise."""
+    for d in range(1, 257):
+        want = min(x for x in tfa.KERNEL_HEAD_DIMS if x >= d)
+        assert tfa._kernel_plan(dtype, d) == (inst, want), d
+    for d in (257, 272, 512):
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            tfa._kernel_plan(dtype, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32,
+                                   torch.complex64])
+def test_kernel_plan_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        tfa._kernel_plan(dtype, 64)
+
+
+# The slice as a whole: a small LM whose heads are 256 wide (d 512, 2
+# heads, 1 layer, T 32), through the flash route in f32 and f16.
+WIDE_LM = dict(vocab_size=64, d_model=512, n_heads=2, n_layers=1, d_ff=128,
+               max_seq=32)
+# f16: the activations round to f16 at every layer, on each side after its
+# own matmul order (XLA's against PyTorch's), so the logits and the
+# gradients differ by a few f16 ulps (read on the CPU: 1.0e-3 of 1 +
+# |ref|, the logits the worst); f32: test_torch_transformer.py's 1e-4.
+WIDE_LM_TOL = {"float32": 1e-4, "float16": 4e-3}
+
+
+def _wide_lm_params(seed=0):
+    rng = np.random.default_rng(seed)
+    d, f = WIDE_LM["d_model"], WIDE_LM["d_ff"]
+
+    def dense(shape, scale=None):
+        return (rng.standard_normal(shape) * (scale or shape[0] ** -0.5)
+                ).astype(np.float32)
+
+    def norm():
+        return (1.0 + 0.2 * rng.standard_normal(d)).astype(np.float32)
+
+    return {
+        "embed": dense((WIDE_LM["vocab_size"], d), 0.02),
+        "pos": dense((WIDE_LM["max_seq"], d), 0.02),
+        "ln_f_scale": norm(),
+        "layers": [{"ln1_scale": norm(), "ln2_scale": norm(),
+                    "wq": dense((d, d)), "wk": dense((d, d)),
+                    "wv": dense((d, d)), "wo": dense((d, d)),
+                    "w1": dense((d, f)), "w2": dense((f, d))}
+                   for _ in range(WIDE_LM["n_layers"])],
+    }
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_lm_with_256_wide_heads_matches_jax(dtype):
+    """The port's LM (weights carried from the flax tree by
+    ``models/convert.py``) against the JAX package's, both with
+    ``attention="flash"``: logits and the gradients of the loss."""
+    params = _wide_lm_params()
+    t = WIDE_LM["max_seq"]
+    toks = np.random.default_rng(1).integers(0, 64, (2, t + 1)).astype(
+        np.int32)
+    tokens, labels = toks[:, :-1], toks[:, 1:]
+    jcfg = jtfm.TransformerConfig(dtype=_JNP_DT[dtype], **WIDE_LM)
+    tcfg = tfm.TransformerConfig(dtype=_TORCH_DT[dtype], **WIDE_LM)
+    assert tcfg.d_model // tcfg.n_heads == 256
+
+    def jloss(p):
+        logits = jtfm.forward(p, jnp.asarray(tokens), jcfg,
+                              attention="flash")
+        return jtfm.xent(logits, jnp.asarray(labels)), logits
+
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    (_, jlogits), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jparams)
+    model = tfm.TransformerLM(tcfg, device="cpu")
+    model.load_state_dict(convert.lm_params_to_torch(params))
+    leaves = dict(convert.lm_ordered_parameters(model))
+    logits = tfm.forward(model.tree(), torch.from_numpy(tokens), tcfg,
+                         attention="flash")
+    grads = torch.autograd.grad(
+        tfm.xent(logits, torch.from_numpy(labels)), list(leaves.values()))
+    tol = WIDE_LM_TOL[dtype]
+    np.testing.assert_allclose(logits.detach().float().numpy(),
+                               np.asarray(jlogits, dtype=np.float32),
+                               rtol=tol, atol=tol)
+    want = convert.lm_params_to_torch(jax.tree_util.tree_map(
+        lambda g: np.asarray(g, dtype=np.float32), jgrads))
+    for (name, _), g in zip(leaves.items(), grads):
+        np.testing.assert_allclose(g.float().numpy(), want[name],
+                                   rtol=tol, atol=tol, err_msg=name)

@@ -427,6 +427,31 @@ if attempt == "0" and rank == 1:
 '''
 
 
+def test_a_rank_a_signal_killed_is_blamed_before_its_collateral(
+        monkeypatch):
+    """Both ranks are found dead at one poll: rank 1 SIGKILLed itself,
+    then rank 0 exited with an error, as a rank whose peer died does.
+    Rank 1 stays a failure of its own (the teardown that rank 0, seen
+    first, starts does not excuse a rank already dead), and the report
+    names it first, so the host blame walks it first.  Under load the
+    launcher's poll can find both dead at once; it then blamed rank 0's
+    host alone (tests/test_torch_chaos.py's crash gate)."""
+    monkeypatch.setattr(launch, "_POLL_SECONDS", 5.0)
+    script = ("import os, signal, time\n"
+              "rank = int(os.environ['HOROVOD_RANK'])\n"
+              "time.sleep(0.6 - 0.4 * rank)\n"
+              "os.kill(os.getpid(), signal.SIGKILL) if rank else "
+              "os._exit(1)\n")
+    infos = [hosts.RankInfo(r, 2, r, 2, 0, 1, "localhost") for r in (0, 1)]
+    envs = [dict(os.environ, HOROVOD_RANK=str(r)) for r in (0, 1)]
+    report = {}
+    rc = launch.launch_job(infos, [sys.executable, "-c", script], envs,
+                           report=report, install_signal_handlers=False)
+    assert rc == 1
+    assert report["failed"] == [(1, "localhost", -signal.SIGKILL),
+                                (0, "localhost", 1)]
+
+
 def test_an_elastic_restart_relaunches_at_a_fresh_rendezvous(tmp_path):
     script = tmp_path / "restart.py"
     script.write_text(RESTART)

@@ -32,7 +32,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from horovod_tpu.parallel import sequence as jseq
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import sequence as sq
-from torch_support import start_port_job
+from torch_support import flash_kernels_as_plain, start_port_job
 
 B, T, H, D, N = 2, 64, 4, 16, 4
 TL = T // N
@@ -272,16 +272,59 @@ def test_ring_flash_launch_plan(results, monkeypatch, causal, packed):
 
 
 @pytest.mark.parametrize("dtype,d,err", [
-    (torch.float32, 16, TypeError), (torch.bfloat16, 24, ValueError)])
+    (torch.float64, 16, TypeError), (torch.bfloat16, 272, ValueError)])
 def test_ring_flash_refuses_what_the_kernels_refuse(monkeypatch, dtype, d,
                                                     err):
-    """On the card's route f32 inputs and head dims outside 16-128 raise
-    as ``flash_attention`` does; nothing falls back to a plain version."""
+    """On the card's route f64 inputs and head dims above 256 raise as
+    ``flash_attention`` does, before any block moves; nothing falls back
+    to a plain version."""
     monkeypatch.setattr(fa, "_route", lambda x: "cuda")
     q = torch.zeros((1, 16, 2, d), dtype=dtype)
     with pytest.raises(err):
         sq.VirtualAxis(2).run(lambda ax: sq.ring_flash_attention(
             q, q, q, ax))
+
+
+def test_ring_flash_f32_on_the_cards_route_matches_jax(monkeypatch):
+    """Ring-flash in f32 at 2 virtual ranks on the card's route, causal and
+    packed, head dim 80: every launch takes the f32 kernels at head dim
+    128 (the plan pads; the kernel calls compute with the plain versions
+    here), 1 + i of each kernel on rank i, and o and the gradients equal
+    JAX ``ring_flash_attention`` on 2 CPU devices (interpret mode)."""
+    n, h, d = 2, 2, 80
+    tl, scale = T // n, d ** -0.5
+    rng = np.random.default_rng(9)
+    x = dict(zip("qkvw", (rng.standard_normal((B, T, h, d)).astype(
+        np.float32) for _ in range(4))))
+    x["seg"] = np.zeros((B, T), np.int32)
+    x["seg"][:, 40:] = 1            # a border inside shard 1
+    want_o, want_g = _jax_case(x, "ring_flash", True, True,
+                               Mesh(np.array(jax.devices()[:n]), ("seq",)))
+    seen = flash_kernels_as_plain(monkeypatch)
+    t = {name: torch.from_numpy(a) for name, a in x.items()}
+
+    def rank(ax):
+        sl = slice(ax.index * tl, (ax.index + 1) * tl)
+        q, k, v, w, seg = (t[name][:, sl] for name in ("q", "k", "v", "w",
+                                                       "seg"))
+        with torch.no_grad():
+            o = sq.ring_flash_attention(q, k, v, ax, True,
+                                        segment_ids=seg)
+        o2, res = sq._ring_flash_fwd(q, k, v, ax, True, scale, seg)
+        assert torch.equal(o, o2) and o.dtype == torch.float32
+        return (o,) + sq._ring_flash_bwd(ax, True, scale, res, w)
+
+    outs = sq.VirtualAxis(n).run(rank)
+    got = [torch.cat([o[j] for o in outs], 1).numpy() for j in range(4)]
+    assert {(kind, inst, shape[-1]) for kind, inst, shape in seen} == {
+        (kind, "f32", 128) for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+    launches = [kind for kind, _, _ in seen]
+    assert (launches.count("fwd"), launches.count("bwd_dq"),
+            launches.count("bwd_dkv")) == (2 * 3, 3, 3)
+    np.testing.assert_allclose(got[0], want_o, rtol=TOL, atol=TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], want_g):
+        np.testing.assert_allclose(a, b, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
 
 
 def test_ulysses_heads_must_divide_the_axis():

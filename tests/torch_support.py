@@ -23,6 +23,8 @@
 * ``caplog``: pytest's, whose handler also hangs on the port's root
   logger: that logger does not propagate (``utils/logging.py``, as the
   reference's does not), so pytest's root handler never sees its records.
+* :func:`flash_kernels_as_plain` runs the flash wrappers as on the card,
+  with each kernel call computed by the plain version.
 
 Test modules import the fixtures by name.
 """
@@ -247,3 +249,47 @@ def assert_rounds_like_reference(got, ref, truth, floor, what=""):
     assert err <= max(2 * ref_err, floor), (
         f"{what}: the port's error {err:.4g} against f64 exceeds twice the "
         f"reference's {ref_err:.4g} (and {floor})")
+
+
+def flash_kernels_as_plain(monkeypatch) -> list:
+    """The flash attention wrappers as if the tensors lay on the card: the
+    route says "cuda", and each kernel call (``_run_fwd``, ``_run_dq``,
+    ``_run_dkv``, reached after the plan, the padding and the layout
+    checks) computes with the plain version on the operands it was handed.
+    Returns the list of ``(kernel, instance, operand shape)`` the calls
+    saw, in order."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    plain_fwd, plain_dq, plain_dkv = (fa._fwd_parts_plain, fa._bwd_dq_plain,
+                                      fa._bwd_dkv_plain)
+    seen = []
+
+    def fold(x):
+        return fa._fold(x) if x.dim() == 4 else x
+
+    def unfold(y, like):
+        return fa._unfold(y, like.shape[0], like.shape[2]) \
+            if like.dim() == 4 else y
+
+    def run_fwd(inst, q, k, v, qseg, kseg, causal, scale):
+        seen.append(("fwd", inst, tuple(q.shape)))
+        o, m, l = plain_fwd(fold(q), fold(k), fold(v), qseg, kseg, causal,
+                            scale)
+        return unfold(o, q), m[:, 0], l[:, 0]
+
+    def run_dq(inst, q, k, v, o, do, m, l, qseg, kseg, causal, scale):
+        seen.append(("bwd_dq", inst, tuple(q.shape)))
+        return unfold(plain_dq(*map(fold, (q, k, v, o, do)), m, l, qseg,
+                               kseg, causal, scale), q)
+
+    def run_dkv(inst, q, k, v, o, do, m, l, qseg, kseg, causal, scale):
+        seen.append(("bwd_dkv", inst, tuple(q.shape)))
+        dk, dv = plain_dkv(*map(fold, (q, k, v, o, do)), m, l, qseg, kseg,
+                           causal, scale)
+        return unfold(dk, q), unfold(dv, q)
+
+    monkeypatch.setattr(fa, "_route", lambda x: "cuda")
+    monkeypatch.setattr(fa, "_run_fwd", run_fwd)
+    monkeypatch.setattr(fa, "_run_dq", run_dq)
+    monkeypatch.setattr(fa, "_run_dkv", run_dkv)
+    return seen
