@@ -28,8 +28,9 @@ any failure ends the run with a traceback and a non-zero exit:
    96 (non-causal with a fully masked row, segments, ragged T, tiles cut
    by T), f32 within FLASH_F32_ROW_*; the autograd Function's output and
    gradients against the plain versions in every dtype; and each
-   instance's time beside its bound (f32 at the FFMA rate), its plain
-   version's and ``scaled_dot_product_attention``'s in the same dtype;
+   instance's time beside its bound (f32 at the three-pass TF32 rate),
+   its plain version's and ``scaled_dot_product_attention``'s in the same
+   dtype;
 7. LM main path: the transformer-LM benchmark of record (``bench.py``'s
    d3072/L10/H24, T 2048, batch 4, flash attention, bf16 momentum) for 2
    warmup and 10 timed steps, with the flash launch counts read around it;
@@ -326,6 +327,11 @@ LM_WMMA_LOSSES = (10.997063, 10.953733)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# The f32 flash rows' rate: f32-accurate products on the tensor cores as
+# three TF32 passes (dense TF32 495e12 / 3), the least time the card takes
+# for them (flash_attention_f32.cu's forward and dK/dV run so; its FFMA dQ
+# reads a smaller share of this bound than of F32_OPS_PER_S's).
+TF32X3_OPS_PER_S = 495e12 / 3
 # Flash tolerances (bf16 operands, f32 accumulation).  o, dq, dk and dv
 # are held row by row, a row being the D values of one (batch*head,
 # position):  ||a_r - b_r|| <= FLASH_ROW_RTOL * ||b_r|| + FLASH_ROW_ATOL *
@@ -340,8 +346,8 @@ FLASH_ROW_RTOL = 2 ** -6
 FLASH_ROW_ATOL = 2 ** -8
 FLASH_O_TOL = 2e-2
 FLASH_ML_TOL = 1e-4
-# f16 operands are held to bf16's limits.  f32 operands (the FFMA kernels
-# of flash_attention_f32.cu, the plain versions with TF32 off): the same
+# f16 operands are held to bf16's limits.  f32 operands (the kernels of
+# flash_attention_f32.cu, the plain versions with TF32 off): the same
 # row form 1024x tighter in its relative term, far above f32 summation
 # noise over T 2048 (about 3e-6 of a row).  Its floor is 256x tighter: dq
 # of a causal row's first query is 0 in exact arithmetic (its one key
@@ -349,6 +355,8 @@ FLASH_ML_TOL = 1e-4
 # noise there, 3.9e-6 (kernel) and 4.6e-6 (plain) from an f64 reference at
 # [96, 2048, 128] (``--flash-f32-readings`` on the H100); against a floor
 # of 2^-18 the kernel's row 0 read 1.75x its limit, against 2^-16 0.44x.
+# The tensor-core forward and dK/dV (three TF32 passes) read at most 0.27x
+# there and at [48, 2048, 256], as far from f64 as the plain versions.
 FLASH_F32_ROW_RTOL = 2 ** -16
 FLASH_F32_ROW_ATOL = 2 ** -16
 # Phase 6's instances beyond bf16 at the LM's head dim, each at the shape
@@ -1284,9 +1292,10 @@ def phase_flash_check() -> list:
 def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
     """The kernels' rows of the kernels line at ``[B, T, H, D]`` in
     ``dtype`` (causal, the main path's layout, read in place): each
-    kernel's ms beside its plain version's, its bound (f32 at the card's
-    FFMA rate, bf16 and f16 at the tensor cores') and SDPA's in the same
-    dtype; ``errs`` are the main-shape case's errors."""
+    kernel's ms beside its plain version's, its bound (f32 at the
+    three-pass TF32 rate, bf16 and f16 at the tensor cores') and SDPA's in
+    the same dtype; ``errs`` are the main-shape case's errors.  The f32
+    forward and dK/dV rows name the tensor-core kernels (tf32x3)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -1342,8 +1351,10 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
             ("fwd", "flash_attention_fwd", 108, errs["o"]),
             ("dq", "flash_attention_bwd_dq", 173, errs["dq_abs"]),
             ("dkv", "flash_attention_bwd_dkv", 226, errs["dkv_abs"])):
-        bound_ms, bound_by = _bound(*work[key], F32_OPS_PER_S if f32
+        bound_ms, bound_by = _bound(*work[key], TF32X3_OPS_PER_S if f32
                                     else BF16_OPS_PER_S)
+        if f32 and key != "dq":
+            name += "_tf32x3"
         rows.append({
             "name": name + suffix, "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/flash_attention" +

@@ -1,6 +1,6 @@
 // Flash attention for Hopper: the forward, dQ and dK/dV kernels, bf16 or
 // f16 in (one instance of each kernel per element type and head dim), f32
-// softmax state and accumulation.  f32 operands take the FFMA kernels of
+// softmax state and accumulation.  f32 operands take the kernels of
 // flash_attention_f32.cu.
 //
 // Replaces the three TPU kernels of horovod_tpu/ops/flash_attention.py:
@@ -1023,33 +1023,13 @@ Geometry make_geometry(int H, int seg_heads, int T, long long sb,
   return g;
 }
 
-// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
-// address, so the library links no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // A 4-D map (d, t, h, b) over one operand, boxes of [rows, BOX] with the
 // head dim's swizzle; rows past T read as zeros.  The folded [B*H, T, D]
 // layout is H = 1 (its head stride is never stepped: any legal value).
 template <int D, typename E>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int BH,
                      const Geometry& g, int rows) {
-  auto encode = tensor_map_encoder();
+  auto encode = hop::tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   using S = hop::Swizzle<D>;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)g.T, (cuuint64_t)g.H,

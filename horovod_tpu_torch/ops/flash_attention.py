@@ -30,15 +30,16 @@ Contract, as the reference's:
 
 The kernels take every float dtype the reference's kernels take, at any
 head dim up to 256 (``_kernel_plan``): bf16 and f16 run the Hopper
-kernels, f32 the FFMA kernels of ``csrc/flash_attention_f32.cu`` (f32
-products, as the reference multiplies its f32-upcast operands).  Head
-dims 16, 32, 64, 128 and 256 have instances of their own; any other
-``D <= 256`` is padded with zero columns to the next one (zero columns of
-q and k leave the scores unchanged, those of v give zero columns of o),
-with the caller's scale, and the outputs are sliced back.  ``o``, ``dq``,
-``dk`` and ``dv`` come back in the operands' dtype, ``m`` and ``l`` in
-f32.  f64 and ``D > 256`` on the card raise; nothing on a CUDA tensor
-falls back to the plain versions.
+kernels, f32 those of ``csrc/flash_attention_f32.cu`` (products to about
+f32 accuracy, as the reference multiplies its f32-upcast operands: the
+forward and dK/dV in three TF32 passes on the tensor cores, dQ in
+FFMA).  Head dims 16, 32, 64, 128 and 256 have instances of their own;
+any other ``D <= 256`` is padded with zero columns to the next one (zero
+columns of q and k leave the scores unchanged, those of v give zero
+columns of o), with the caller's scale, and the outputs are sliced back.
+``o``, ``dq``, ``dk`` and ``dv`` come back in the operands' dtype, ``m``
+and ``l`` in f32.  f64 and ``D > 256`` on the card raise; nothing on a
+CUDA tensor falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ NEG_INF = float("-inf")
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 # The instance of each dtype the kernels take: bf16 and f16 run the Hopper
 # kernels of csrc/flash_attention.cu, f32 those of
-# csrc/flash_attention_f32.cu.
+# csrc/flash_attention_f32.cu (three TF32 passes; dQ in FFMA).
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16",
                  torch.float32: "f32"}
 # Launches by (kernel, instance, kernel head dim), beside the totals above:

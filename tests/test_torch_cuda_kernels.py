@@ -85,8 +85,8 @@ def test_fused_stem_rejects_device_mismatch(cuda_device):
 # a kernel wrong on every late tile (test_flash_row_check_catches_...).
 O_TOL, ML_TOL = 2e-2, 1e-4
 ROW_RTOL, ROW_ATOL = 2 ** -6, 2 ** -8
-# f32 operands (the FFMA kernels): chip_smoke.py's FLASH_F32_ROW_* and
-# their reasons.
+# f32 operands (flash_attention_f32.cu's kernels): chip_smoke.py's
+# FLASH_F32_ROW_* and their reasons.
 F32_ROW_RTOL, F32_ROW_ATOL = 2 ** -16, 2 ** -16
 
 
@@ -198,9 +198,9 @@ def test_flash_function_gradients_match_plain_route(cuda_device):
 ])
 def test_flash_instances_match_plain_versions(cuda_device, dtype, bh, t, d,
                                               causal, segs):
-    """The f16 (Hopper) and f32 (FFMA) instances and head dims 256, 80
-    and 96 (padded to 128): o, dq, dk and dv in the operands' dtype, row
-    by row against the plain versions (f32 at F32_ROW_*)."""
+    """The f16 (Hopper) and f32 (TF32x3, FFMA dQ) instances and head dims
+    256, 80 and 96 (padded to 128): o, dq, dk and dv in the operands'
+    dtype, row by row against the plain versions (f32 at F32_ROW_*)."""
     q, k, v, do = _flash_inputs(bh, t, d, seed=t + d, dtype=dtype)
     qs = ks = None
     if segs is not None:
@@ -252,7 +252,7 @@ PLANTED_FAULTS = {
     "fwd_drops_diagonal_k_tile": (
         "const int kend = causal ? min(T, q0 + FWD_BR) : T;",
         "const int kend = causal ? min(T, q0 + FWD_BR) - (q0 >= 1024) * "
-        "FWD_BC : T;"),
+        "BC : T;"),
     # dK/dV starts one q tile late: it skips the diagonal tile.
     "dkv_starts_one_q_tile_late": (
         "return causal ? k0 / DKV_BQ : 0;",
