@@ -284,7 +284,9 @@ Other modes: ``--avg-pool-check`` prints phase 18 (a)'s average-pool
 check ungated; ``--inception-readings`` prints Inception-v3's f32 step
 distances that set phase 18 (a)'s limits; ``--flash-f32-readings`` the
 f32 flash kernels' worst rows and their distances from f64 that set
-FLASH_F32_ROW_ATOL.
+FLASH_F32_ROW_ATOL; ``--ptxas`` each kernel instance's registers, stack,
+spills and how many spill instructions sit in a loop
+(``_build.ptxas_report``).
 """
 
 from __future__ import annotations
@@ -329,8 +331,7 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 # The f32 flash rows' rate: f32-accurate products on the tensor cores as
 # three TF32 passes (dense TF32 495e12 / 3), the least time the card takes
-# for them (flash_attention_f32.cu's forward and dK/dV run so; its FFMA dQ
-# reads a smaller share of this bound than of F32_OPS_PER_S's).
+# for them (flash_attention_f32.cu's three kernels run so).
 TF32X3_OPS_PER_S = 495e12 / 3
 # Flash tolerances (bf16 operands, f32 accumulation).  o, dq, dk and dv
 # are held row by row, a row being the D values of one (batch*head,
@@ -1295,7 +1296,7 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
     kernel's ms beside its plain version's, its bound (f32 at the
     three-pass TF32 rate, bf16 and f16 at the tensor cores') and SDPA's in
     the same dtype; ``errs`` are the main-shape case's errors.  The f32
-    forward and dK/dV rows name the tensor-core kernels (tf32x3)."""
+    rows name the tensor-core kernels (tf32x3)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -1353,7 +1354,7 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
             ("dkv", "flash_attention_bwd_dkv", 226, errs["dkv_abs"])):
         bound_ms, bound_by = _bound(*work[key], TF32X3_OPS_PER_S if f32
                                     else BF16_OPS_PER_S)
-        if f32 and key != "dq":
+        if f32:
             name += "_tf32x3"
         rows.append({
             "name": name + suffix, "route": "cuda",
@@ -1434,6 +1435,13 @@ def flash_f32_readings() -> None:
                   f"distance from f64 (4 batch*heads): kernel "
                   f"{ek.max().item():.3g}, plain {ep.max().item():.3g}",
                   flush=True)
+        # dq of each sequence's first query is 0 in exact arithmetic (its
+        # one visible key is itself, o = v there): what is left there is
+        # the version's own rounding, over every batch*head.
+        print(f"f32 D={d} dq of the first query (0 exactly), largest row "
+              f"norm over {bh} batch*heads: kernel "
+              f"{kern[1][:, 0].norm(dim=-1).max().item():.3g}, plain "
+              f"{plain[1][:, 0].norm(dim=-1).max().item():.3g}", flush=True)
 
 
 def phase_lm_main_path(smi: str) -> tuple:
@@ -1499,37 +1507,27 @@ def _instance_counts(fa) -> dict:
 
 def phase_lm_f32(smi: str, lm7: dict) -> dict:
     """Phase 7 (b): the LM of record at f32 with ``attention="flash"``
-    through ``make_train_step`` (TF32 off), LM_F32_STEPS steps: tok/s,
-    the f32 kernels' launches (one of each a layer and step) and the
-    first loss against the same forward through the local route."""
-    import numpy as np
-
+    (TF32 off), its state by ``make_lm_bench_state``'s recipe in f32 (f32
+    momentum) as ``python -m horovod_tpu_torch.benchmark --model lm
+    --lm-dtype float32`` profiles it, LM_F32_STEPS steps: tok/s, the f32
+    kernels' launches (one of each a layer and step) and the first loss
+    against the same forward through the local route."""
+    from horovod_tpu_torch.benchmark import make_lm_bench_state
     from horovod_tpu_torch.models import transformer as tfm
-    from horovod_tpu_torch.models.convert import lm_ordered_parameters
-    from horovod_tpu_torch.optim import SGD
     from horovod_tpu_torch.ops import flash_attention as fa
-    from horovod_tpu_torch.topology import build_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     b, t = LM["batch_size"], LM["seq_len"]
-    cfg = tfm.TransformerConfig(
-        vocab_size=LM["vocab_size"], d_model=LM["d_model"],
-        n_heads=LM["n_heads"], n_layers=LM["n_layers"], d_ff=LM["d_ff"],
-        max_seq=t, dtype=torch.float32)
-    model = tfm.TransformerLM(cfg, generator=torch.Generator(
-        device="cuda").manual_seed(0), device="cuda")
-    opt = SGD([p for _, p in lm_ordered_parameters(model)], 1e-4, 0.9)
-    toks = np.random.default_rng(0).integers(
-        0, LM["vocab_size"], (b, t + 1)).astype(np.int64)
-    tokens, labels = (torch.from_numpy(x.copy()).cuda()
-                      for x in (toks[:, :-1], toks[:, 1:]))
+    st = make_lm_bench_state(**LM, compute_dtype="float32",
+                             momentum_dtype="float32")
+    model, cfg, tokens, labels = st.model, st.cfg, st.tokens, st.labels
     with torch.no_grad():
         local = float(tfm.xent(tfm.forward(model.tree(), tokens, cfg,
                                            attention="local"), labels))
-    step = tfm.make_train_step(model, opt, build_mesh(None, "cuda"),
+    step = tfm.make_train_step(model, st.optimizer, st.mesh, st.axis,
                                attention="flash")
     for c in fa.instance_launches.values():
         c.reset()
@@ -1565,7 +1563,7 @@ def phase_lm_f32(smi: str, lm7: dict) -> dict:
           f" vs local {local:.7f} (rel {rel:.3g}, limit "
           f"{LM_F32_LOSS_RTOL}); f32 flash launches "
           f"{counts[('f32', 128)]}; " + json.dumps(summary), flush=True)
-    del step, opt, model, tokens, labels
+    del step, st, model, tokens, labels
     torch.cuda.empty_cache()
     return counts
 
@@ -6072,6 +6070,16 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--flash-f32-readings"]:
         flash_f32_readings()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ptxas"]:
+        from horovod_tpu_torch.ops import _build
+        for r in _build.ptxas_report():
+            print(f"ptxas {r['source']}: {r['kernel']}: {r.get('registers')}"
+                  f" registers, {r.get('stack')} bytes stack, "
+                  f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes "
+                  f"spill stores / loads, {r['spill_ops_in_loops']} of "
+                  f"{r['spill_ops']} spill instructions in a loop; warnings "
+                  f"{r['warnings']}", flush=True)
         sys.exit(0)
     if sys.argv[1:2] == ["--avg-pool-check"]:
         avg_pool_check(gate=False)

@@ -482,16 +482,20 @@ def make_lm_bench_state(d_model: int = 2048, n_layers: int = 8,
                         batch_size: int = 8, learning_rate: float = 1e-4,
                         momentum_dtype: str = "bfloat16",
                         mesh: Optional[Mesh] = None, device=None,
-                        seed: int = 0) -> LMBenchState:
+                        seed: int = 0,
+                        compute_dtype: Optional[str] = None) -> LMBenchState:
     """The LM benchmark's state recipe (reference ``run_lm_benchmark``):
-    bf16 compute on the GPU and f32 on the CPU, f32 parameters from
+    bf16 compute on the GPU and f32 on the CPU (or ``compute_dtype``,
+    ``"bfloat16"`` or ``"float32"``), f32 parameters from
     ``torch.Generator(device).manual_seed(seed)``, SGD with momentum 0.9
     and a ``momentum_dtype`` accumulator, and this rank's rows of the
     fixed synthetic batch (numpy ``default_rng(0)`` tokens ``[B, T+1]``,
     shifted by one for the labels).  ``batch_size`` is per rank."""
-    if momentum_dtype not in _DTYPES:
-        raise ValueError(f"momentum_dtype={momentum_dtype!r}: expected one "
-                         f"of {sorted(_DTYPES)}")
+    for name, value in (("momentum_dtype", momentum_dtype),
+                        ("compute_dtype", compute_dtype)):
+        if value is not None and value not in _DTYPES:
+            raise ValueError(f"{name}={value!r}: expected one of "
+                             f"{sorted(_DTYPES)}")
     if not basics.is_initialized():
         basics.init(device=device)
     mesh = mesh if mesh is not None else basics.mesh()
@@ -504,7 +508,8 @@ def make_lm_bench_state(d_model: int = 2048, n_layers: int = 8,
     cfg = TransformerConfig(
         vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
         n_layers=n_layers, d_ff=d_ff or 4 * d_model, max_seq=seq_len,
-        dtype=torch.float32 if dev.type == "cpu" else torch.bfloat16)
+        dtype=(_DTYPES[compute_dtype] if compute_dtype is not None
+               else torch.float32 if dev.type == "cpu" else torch.bfloat16))
     model = TransformerLM(
         cfg, generator=torch.Generator(device=dev).manual_seed(seed),
         device=dev)
@@ -895,20 +900,26 @@ LM_OF_RECORD = dict(d_model=3072, n_layers=10, n_heads=24, d_ff=12288,
 
 def run_lm_profile(batch_size: int = 4, steps: int = 5, device=None,
                    top: int = 15, shard_optimizer: bool = False,
-                   compression: Optional[str] = None) -> dict:
+                   compression: Optional[str] = None,
+                   dtype: str = "bfloat16") -> dict:
     """Trace ``steps`` flash-attention training steps of the LM benchmark
     of record (:data:`LM_OF_RECORD`, :func:`run_lm_benchmark`'s recipe,
     the ZeRO-1 update and its codec as there); the flash kernels are
-    their own category.  Needs a CUDA device."""
+    their own category.  ``dtype="float32"`` computes in f32 with an f32
+    momentum, as ``chip_smoke.py``'s f32 LM of record does (its matrix
+    products in f32 unless ``torch.backends.cuda.matmul.allow_tf32``,
+    reported, is set).  Needs a CUDA device."""
     st = make_lm_bench_state(**LM_OF_RECORD, batch_size=batch_size,
-                             device=device)
+                             device=device, compute_dtype=dtype,
+                             momentum_dtype=dtype)
     step = make_lm_train_step(st.model, st.optimizer, st.mesh, st.axis,
                               attention="flash",
                               shard_optimizer=shard_optimizer,
                               compression=compression)
     out = {"model": "lm", **LM_OF_RECORD, "batch_size": batch_size,
-           "attention": "flash", "shard_optimizer": shard_optimizer,
-           "compression": compression}
+           "dtype": dtype, "attention": "flash",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "shard_optimizer": shard_optimizer, "compression": compression}
     out.update(trace_steps(lambda: step(st.tokens, st.labels),
                            st.mesh.device, steps, top))
     return out
@@ -1091,7 +1102,8 @@ def run_hierarchical_benchmark(np_ranks: int = 4,
 def build_parser():
     """The reference harness's flags (``horovod_tpu/benchmark.py:1427-
     1535``) with its defaults, less ``--transport`` and ``--coordsim``,
-    plus ``--device`` and the profiles' ``--model lm|decode``."""
+    plus ``--device``, the profiles' ``--model lm|decode`` and the LM
+    profile's ``--lm-dtype``."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -1116,6 +1128,9 @@ def build_parser():
                         choices=("conv7", "s2d", "s2d_fused"))
     parser.add_argument("--input-dtype", default="float32",
                         choices=sorted(_DTYPES))
+    parser.add_argument("--lm-dtype", default="bfloat16",
+                        choices=sorted(_DTYPES),
+                        help="the compute dtype of --model lm's profile")
     parser.add_argument("--device", default=None,
                         help="'cpu' runs on the CPU over gloo (default: "
                              "cuda:<local rank>)")
@@ -1206,8 +1221,8 @@ def _main(argv=None) -> None:
             print(json.dumps(res, indent=1), flush=True)
     elif args.model == "lm":
         print(json.dumps(run_lm_profile(
-            batch_size=args.batch_size if args.batch_size != 64 else 4),
-            indent=1), flush=True)
+            batch_size=args.batch_size if args.batch_size != 64 else 4,
+            dtype=args.lm_dtype), indent=1), flush=True)
     elif args.model == "decode":
         print(json.dumps(run_decode_profile(
             batch_size=args.batch_size if args.batch_size != 64 else 8),

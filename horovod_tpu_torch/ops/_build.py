@@ -15,8 +15,10 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Dict, List
@@ -159,3 +161,79 @@ def load(name: str) -> ctypes.CDLL:
 def built(name: str) -> bool:
     """True when ``csrc/<name>.cu`` is built for its current source."""
     return os.path.exists(_lib_path(name))
+
+
+def _spill_sites(sass: str) -> Dict[str, tuple]:
+    """Per function of ``cuobjdump -sass`` output: its spill instructions
+    (local loads and stores, LDL/STL) and how many of them lie inside a
+    loop, the addresses from a branch's target up to the branch where the
+    target lies behind it."""
+    sites = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        spills, loops = [], []
+        for m in re.finditer(r"/\*([0-9a-f]+)\*/\s+([^;]*);", body):
+            addr, ins = int(m.group(1), 16), m.group(2)
+            if re.search(r"\b(LDL|STL)\b", ins):
+                spills.append(addr)
+            b = re.search(r"\bBRA\S*\s+(0x[0-9a-f]+)", ins)
+            if b and int(b.group(1), 16) <= addr:
+                loops.append((int(b.group(1), 16), addr))
+        sites[name.strip()] = (len(spills), sum(
+            any(lo <= a <= hi for lo, hi in loops) for a in spills))
+    return sites
+
+
+def ptxas_report() -> List[dict]:
+    """Each kernel instance's registers, stack frame, spill bytes and
+    ptxas performance warnings (C7511: wgmma serialized for want of
+    registers) as ``nvcc -Xptxas -v`` reports them under ``NVCC_FLAGS``,
+    and its spill instructions in the SASS (``cuobjdump -sass``), all and
+    those inside a loop: one dict a kernel, the name demangled by
+    ``c++filt`` where the host has it.  Compiles into a temporary
+    directory; the build cache is left alone."""
+    rows = []
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in sources():
+            so = os.path.join(tmp, f"lib{name}.so")
+            out = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
+                 os.path.join(CSRC, name + ".cu")],
+                capture_output=True, text=True, check=True).stderr
+            sites = _spill_sites(subprocess.run(
+                [cuobjdump, "-sass", so], capture_output=True, text=True,
+                check=True).stdout)
+            entry, warned, mine = None, {}, []
+            for line in out.splitlines():
+                m = re.search(r"\((C\d+)\).*in the function '(\w+)'", line)
+                if m:
+                    warned.setdefault(m.group(2), []).append(m.group(1))
+                    continue
+                m = re.search(r"Compiling entry function '(\w+)'", line)
+                if m:
+                    entry = {"source": name, "kernel": m.group(1)}
+                    mine.append(entry)
+                    continue
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+                if entry is not None and m:
+                    entry.update(stack=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+                m = re.search(r"Used (\d+) registers", line)
+                if entry is not None and m:
+                    entry["registers"] = int(m.group(1))
+            for r in mine:
+                r["warnings"] = warned.get(r["kernel"], [])
+                r["spill_ops"], r["spill_ops_in_loops"] = sites.get(
+                    r["kernel"], (None, None))
+            rows += mine
+    filt = shutil.which("c++filt")
+    if filt:
+        names = subprocess.run([filt], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r["kernel"] = n
+    return rows

@@ -1,12 +1,11 @@
-// Flash attention on f32 operands, f32 softmax state: the forward and
-// dK/dV kernels on Hopper's tensor cores (three TF32 passes on wgmma), dQ
-// with every product in f32 on the CUDA cores (FFMA).
+// Flash attention on f32 operands, f32 softmax state: the forward, dQ and
+// dK/dV kernels on Hopper's tensor cores (three TF32 passes on wgmma).
 //
 // Replaces the three TPU kernels of horovod_tpu/ops/flash_attention.py on
 // f32 inputs (the kernels of flash_attention.cu take bf16 and f16):
-//   _fwd_kernel     (:108) -> flash_f32_fwd_kernel  (tensor cores)
-//   _bwd_dq_kernel  (:173) -> flash_f32_dq_kernel   (FFMA)
-//   _bwd_dkv_kernel (:226) -> flash_f32_dkv_kernel  (tensor cores)
+//   _fwd_kernel     (:108) -> flash_f32_fwd_kernel
+//   _bwd_dq_kernel  (:173) -> flash_f32_dq_kernel
+//   _bwd_dkv_kernel (:226) -> flash_f32_dkv_kernel
 // The reference upcasts its operands to f32 and multiplies them with
 // preferred_element_type=f32, so an f32 call keeps f32 products.
 //
@@ -22,24 +21,27 @@
 // so the forward's bound is 1.03e11 * 3 / 495e12 = 0.625 ms, dQ's 0.938
 // and dK/dV's 1.250; the bytes never bound them (0.21 ms at most).
 //
-// The tensor-core kernels: one block per 64 rows (q rows in the forward,
+// The three kernels: one block per 64 rows (q rows in the forward and dQ,
 // keys in dK/dV), two consumer warpgroups and a producer warpgroup that
 // gives them its registers (setmaxnreg); one block per SM.
-// * The block's own rows (Q; K and V) land once by TMA.  The forward (up
-//   to D = 128) splits Q once into shared memory and reads both operands
-//   of S = Q.K^T from there.  dK/dV, and the forward at D = 256, keep them
-//   raw: they are the A operand of the head-dim products (S^T = K.Q^T,
-//   dP^T = V.dO^T), which wgmma reads from registers, each 8-deep step's
-//   fragment loaded from the raw tile and split in registers.
-// * The streamed tiles (K and V in the forward; Q and dO in dK/dV) land by
-//   TMA in a ring of stages.  B operands come from shared memory, so the
-//   producer warpgroup writes each one's big and small parts there: a tile
-//   reduced along the head dim (K; Q and dO in S^T and dP^T) splits in
-//   place (big) with its small part beside it; a tile reduced along its
-//   rows (V in O += P.V; dO and Q in dV += P^T.dO and dK += dS^T.Q) is
-//   transposed as well, because wgmma takes tf32 operands K-major only.
-//   The producer then fences the async proxy and arrives on the stage's
-//   `full` barrier; the consumers free the stage after their products.
+// * The block's own rows (Q; K and V) land once by TMA (dQ's Q and dO are
+//   read into registers, or at D = 256 into shared memory as the threads'
+//   own fragments).  The forward (up to D = 128) splits Q once into
+//   shared memory and reads both operands of S = Q.K^T from there.  dQ,
+//   dK/dV and the forward at D = 256 keep them raw: they are the A
+//   operand of the head-dim products (S = Q.K^T and dP = dO.V^T; S^T =
+//   K.Q^T and dP^T = V.dO^T), which wgmma reads from registers, each
+//   8-deep step's fragment loaded raw and split in registers.
+// * The streamed tiles (K and V in the forward and dQ; Q and dO in dK/dV)
+//   land by TMA in a ring of stages.  B operands come from shared memory,
+//   so the producer warpgroup writes each one's big and small parts
+//   there: a tile reduced along the head dim (K in S; V in dP; Q and dO in
+//   S^T and dP^T) splits in place (big) with its small part beside it; a
+//   tile reduced along its rows (V in O += P.V; K in dQ += dS.K; dO and Q
+//   in dV += P^T.dO and dK += dS^T.Q) is transposed as well, because wgmma
+//   takes tf32 operands K-major only.  The producer then fences the async
+//   proxy and arrives on the stage's `full` barrier; the consumers free
+//   the stage after their products.
 // * S, P, the softmax state (and dS) stay in registers.  P and dS are the
 //   A operands of the second products straight from the accumulator: a
 //   thread holds accumulator columns 2t and 2t + 1 (t = lane % 4) of each
@@ -50,29 +52,24 @@
 // * Forward: the two consumer warpgroups share the block's 64 q rows and
 //   take alternate key tiles, each through its own stage and with an
 //   online softmax of its own; the two states merge at the end (at D = 256
-//   one consumer, whose O alone takes 128 registers).  dK/dV: warpgroup 0
-//   computes S^T and warpgroup 1 dP^T, they swap them through the stage's
-//   spent Q and dO tiles, and each accumulates half of dK's and dV's
-//   columns.
+//   one consumer, whose O alone takes 128 registers).  dQ: warpgroup 0
+//   computes S and warpgroup 1 dP, they swap them through the stage's
+//   spent K and V tiles, and each accumulates half of dQ's columns; di
+//   comes from the same products on the block's rows of O (the dQ
+//   section).  dK/dV: the same with S^T and dP^T, swapped through the
+//   spent Q and dO tiles, and half of dK's and dV's columns each.
 // * The tensor cores truncate when they add into an f32 accumulator, so no
 //   chain of products into one accumulator is long (PARTS).
 // * Tiles (Tiles<D>): forward key tiles of 64 (32 at D = 128, 16 at D =
-//   256), dK/dV q tiles of 32 (16 at D >= 128), two stages each.  At D =
-//   256 dK/dV keeps one stage and splits its output columns over two
-//   blocks (blockIdx.z), each computing S^T and dP^T over the whole head
-//   dim.  Shared memory (fwd_smem_bytes, dkv_smem_bytes), forward / dK/dV:
-//   D = 16 50,240 / 75,832 B; 32 99,392 / 84,024; 64 197,696 / 165,944;
-//   128 230,464 / 198,200; 256 230,464 / 230,688.
-//
-// The FFMA dQ kernel: a block of 256 threads, a 16 x 16 grid (ty, tx),
-// holds its tiles in shared memory as rows of D + 4 floats (the 4 keep a
-// float4 read of one row per thread free of bank conflicts).  Products
-// that reduce over the head dim (S = Q.K^T, dP = dO.V^T) give each thread
-// 4 rows (ty * 4 + i) by 2 columns (tx + 16 j) of a 64 x 32 tile, reading
-// both operands' rows as float4 along d; dQ += dS.K gives each thread the
-// same 4 rows by D / 16 columns (groups of VEC contiguous columns).  The
-// dS tile goes through shared memory (64 x 36 floats) between the two
-// products.  It owns 64 q rows a block and walks key tiles of 32.
+//   256) through two stages; dQ key tiles of 32 (16 at D = 256) through
+//   three stages (two at D = 128, one at 256); dK/dV q tiles of 32 (16 at
+//   D >= 128) through two.  At D = 256 dK/dV keeps one stage and splits
+//   its output columns over two blocks (blockIdx.z), each computing S^T
+//   and dP^T over the whole head dim.  Shared memory (fwd_smem_bytes,
+//   dq_smem_bytes, dkv_smem_bytes), forward / dQ / dK/dV: D = 16 50,240 /
+//   88,152 / 75,832 B; 32 99,392 / 75,864 / 84,024; 64 197,696 / 149,592
+//   / 165,944; 128 230,464 / 198,720 / 198,200; 256 230,464 / 231,464 /
+//   230,688.
 //
 // The trouble spots of flash_attention.cu hold here: -inf guards (safe_m,
 // p = 0 for a masked score, corr = 0 from an empty row, denom = 1 for l =
@@ -90,10 +87,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // a dQ block
 constexpr int BR = 64;   // q rows of a forward or dQ block; keys of dK/dV
-constexpr int BC = 32;   // keys of a dQ tile
-constexpr int LDP = BC + 4;  // row length of dQ's dS tile
 // The opt-in shared memory of one block.
 constexpr int SMEM_LIMIT = 232448;
 
@@ -112,234 +106,8 @@ __device__ __forceinline__ long long base_offset(const Geometry& g, int y) {
   return (long long)(y / g.H) * g.sb + (long long)(y % g.H) * g.sh;
 }
 
-template <int D>
-struct Cols {
-  static constexpr int LD = D + 4;                 // shared row length
-  static constexpr int VEC = D / 16 < 4 ? D / 16 : 4;
-  static constexpr int N = D / 16;                 // columns a thread holds
-  // The thread's e-th column of group n.
-  static __device__ __forceinline__ int col(int tx, int n, int e) {
-    return n * 16 * VEC + tx * VEC + e;
-  }
-};
-
-template <int VEC>
-__device__ __forceinline__ void ldv(const float* p, float (&out)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
-  } else if constexpr (VEC == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x, out[1] = x.y;
-  } else {
-    out[0] = *p;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void stv(float* p, const float (&in)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
-  } else {
-    *p = in[0];
-  }
-}
-
-// ROWS rows of an operand from device memory, starting at row r0 of the
-// batch*head at `src`, into a shared tile of rows of D + 4 floats; rows
-// past T read as zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int T, long long st) {
-  constexpr int V4 = D / 4;
-  for (int idx = threadIdx.x; idx < ROWS * V4; idx += THREADS) {
-    const int r = idx / V4, c = (idx % V4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T)
-      x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * st + c);
-    *reinterpret_cast<float4*>(dst + r * Cols<D>::LD + c) = x;
-  }
-}
-
-// acc[i][j] += a_i . b_j over the head dim: a the rows ty * 4 + i of tile
-// A, b the rows tx + 16 j of tile B (both rows of D + 4 floats).
-template <int D>
-__device__ __forceinline__ void dot_rows(float (&acc)[4][2], const float* A,
-                                         const float* B, int ty, int tx) {
-  constexpr int LD = Cols<D>::LD;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float a[4][4], b[2][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ldv<4>(A + (ty * 4 + i) * LD + d, a[i]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) ldv<4>(B + (tx + 16 * j) * LD + d, b[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[i][j] = fmaf(a[i][e], b[j][e], acc[i][j]);
-  }
-}
-
-// acc[i][.] += sum_c P[ty * 4 + i][c] * B[c][.] over the RED rows of B, for
-// this thread's columns: P a score tile (rows of LDP floats), B an operand
-// tile (rows of D + 4 floats).
-template <int D, int RED>
-__device__ __forceinline__ void accumulate(float (&acc)[4][D / 16],
-                                           const float* P, const float* B,
-                                           int ty, int tx) {
-  using C = Cols<D>;
-#pragma unroll 2
-  for (int c = 0; c < RED; c += 4) {
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ldv<4>(P + (ty * 4 + i) * LDP + c, p[i]);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-      for (int n = 0; n < C::N / C::VEC; ++n) {
-        float b[C::VEC];
-        ldv<C::VEC>(B + (c + cc) * C::LD + C::col(tx, n, 0), b);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < C::VEC; ++e)
-            acc[i][n * C::VEC + e] =
-                fmaf(p[i][cc], b[e], acc[i][n * C::VEC + e]);
-      }
-    }
-  }
-}
-
-// A sum over the 16 threads of a row (tx), in every one of them.
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Writes this thread's rows (ty * 4 + i, below T from row r0) of an
-// accumulator, times `mul`, to device memory.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst,
-                                           const float (&acc)[4][D / 16],
-                                           int r0, int T, long long st,
-                                           int ty, int tx, float mul) {
-  using C = Cols<D>;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= T) continue;
-#pragma unroll
-    for (int n = 0; n < C::N / C::VEC; ++n) {
-      float v[C::VEC];
-#pragma unroll
-      for (int e = 0; e < C::VEC; ++e) v[e] = acc[i][n * C::VEC + e] * mul;
-      stv<C::VEC>(dst + (long long)r * st + C::col(tx, n, 0), v);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// dQ: one block per (64-row q tile, batch*head); walks key tiles of 32.
-// ---------------------------------------------------------------------------
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * BR + 2 * BC) * Cols<D>::LD * 4 + BR * LDP * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_f32_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ o,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ m_in,
-                        const float* __restrict__ l_in,
-                        const int* __restrict__ qseg,
-                        const int* __restrict__ kseg, float* __restrict__ dq,
-                        Geometry g, int causal, float scale) {
-  using C = Cols<D>;
-  extern __shared__ float4 smem4[];
-  float* const sQ = reinterpret_cast<float*>(smem4);
-  float* const sdO = sQ + BR * C::LD;
-  float* const sK = sdO + BR * C::LD;
-  float* const sV = sK + BC * C::LD;
-  float* const sS = sV + BC * C::LD;
-  const int T = g.T, y = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const long long off = base_offset(g, y);
-  const int* qs = qseg ? qseg + (long long)(y / g.seg_heads) * T : nullptr;
-  const int* ks = kseg ? kseg + (long long)(y / g.seg_heads) * T : nullptr;
-
-  load_tile<D, BR>(sQ, q + off, q0, T, g.st);
-  load_tile<D, BR>(sdO, dout + off, q0, T, g.st);
-  __syncthreads();
-  // Each row's statistics: safe_m, denom (trouble spot 1) and di =
-  // rowsum(dO * O) from the stored o, summed by the row's 16 threads.
-  int row[4], my_seg[4];
-  float safe_m[4], denom[4], di[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row[i] = q0 + ty * 4 + i;
-    float m = -INFINITY, l = 0.f, part = 0.f;
-    my_seg[i] = 0;
-    if (row[i] < T) {
-      m = m_in[(long long)y * T + row[i]];
-      l = l_in[(long long)y * T + row[i]];
-      if (qs) my_seg[i] = qs[row[i]];
-      const float* orow = o + off + (long long)row[i] * g.st;
-      for (int d = tx; d < D; d += 16)
-        part = fmaf(sdO[(ty * 4 + i) * C::LD + d], orow[d], part);
-    }
-    di[i] = row_sum(part);
-    safe_m[i] = (m == -INFINITY) ? 0.f : m;
-    denom[i] = (l == 0.f) ? 1.f : l;
-  }
-
-  float acc[4][C::N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < C::N; ++n) acc[i][n] = 0.f;
-
-  const int kend = causal ? min(T, q0 + BR) : T;
-  for (int k0 = 0; k0 < kend; k0 += BC) {
-    __syncthreads();
-    load_tile<D, BC>(sK, k + off, k0, T, g.st);
-    load_tile<D, BC>(sV, v + off, k0, T, g.st);
-    __syncthreads();
-    float s[4][2] = {}, dp[4][2] = {};
-    dot_rows<D>(s, sQ, sK, ty, tx);
-    dot_rows<D>(dp, sdO, sV, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool ok = kc < T && (!causal || kc <= row[i]) &&
-                        (!ks || ks[kc] == my_seg[i]);
-        const float p = ok ? expf(s[i][j] * scale - safe_m[i]) / denom[i]
-                           : 0.f;
-        sS[(ty * 4 + i) * LDP + tx + 16 * j] = p * (dp[i][j] - di[i]);
-      }
-    __syncthreads();
-    accumulate<D, BC>(acc, sS, sK, ty, tx);
-  }
-  // The scale multiplies dQ after its products (trouble spot 3).
-  store_rows<D>(dq + off, acc, q0, T, g.st, ty, tx, scale);
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core kernels (forward and dK/dV): shared pieces
+// Shared pieces
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;  // a warpgroup: one consumer, or the producer
@@ -357,6 +125,15 @@ struct Tiles {
   static constexpr int FWD_WGS = D <= 128 ? 2 : 1;
   static constexpr int FWD_THREADS = (FWD_WGS + 1) * WG;
   static constexpr int FWD_STAGES = 2;
+  // dQ: key tiles of 32 (16 at D = 256, whose A operands take 128 KB of
+  // shared memory), three stages (two at D = 128, one at 256).
+  static constexpr int DQ_BK = D > 128 ? 16 : 32;
+  static constexpr int DQ_STAGES = D > 128 ? 1 : (D == 128 ? 2 : 3);
+  static constexpr bool DQ_A_REGS = D <= 128;
+  // dQ's consumers' registers (setmaxnreg; the producer keeps 504 - 2
+  // REGS): at D = 128, where Q or dO takes 64 of them, 232 (224 spilled
+  // more), 224 elsewhere (the producer's 40 would spill below D = 64).
+  static constexpr int DQ_REGS = D == 128 ? 232 : 224;
   static constexpr int DKV_BQ = D >= 128 ? 16 : 32;
   static constexpr int DKV_COLS = D > 128 ? 128 : D;  // dK/dV columns a block
   static constexpr int DKV_STAGES = D > 128 ? 1 : 2;
@@ -455,14 +232,41 @@ __device__ __forceinline__ void a_fragment(const unsigned char* tile, int kk,
   hop::tf32_split(tile_at<D, BR>(tile, r + 8, c + 4), big[3], small[3]);
 }
 
+// The swap of the two consumer warpgroups' [64, R] products (S and dP in
+// dQ, S^T and dP^T in dK/dV): each writes its product in its threads' own
+// order (the two warpgroups' fragments match) over the pair of [R, D]
+// tiles its product read, or, where those are smaller (D = 16), into a
+// slot of its own at the end of the stage, and reads the other's.
+__host__ __device__ constexpr int swap_bytes(int rows) {
+  return BR * rows * 4;
+}
+
+__host__ __device__ constexpr bool swap_in_tiles(int D) {
+  return 2 * D >= BR;
+}
+
+// The producer's statistics of R q rows (dQ's block, a dK/dV q tile):
+// safe_m, denom, di (from the stored o) and the q-side segment id (0
+// without segments).
+template <int R>
+struct RowStats {
+  float m[R];
+  float l[R];
+  float di[R];
+  int seg[R];
+};
+
 // The tensor cores add each product's partial sums into the f32
 // accumulator truncating, not rounding (toward zero), so a long chain of
 // products into one accumulator drifts by about its length times 2^-24 of
 // the sum: 768 products a row at T = 2048 put dK and dV rows at about
 // twice the f32 row limit (phase 6's main shape).  So no chain is long:
 // the head-dim products spread their products over PARTS fresh
-// accumulators in turn (a chain of at most 24), added in f32 (rounded) at
-// the end, and the second products start fresh each tile.
+// accumulators (a chain of at most 24; mma_head_dim_by keeps the small
+// passes apart), added in f32 (rounded) at the end, and the second
+// products start fresh each tile.  dQ's S and dP take as many as its
+// registers allow (dq_parts): dP's error is all of dS's where dP - di
+// nearly cancels (a row whose weight sits on one or two keys).
 constexpr int PARTS = 4;
 constexpr int SS_PARTS = 2;  // the forward's S, whose accumulators are wider
 // Steps of a register-A product in flight (their fragments live at once).
@@ -508,17 +312,24 @@ __device__ __forceinline__ void mma_head_dim_ss(float (&acc)[N / 2],
   }
 }
 
-// The same with A the warpgroup's raw [64, D] tile `a`, split as its
-// fragments are loaded (IN_FLIGHT steps in flight), for the tiles that keep
-// no split copy.
-template <int D, int N>
-__device__ __forceinline__ void mma_head_dim(float (&acc)[N / 2],
-                                             const unsigned char* a,
-                                             uint32_t b_big, uint32_t b_small,
-                                             int lane, int warp) {
-  static_assert(D / 8 * 3 / PARTS <= 24, "chains of at most 24 products");
+// The same with A the warpgroup's [64, D] operand in registers, its split
+// fragment of step kk given by load(kk, big, small) (IN_FLIGHT steps in
+// flight), over at most NP accumulators, for the operands that keep no
+// split copy.  The two small passes of every step go into the first
+// accumulator and the big passes in turn into the others (as many as
+// there are steps, up to NP - 1): a truncation costs a unit in the last
+// place of the larger of the accumulator and its addends, so small terms
+// added to a sum of big ones lose as much as big terms do, while in a sum
+// of their own (2^-11 of the big pass's) they lose nothing that shows.
+template <int D, int N, int NP, typename Load>
+__device__ __forceinline__ void mma_head_dim_by(float (&acc)[N / 2],
+                                                Load load, uint32_t b_big,
+                                                uint32_t b_small) {
+  constexpr int NB = NP - 1 < D / 8 ? NP - 1 : D / 8;  // big-pass sums
+  static_assert(NB >= 1 && D / 8 <= 24 * NB,
+                "big-pass chains of at most 24 products");
   uint32_t big[IN_FLIGHT][4], small[IN_FLIGHT][4];
-  float part[PARTS][N / 2];  // overwritten first, as in mma_head_dim_ss
+  float part[1 + NB][N / 2];  // overwritten first, as in mma_head_dim_ss
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
     const int f = kk % IN_FLIGHT;
@@ -528,28 +339,25 @@ __device__ __forceinline__ void mma_head_dim(float (&acc)[N / 2],
       hop::fence_regs(big);
       hop::fence_regs(small);
     }
-    a_fragment<D>(a, kk, lane, warp, big[f], small[f]);
+    load(kk, big[f], small[f]);
     const uint64_t db = hop::kmajor<D, N, 4>(b_big, 0, kk);
     const uint64_t ds = hop::kmajor<D, N, 4>(b_small, 0, kk);
     hop::wgmma_fence();
-    hop::wgmma_tf32<N>(part[(3 * kk) % PARTS], small[f], db,
-                       3 * kk >= PARTS);
-    hop::wgmma_tf32<N>(part[(3 * kk + 1) % PARTS], big[f], ds,
-                       3 * kk + 1 >= PARTS);
-    hop::wgmma_tf32<N>(part[(3 * kk + 2) % PARTS], big[f], db,
-                       3 * kk + 2 >= PARTS);
+    hop::wgmma_tf32<N>(part[0], small[f], db, kk > 0);
+    hop::wgmma_tf32<N>(part[0], big[f], ds, 1);
+    hop::wgmma_tf32<N>(part[1 + kk % NB], big[f], db, kk >= NB);
     hop::wgmma_commit();
   }
   hop::wgmma_wait_all();
   hop::fence_regs(big);
   hop::fence_regs(small);
 #pragma unroll
-  for (int c = 0; c < PARTS; ++c) hop::fence_regs(part[c]);
+  for (int c = 0; c <= NB; ++c) hop::fence_regs(part[c]);
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     acc[i] = part[0][i];
 #pragma unroll
-    for (int c = 1; c < PARTS; ++c) acc[i] += part[c][i];
+    for (int c = 1; c <= NB; ++c) acc[i] += part[c][i];
   }
 }
 
@@ -728,7 +536,12 @@ __global__ void __launch_bounds__(Tiles<D>::FWD_THREADS, 1)
     if constexpr (SPLIT)
       mma_head_dim_ss<D, FBC>(sc, sQ, sQ + Q_BYTES, sK, sK + TILE);
     else
-      mma_head_dim<D, FBC>(sc, generic(sQ), sK, sK + TILE, lane, warp);
+      mma_head_dim_by<D, FBC, PARTS>(
+          sc,
+          [&](int kk, uint32_t(&big)[4], uint32_t(&small)[4]) {
+            a_fragment<D>(generic(sQ), kk, lane, warp, big, small);
+          },
+          sK, sK + TILE);
     const bool need_mask = k0 + FBC > T || ks != nullptr ||
                            (causal && k0 + FBC - 1 > q0);
 #pragma unroll
@@ -866,35 +679,11 @@ __global__ void __launch_bounds__(Tiles<D>::FWD_THREADS, 1)
 constexpr int DKV_CONSUMERS = 2 * WG;
 constexpr int DKV_THREADS = DKV_CONSUMERS + WG;
 
-// The producer's statistics of a q tile's rows: safe_m, denom, di (from
-// the stored o) and the q-side segment id (0 without segments).
-template <int BQ>
-struct DkvStats {
-  float m[BQ];
-  float l[BQ];
-  float di[BQ];
-  int seg[BQ];
-};
-
-// The swap of S^T and dP^T: each consumer warpgroup writes its [64, BQ]
-// product (SWAP bytes) over the Q or dO pair of tiles its product read, or,
-// where those are smaller (D = 16), into a slot of its own at the end of
-// the stage.
-template <int D>
-__host__ __device__ constexpr int dkv_swap_bytes() {
-  return BR * Tiles<D>::DKV_BQ * 4;
-}
-
-template <int D>
-__host__ __device__ constexpr bool dkv_swap_in_tiles() {
-  return 2 * Tiles<D>::DKV_BQ * D * 4 >= dkv_swap_bytes<D>();
-}
-
 template <int D>
 __host__ __device__ constexpr int dkv_stage_bytes() {
   return 4 * Tiles<D>::DKV_BQ * D * 4 +
          4 * Tiles<D>::DKV_COLS * Tiles<D>::DKV_BQ * 4 +
-         (dkv_swap_in_tiles<D>() ? 0 : 2 * dkv_swap_bytes<D>());
+         (swap_in_tiles(D) ? 0 : 2 * swap_bytes(Tiles<D>::DKV_BQ));
 }
 
 template <int D>
@@ -902,7 +691,7 @@ constexpr int dkv_smem_bytes() {
   return 1024 + 2 * BR * D * 4 +
          Tiles<D>::DKV_STAGES *
              (dkv_stage_bytes<D>() +
-              (int)sizeof(DkvStats<Tiles<D>::DKV_BQ>)) +
+              (int)sizeof(RowStats<Tiles<D>::DKV_BQ>)) +
          8 * (1 + 3 * Tiles<D>::DKV_STAGES);
 }
 
@@ -927,7 +716,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
   constexpr int QT = BQ * D * 4;     // a q-side tile, [BQ, D]
   constexpr int TT = COLS * BQ * 4;  // a transposed one, [COLS, BQ]
   constexpr int STAGE = dkv_stage_bytes<D>();
-  using Stats = DkvStats<BQ>;
+  using Stats = RowStats<BQ>;
   // This block's columns of dK and dV: [c0, c0 + COLS).
   const int c0 = blockIdx.z * COLS;
   extern __shared__ unsigned char smem_raw[];
@@ -1075,17 +864,20 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
     hop::mbar_wait(full + 8 * s, (i / STAGES) & 1);
     const Stats* st = stats(s);
 
-    // This warpgroup's product, then the swap (dkv_swap_bytes): each
-    // writes its product in its threads' own order (the two warpgroups'
-    // fragments match) and reads the other's.
+    // This warpgroup's product, then the swap (swap_bytes).
     const uint32_t b_tile = wg == 0 ? sQ : sdO;
     uint32_t mine = b_tile, theirs = wg == 0 ? sdO : sQ;
-    if constexpr (!dkv_swap_in_tiles<D>()) {
-      mine = sQt + 4 * TT + wg * dkv_swap_bytes<D>();
-      theirs = sQt + 4 * TT + (1 - wg) * dkv_swap_bytes<D>();
+    if constexpr (!swap_in_tiles(D)) {
+      mine = sQt + 4 * TT + wg * swap_bytes(BQ);
+      theirs = sQt + 4 * TT + (1 - wg) * swap_bytes(BQ);
     }
     float x[BQ / 2], other[BQ / 2];
-    mma_head_dim<D, BQ>(x, a_tile, b_tile, b_tile + QT, lane, warp);
+    mma_head_dim_by<D, BQ, PARTS>(
+        x,
+        [&](int kk, uint32_t(&big)[4], uint32_t(&small)[4]) {
+          a_fragment<D>(a_tile, kk, lane, warp, big, small);
+        },
+        b_tile, b_tile + QT);
     float* const out = reinterpret_cast<float*>(generic(mine)) +
                        (threadIdx.x % WG) * (BQ / 2);
     const float* const in = reinterpret_cast<const float*>(generic(theirs)) +
@@ -1173,6 +965,361 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// dQ: one block per (64-row q tile, batch*head); walks key tiles of BK on
+// the scores S = Q . K^T.  Two consumer warpgroups share the block's 64
+// rows: warpgroup 0 computes S and warpgroup 1 dP = dO . V^T, they swap
+// them through the spent K and V tiles, and each accumulates its half of
+// dQ's columns, dQ += dS . K with the stage's transposed K.
+// * The head-dim products are m64nBKk8: a narrow one costs the tensor
+//   cores about as much to issue as a wide one, so the key tiles are as
+//   long as shared memory allows: 32 keys up to D = 128, where each
+//   consumer keeps its A operand (Q or dO, raw) in registers (64 at D =
+//   128), and 16 at D = 256, where the two take 128 KB of shared memory
+//   as their threads' own fragments (thread t's step kk at (kk WG + t)
+//   16 bytes, one vector load a step).  Split in registers as loaded.
+// * di = rowsum(dO * O) is computed as dP is: the producer streams the
+//   block's own rows of O through the V slots first (BR / BK tiles, before
+//   the key tiles), and warpgroup 1 takes the diagonal of dO . O^T from
+//   the same three-pass products.  A row whose one visible key is itself
+//   (a sequence's or a segment's first query) has o = v there, so dP - di
+//   is 0 as in exact arithmetic; a di summed apart (FFMA) left the tensor
+//   cores' dP error there, about 1e-5.
+// * Stages: the producer's loads run STAGES - 1 tiles ahead of its split.
+//   At D = 256 the one stage frees in two parts, its K and V tiles once
+//   the swap is read (the next loads and V's split overlap the dQ
+//   product), K^T after the dQ product.
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_CONSUMERS = 2 * WG;
+constexpr int DQ_THREADS = DQ_CONSUMERS + WG;
+
+// The head-dim products' accumulators (PARTS' note; one takes the small
+// passes): three at D = 128, big-pass chains of 8, where A holds 64
+// registers (two, chains of 16, ran a little faster and further from an
+// f64 reference: PERF.md); eight at D = 256, where a second query with
+// nearly all its weight on one key leaves dP - di nearly cancelling.
+template <int D>
+__host__ __device__ constexpr int dq_parts() {
+  return D == 128 ? 3 : (D == 256 ? 8 : 4);
+}
+
+// The key tiles a dQ block at q0 visits (trouble spot 2): under causal
+// masking none past its last row.  The producer and the consumers share
+// it.
+template <int BK>
+__device__ __forceinline__ int dq_key_tiles(int q0, int T, int causal) {
+  return ((causal ? min(T, q0 + BR) : T) + BK - 1) / BK;
+}
+
+template <int D>
+__host__ __device__ constexpr int dq_stage_bytes() {
+  return 6 * Tiles<D>::DQ_BK * D * 4 +
+         (swap_in_tiles(D) ? 0 : 2 * swap_bytes(Tiles<D>::DQ_BK));
+}
+
+template <int D>
+constexpr int dq_smem_bytes() {
+  return 1024 + (Tiles<D>::DQ_A_REGS ? 0 : 2 * BR * D * 4) +
+         Tiles<D>::DQ_STAGES * dq_stage_bytes<D>() +
+         (int)sizeof(RowStats<BR>) + 8 * (2 + 3 * Tiles<D>::DQ_STAGES);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_o,
+                        const float* __restrict__ q,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ m_in,
+                        const float* __restrict__ l_in,
+                        const int* __restrict__ qseg,
+                        const int* __restrict__ kseg, float* __restrict__ dq,
+                        Geometry g, int causal, float scale) {
+  constexpr int BK = Tiles<D>::DQ_BK;
+  constexpr int O_TILES = BR / BK;  // the block's rows of O, for di
+  constexpr bool A_REGS = Tiles<D>::DQ_A_REGS;
+  constexpr int COLS = D / 2;  // dQ columns of a consumer warpgroup
+  constexpr int STAGES = Tiles<D>::DQ_STAGES;
+  constexpr int A_BYTES = BR * D * 4;  // one consumer's A fragments
+  constexpr int KT = BK * D * 4;  // a key tile, [BK, D], or its [D, BK]
+  constexpr int STAGE = dq_stage_bytes<D>();
+  using Stats = RowStats<BR>;
+  extern __shared__ unsigned char smem_raw[];
+  const SmemBase sm = smem_base(smem_raw);
+  auto generic = [&](uint32_t addr) { return sm.ptr + (addr - sm.addr); };
+  // At D = 256 the consumers' A fragments (Q's, then dO's); then stage s,
+  // six tiles: K (landed, then its big part in place), K small, V or a
+  // tile of O (landed, then big), its small part, K^T big, K^T small (and
+  // at D = 16 the two swap slots); then the rows' statistics.
+  const uint32_t sA = sm.addr, sStages = sA + (A_REGS ? 0 : 2 * A_BYTES);
+  auto stage = [&](int s) { return sStages + s * STAGE; };
+  Stats* const stats = reinterpret_cast<Stats*>(
+      generic(sStages + STAGES * STAGE));
+  // Barriers: m, l and the segment ids ready (the producer warpgroup);
+  // per stage, K and V (or O) landed (TMA), split (the producer) and
+  // freed (the consumers); at one stage, its K and V tiles freed once the
+  // swap is read (kv_free), before K^T is (empty).
+  const uint32_t q_ready = sStages + STAGES * STAGE + sizeof(Stats);
+  const uint32_t kv_free = q_ready + 8, loaded = kv_free + 8;
+  const uint32_t full = loaded + 8 * STAGES, empty = full + 8 * STAGES;
+
+  // Under causal masking the last q tiles do the most work: blockIdx.y = 0
+  // takes the last tile of every batch*head, so the long blocks start
+  // first and the short ones fill the tail.
+  const int T = g.T, y = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int n_tiles = O_TILES + dq_key_tiles<BK>(q0, T, causal);
+  const long long off = base_offset(g, y);
+  const int* qs = qseg ? qseg + (long long)(y / g.seg_heads) * T : nullptr;
+  const int* ks = kseg ? kseg + (long long)(y / g.seg_heads) * T : nullptr;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_ready, WG);
+    hop::mbar_init(kv_free, DQ_CONSUMERS);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(loaded + 8 * s, 1);
+      hop::mbar_init(full + 8 * s, WG);
+      hop::mbar_init(empty + 8 * s, DQ_CONSUMERS);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= DQ_CONSUMERS) {
+    // Producer warpgroup: gives registers to the consumers; reads the
+    // rows' m, l and segment ids; its first thread issues the TMA loads,
+    // STAGES - 1 tiles ahead of the split (at one stage, as soon as the
+    // consumers have read the K and V tiles); all 128 split the tiles of
+    // O and V in place, and for a key tile, once K^T is free, transpose
+    // and split K and, once every thread has read it raw, split it in
+    // place.
+    hop::setmaxnreg_dec<504 - 2 * Tiles<D>::DQ_REGS>();
+    constexpr int AHEAD = STAGES - 1;
+    const int pt = threadIdx.x - DQ_CONSUMERS;
+    const int h = y % g.H, b = y / g.H;
+    // Tile i's loads, once the consumers have freed what they overwrite.
+    auto issue = [&](int i) {
+      const int s = i % STAGES;
+      const uint32_t sK = stage(s), sV = sK + 2 * KT;
+      if (AHEAD > 0)
+        hop::mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+      else if (i > 0)
+        hop::mbar_wait(kv_free, (i - 1) & 1);
+      hop::fence_proxy_async();
+      if (i < O_TILES) {
+        hop::mbar_arrive_expect_tx(loaded + 8 * s, KT);
+        hop::tma_tile<D, BK, 4>(sV, &tm_o, loaded + 8 * s, q0 + i * BK, h, b);
+      } else {
+        const int k0 = (i - O_TILES) * BK;
+        hop::mbar_arrive_expect_tx(loaded + 8 * s, 2 * KT);
+        hop::tma_tile<D, BK, 4>(sK, &tm_k, loaded + 8 * s, k0, h, b);
+        hop::tma_tile<D, BK, 4>(sV, &tm_v, loaded + 8 * s, k0, h, b);
+      }
+    };
+    if (pt == 0)
+      for (int i = 0; i < AHEAD && i < n_tiles; ++i) issue(i);
+    if (pt < BR) {
+      const int qr = q0 + pt;
+      const float m = qr < T ? m_in[(long long)y * T + qr] : -INFINITY;
+      const float l = qr < T ? l_in[(long long)y * T + qr] : 0.f;
+      stats->m[pt] = (m == -INFINITY) ? 0.f : m;
+      stats->l[pt] = (l == 0.f) ? 1.f : l;
+      stats->seg[pt] = (qs && qr < T) ? qs[qr] : 0;
+    }
+    hop::mbar_arrive(q_ready);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      const uint32_t sK = stage(s), sV = sK + 2 * KT, sKt = sK + 4 * KT;
+      if (AHEAD == 0 && pt == 0) issue(i);
+      hop::mbar_wait(loaded + 8 * s, (i / STAGES) & 1);
+      // At one stage V first: K^T may still be in use.
+      if (AHEAD == 0) split_tile<KT>(generic(sV), generic(sV + KT), pt);
+      if (i >= O_TILES) {
+        if (AHEAD == 0 && i > 0) hop::mbar_wait(empty, (i - 1) & 1);
+        transpose_split<D, BK, D>(generic(sK), generic(sKt),
+                                  generic(sKt + KT), 0, pt);
+        hop::named_barrier(1, WG);
+        split_tile<KT>(generic(sK), generic(sK + KT), pt);
+      }
+      if (AHEAD > 0) split_tile<KT>(generic(sV), generic(sV + KT), pt);
+      hop::fence_proxy_async();
+      hop::mbar_arrive(full + 8 * s);
+      if (AHEAD > 0 && pt == 0 && i + AHEAD < n_tiles) issue(i + AHEAD);
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<Tiles<D>::DQ_REGS>();
+  // Consumer warpgroup wg: this thread holds rows row[0] and row[1] =
+  // row[0] + 8 of S, dP and dQ (of dQ's columns [n0, n0 + COLS)).
+  const int wg = threadIdx.x / WG, t = threadIdx.x % WG, lane = t % 32;
+  const int warp = t / 32, n0 = wg * COLS;
+  int row[2];
+  row[0] = q0 + warp * 16 + lane / 4;
+  row[1] = row[0] + 8;
+  // This warpgroup's A operand (warpgroup 0's Q, warpgroup 1's dO) as its
+  // threads' fragments, raw (hop::wgmma_tf32's a: rows row[0] and row[1],
+  // columns lane % 4 and lane % 4 + 4 of each step), rows past T zero:
+  // in registers up to D = 128, else in shared memory at frags[kk WG + t],
+  // read back by this thread only.
+  float4 a_regs[A_REGS ? D / 8 : 1];
+  float4* const frags =
+      reinterpret_cast<float4*>(generic(sA)) + wg * (BR * D / 4);
+  {
+    const float* const src = (wg == 0 ? q : dout) + off + lane % 4;
+    const bool in0 = row[0] < T, in1 = row[1] < T;
+    const float* const r0 = src + (long long)row[0] * g.st;
+    const float* const r1 = src + (long long)row[1] * g.st;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float4 a = make_float4(
+          in0 ? r0[8 * kk] : 0.f, in1 ? r1[8 * kk] : 0.f,
+          in0 ? r0[8 * kk + 4] : 0.f, in1 ? r1[8 * kk + 4] : 0.f);
+      if constexpr (A_REGS)
+        a_regs[kk] = a;
+      else
+        frags[kk * WG + t] = a;
+    }
+  }
+  auto load_a = [&](int kk, uint32_t(&big)[4], uint32_t(&small)[4]) {
+    float4 a;
+    if constexpr (A_REGS)
+      a = a_regs[kk];
+    else
+      a = frags[kk * WG + t];
+    hop::tf32_split(a.x, big[0], small[0]);
+    hop::tf32_split(a.y, big[1], small[1]);
+    hop::tf32_split(a.z, big[2], small[2]);
+    hop::tf32_split(a.w, big[3], small[3]);
+  };
+
+  hop::mbar_wait(q_ready, 0);
+  float safe_m[2], denom[2], di[2];
+  int my_seg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    safe_m[r] = stats->m[row[r] - q0];
+    denom[r] = stats->l[row[r] - q0];
+    my_seg[r] = stats->seg[row[r] - q0];
+  }
+
+  // di from the tiles of O: warpgroup 1 computes dO . O^T of each, and
+  // the thread holding a row's diagonal entry stores it; warpgroup 0
+  // frees the stages beside it.
+#pragma unroll 1
+  for (int i = 0; i < O_TILES; ++i) {
+    const int s = i % STAGES;
+    const uint32_t sV = stage(s) + 2 * KT;
+    hop::mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    if (wg == 1) {
+      float x[BK / 2];
+      mma_head_dim_by<D, BK, dq_parts<D>()>(x, load_a, sV, sV + KT);
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int r = (j / 2) % 2;
+        const int col = i * BK + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+        if (col == row[r] - q0) stats->di[col] = x[j];
+      }
+    }
+    if constexpr (STAGES == 1) hop::mbar_arrive(kv_free);
+    hop::mbar_arrive(empty + 8 * s);
+  }
+  hop::named_barrier(2, DQ_CONSUMERS);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) di[r] = stats->di[row[r] - q0];
+
+  // The sum over the key tiles, each tile's product added in f32 (PARTS'
+  // note).
+  float acc[COLS / 2];
+#pragma unroll
+  for (int j = 0; j < COLS / 2; ++j) acc[j] = 0.f;
+
+  // Warpgroup 0's product is S = Q . K^T, warpgroup 1's dP = dO . V^T.
+  for (int i = O_TILES; i < n_tiles; ++i) {
+    const int s = i % STAGES, k0 = (i - O_TILES) * BK;
+    const uint32_t sK = stage(s), sV = sK + 2 * KT, sKt = sK + 4 * KT;
+    hop::mbar_wait(full + 8 * s, (i / STAGES) & 1);
+
+    // This warpgroup's product, then the swap (swap_bytes).
+    const uint32_t b_tile = wg == 0 ? sK : sV;
+    uint32_t mine = b_tile, theirs = wg == 0 ? sV : sK;
+    if constexpr (!swap_in_tiles(D)) {
+      mine = sK + 6 * KT + wg * swap_bytes(BK);
+      theirs = sK + 6 * KT + (1 - wg) * swap_bytes(BK);
+    }
+    float x[BK / 2], other[BK / 2];
+    mma_head_dim_by<D, BK, dq_parts<D>()>(x, load_a, b_tile, b_tile + KT);
+    float* const out = reinterpret_cast<float*>(generic(mine)) + t * (BK / 2);
+    const float* const in =
+        reinterpret_cast<const float*>(generic(theirs)) + t * (BK / 2);
+#pragma unroll
+    for (int j = 0; j < BK / 2; j += 4)
+      *reinterpret_cast<float4*>(out + j) =
+          make_float4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+    hop::named_barrier(2, DQ_CONSUMERS);
+#pragma unroll
+    for (int j = 0; j < BK / 2; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(in + j);
+      other[j] = v.x, other[j + 1] = v.y, other[j + 2] = v.z,
+      other[j + 3] = v.w;
+    }
+    // The swap's writes precede the producer's next TMA into the stage.
+    hop::fence_proxy_async();
+    if constexpr (STAGES == 1) hop::mbar_arrive(kv_free);
+
+    // P = exp(S scale - m) / l and dS = P (dP - di), with the mask
+    // (trouble spots 1-3) where the tile needs one.
+    const bool need_mask = k0 + BK > T || ks != nullptr ||
+                           (causal && k0 + BK - 1 > q0);
+    float ds[BK / 2];
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int r = (j / 2) % 2;
+      const float sc = wg == 0 ? x[j] : other[j];
+      const float dp = wg == 0 ? other[j] : x[j];
+      bool ok = true;
+      if (need_mask) {
+        const int kc = k0 + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+        ok = kc < T && (!causal || kc <= row[r]) &&
+             (!ks || ks[kc] == my_seg[r]);
+      }
+      const float p = ok ? expf(sc * scale - safe_m[r]) / denom[r] : 0.f;
+      ds[j] = p * (dp - di[r]);
+    }
+
+    // dQ += dS . K over the tile's keys, this warpgroup's columns, K^T as
+    // B, into a fresh accumulator.
+    uint32_t db[BK / 8][4], dsm[BK / 8][4];
+    acc_fragments<BK>(ds, db, dsm);
+    float tile_dq[COLS / 2];
+    hop::wgmma_fence();
+    mma_rows<BK, D, COLS>(tile_dq, db, dsm, sKt, sKt + KT, n0);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(tile_dq);
+    hop::fence_regs(db);
+    hop::fence_regs(dsm);
+    hop::mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int j = 0; j < COLS / 2; ++j) acc[j] += tile_dq[j];
+  }
+
+  // The scale multiplies dQ after its products (trouble spot 3).
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= T) continue;
+    const long long at = off + (long long)row[r] * g.st + n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j) {
+      const int e = 4 * j + 2 * r;
+      *reinterpret_cast<float2*>(dq + at + 8 * j) =
+          make_float2(acc[e] * scale, acc[e + 1] * scale);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel,
@@ -1247,12 +1394,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int BH, const Geometry& g, int causal,
                       float scale, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();
+  static_assert(smem <= SMEM_LIMIT, "dQ tiles fit a block");
+  constexpr int BK = Tiles<D>::DQ_BK;
+  CUtensorMap tk, tv, to;
   cudaError_t err = prepare(flash_f32_dq_kernel<D>, smem);
+  if (err == cudaSuccess) err = make_map<D>(&tk, k, BH, g, BK);
+  if (err == cudaSuccess) err = make_map<D>(&tv, v, BH, g, BK);
+  if (err == cudaSuccess) err = make_map<D>(&to, o, BH, g, BK);
   if (err != cudaSuccess) return err;
   dim3 grid(BH, (g.T + BR - 1) / BR);
-  flash_f32_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(o),
+  flash_f32_dq_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(
+      tk, tv, to, static_cast<const float*>(q),
       static_cast<const float*>(dout), static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const int*>(qseg),
       static_cast<const int*>(kseg), static_cast<float*>(dq), g, causal,
@@ -1284,8 +1436,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<float*>(dk), static_cast<float*>(dv), g, causal, scale);
   return cudaGetLastError();
 }
-
-static_assert(dq_smem_bytes<256>() <= SMEM_LIMIT, "dQ tiles fit a block");
 
 }  // namespace
 

@@ -31,12 +31,12 @@ Contract, as the reference's:
 The kernels take every float dtype the reference's kernels take, at any
 head dim up to 256 (``_kernel_plan``): bf16 and f16 run the Hopper
 kernels, f32 those of ``csrc/flash_attention_f32.cu`` (products to about
-f32 accuracy, as the reference multiplies its f32-upcast operands: the
-forward and dK/dV in three TF32 passes on the tensor cores, dQ in
-FFMA).  Head dims 16, 32, 64, 128 and 256 have instances of their own;
-any other ``D <= 256`` is padded with zero columns to the next one (zero
-columns of q and k leave the scores unchanged, those of v give zero
-columns of o), with the caller's scale, and the outputs are sliced back.
+f32 accuracy, as the reference multiplies its f32-upcast operands: all
+three in three TF32 passes on the tensor cores).  Head dims 16, 32, 64,
+128 and 256 have instances of their own; any other ``D <= 256`` is
+padded with zero columns to the next one (zero columns of q and k leave
+the scores unchanged, those of v give zero columns of o), with the
+caller's scale, and the outputs are sliced back.
 ``o``, ``dq``, ``dk`` and ``dv`` come back in the operands' dtype, ``m``
 and ``l`` in f32.  f64 and ``D > 256`` on the card raise; nothing on a
 CUDA tensor falls back to the plain versions.
@@ -64,7 +64,7 @@ NEG_INF = float("-inf")
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 # The instance of each dtype the kernels take: bf16 and f16 run the Hopper
 # kernels of csrc/flash_attention.cu, f32 those of
-# csrc/flash_attention_f32.cu (three TF32 passes; dQ in FFMA).
+# csrc/flash_attention_f32.cu (three TF32 passes).
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16",
                  torch.float32: "f32"}
 # Launches by (kernel, instance, kernel head dim), beside the totals above:
@@ -198,8 +198,11 @@ def _bwd_common(qf, of, dof, m, l, qseg, kseg):
     m, l = m.reshape(bh, t), l.reshape(bh, t)
     safe_m = torch.where(m == NEG_INF, 0.0, m)
     denom = torch.where(l == 0.0, 1.0, l)
-    # di from the stored o in its own dtype, upcast (reference :198).
-    di = (dof.float() * of.float()).sum(dim=-1)
+    # di = rowsum(dO * O) from the stored o in its own dtype (reference
+    # :198), in f64: dQ forms dP - di in f64, since it cancels
+    # where a row's one visible key is itself (o = v there, dq 0), and the
+    # f32 roundings of dP and di were all of such a row's dq.
+    di = (dof.double() * of.double()).sum(dim=-1)
     return (safe_m, denom, di, _seg_rows(qseg, bh, t),
             _seg_rows(kseg, bh, t), torch.arange(t, device=qf.device))
 
@@ -216,19 +219,22 @@ def _bwd_dq_plain(qf, kf, vf, of, dof, m, l, qseg=None, kseg=None,
                   causal=True, scale=None):
     """The reference's ``_bwd_dq_kernel`` math over key blocks in f32:
     ``dQ = sum_k dS K * scale`` with ``p`` recomputed from the global
-    ``(m, l)``; returns ``dq`` in ``qf.dtype``."""
+    ``(m, l)``, ``dP - di`` in f64; returns ``dq`` in ``qf.dtype``."""
     bh, t, d = qf.shape
     scale = d ** -0.5 if scale is None else scale
     safe_m, denom, di, qs, ks, pos = _bwd_common(qf, of, dof, m, l, qseg,
                                                  kseg)
-    q, k, v, do = qf.float(), kf.float(), vf.float(), dof.float()
+    q, k = qf.float(), kf.float()
+    do64, v64 = dof.double(), vf.double()
     dq = torch.zeros((bh, t, d), device=qf.device)
     for k0 in range(0, t, _PLAIN_BLOCK_K):
         k1 = min(k0 + _PLAIN_BLOCK_K, t)
         p = _probs_block(q, k[:, k0:k1], k0, safe_m, denom, pos, causal,
                          scale, qs, ks)
-        dp = torch.matmul(do, v[:, k0:k1].transpose(1, 2))
-        ds = p * (dp - di[..., None])
+        # dP and dP - di in f64 (f64 holds the f32 operands' products
+        # exactly), then f32.
+        dp = torch.matmul(do64, v64[:, k0:k1].transpose(1, 2))
+        ds = p * (dp - di[..., None]).float()
         dq += torch.matmul(ds, k[:, k0:k1]) * scale
     return dq.to(qf.dtype)
 
@@ -243,6 +249,7 @@ def _bwd_dkv_plain(qf, kf, vf, of, dof, m, l, qseg=None, kseg=None,
     safe_m, denom, di, qs, ks, pos = _bwd_common(qf, of, dof, m, l, qseg,
                                                  kseg)
     q, k, v, do = qf.float(), kf.float(), vf.float(), dof.float()
+    di = di.float()
     dk = torch.empty((bh, t, d), device=qf.device)
     dv = torch.empty((bh, t, d), device=qf.device)
     for k0 in range(0, t, _PLAIN_BLOCK_K):

@@ -137,7 +137,9 @@ def kernel_category(name: str) -> str:
     if "fused_stem" in n:
         return "fused_stem"
     if any(k in n for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                            "flash_bwd_dkv_kernel")) and "pytorch" not in n:
+                            "flash_bwd_dkv_kernel", "flash_f32_fwd_kernel",
+                            "flash_f32_dq_kernel", "flash_f32_dkv_kernel")
+           ) and "pytorch" not in n:
         return "flash_attention"
     if "nccl" in n:
         return "collective"

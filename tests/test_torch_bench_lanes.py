@@ -191,8 +191,9 @@ def test_the_cli_takes_the_reference_harnesss_flags(monkeypatch):
     """``python -m horovod_tpu_torch.benchmark`` parses the reference's
     ``_main`` flags with their defaults (its parser caught as it parses),
     less ``--transport`` and ``--coordsim``, which argparse refuses; the
-    port adds ``--device`` and ``--input-dtype``, and its ``--model``
-    also names the LM's and decode's profiles."""
+    port adds ``--device``, ``--input-dtype`` and the LM profile's
+    ``--lm-dtype``, and its ``--model`` also names the LM's and decode's
+    profiles."""
     import argparse
 
     def capture(self, *args, **kwargs):
@@ -204,7 +205,8 @@ def test_the_cli_takes_the_reference_harnesss_flags(monkeypatch):
     monkeypatch.undo()
     want, got = _flags(caught.value.parser), _flags(tbench.build_parser())
     assert set(want) - set(got) == {"--transport", "--coordsim"}
-    assert set(got) - set(want) == {"--device", "--input-dtype"}
+    assert set(got) - set(want) == {"--device", "--input-dtype",
+                                    "--lm-dtype"}
     for opt in set(got) & set(want):
         assert got[opt] == want[opt], opt
     for refused in ("--transport", "--coordsim"):

@@ -198,9 +198,9 @@ def test_flash_function_gradients_match_plain_route(cuda_device):
 ])
 def test_flash_instances_match_plain_versions(cuda_device, dtype, bh, t, d,
                                               causal, segs):
-    """The f16 (Hopper) and f32 (TF32x3, FFMA dQ) instances and head dims
-    256, 80 and 96 (padded to 128): o, dq, dk and dv in the operands'
-    dtype, row by row against the plain versions (f32 at F32_ROW_*)."""
+    """The f16 (Hopper) and f32 (TF32x3) instances and head dims 256, 80
+    and 96 (padded to 128): o, dq, dk and dv in the operands' dtype, row
+    by row against the plain versions (f32 at F32_ROW_*)."""
     q, k, v, do = _flash_inputs(bh, t, d, seed=t + d, dtype=dtype)
     qs = ks = None
     if segs is not None:
@@ -242,26 +242,37 @@ def test_flash_kernels_propagate_nan(cuda_device):
     assert torch.isnan(o[0, 70]).all() and not torch.isnan(o[0, :70]).any()
 
 
-# Faults planted in a copy of the kernel source, each wrong only on the
+# Faults planted in a copy of a kernel source, each wrong only on the
 # late tiles (queries or keys from 1024 on), where the causal gradients
-# are small: (text in flash_attention.cu, its faulty replacement).  The
-# faults sit in the tile-count helpers that each kernel's producer and
-# consumers share, so the faulty kernels still finish.
+# are small: (source, operand dtype, text in the source, its faulty
+# replacement).  The faults sit in the tile-count helpers that each
+# kernel's producer and consumers share, so the faulty kernels still
+# finish.
 PLANTED_FAULTS = {
     # The forward drops its diagonal key tile.
     "fwd_drops_diagonal_k_tile": (
+        "flash_attention", torch.bfloat16,
         "const int kend = causal ? min(T, q0 + FWD_BR) : T;",
         "const int kend = causal ? min(T, q0 + FWD_BR) - (q0 >= 1024) * "
         "BC : T;"),
     # dK/dV starts one q tile late: it skips the diagonal tile.
     "dkv_starts_one_q_tile_late": (
+        "flash_attention", torch.bfloat16,
         "return causal ? k0 / DKV_BQ : 0;",
         "return causal ? k0 / DKV_BQ + (k0 >= 1024) : 0;"),
     # dQ drops its last key tiles, the diagonal ones of both warpgroups.
     "dq_drops_last_k_tile": (
+        "flash_attention", torch.bfloat16,
         "const int kend = causal ? min(T, q0 + DQ_BR) : T;",
         "const int kend = causal ? min(T, q0 + DQ_BR) - (q0 >= 1024) * "
         "DQ_BR : T;"),
+    # The f32 dQ (three TF32 passes) drops its diagonal key tiles, held at
+    # the f32 row limits.
+    "f32_dq_drops_diagonal_k_tiles": (
+        "flash_attention_f32", torch.float32,
+        "return ((causal ? min(T, q0 + BR) : T) + BK - 1) / BK;",
+        "return ((causal ? min(T, q0 + BR) - (q0 >= 1024) * BR : T) + BK - "
+        "1) / BK;"),
 }
 
 
@@ -270,9 +281,12 @@ PLANTED_FAULTS = {
 def test_flash_row_check_catches_planted_faults(cuda_device, tmp_path,
                                                 monkeypatch, fault):
     """The row check passes the kernels at T = 2048 and fails a copy with
-    a fault on the late tiles.  Prints, for the record, the check it
-    replaced: max abs over max(1, max |ref|), with its 3e-2 limit."""
-    q, k, v, do = _flash_inputs(8, 2048, 128, seed=21)
+    a fault on the late tiles, in the fault's dtype with its row limits.
+    Prints, for the record, the check it replaced: max abs over max(1, max
+    |ref|), with its 3e-2 limit."""
+    source, dtype, old, new = PLANTED_FAULTS[fault]
+    lim = (F32_ROW_RTOL, F32_ROW_ATOL) if dtype == torch.float32 else ()
+    q, k, v, do = _flash_inputs(8, 2048, 128, seed=21, dtype=dtype)
     sc = 128 ** -0.5
     ro, rm, rl = fa._fwd_parts_plain(q, k, v, None, None, True, sc)
     want = (ro,) + fa._bwd_parts_plain(q, k, v, ro, do, rm, rl, None, None,
@@ -284,26 +298,24 @@ def test_flash_row_check_catches_planted_faults(cuda_device, tmp_path,
                                     True, sc)
 
     for name, a, b in zip(("o", "dq", "dk", "dv"), outputs(), want):
-        ratio = _row_ratio(a, b)
+        ratio = _row_ratio(a, b, *lim)
         print(f"unmodified kernels: {name} worst row / limit {ratio:.4g}")
         assert ratio <= 1.0
 
-    old, new = PLANTED_FAULTS[fault]
-    with open(f"{_build.CSRC}/flash_attention.cu") as f:
+    with open(f"{_build.CSRC}/{source}.cu") as f:
         src = f.read()
     assert src.count(old) == 1
-    cu, lib = tmp_path / "flash_attention.cu", tmp_path / "libfault.so"
+    cu, lib = tmp_path / f"{source}.cu", tmp_path / "libfault.so"
     cu.write_text(src.replace(old, new))
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
                     "-o", str(lib), str(cu)], check=True, capture_output=True,
                    timeout=600)
-    monkeypatch.setitem(_build._libs, "flash_attention",
-                        ctypes.CDLL(str(lib)))
+    monkeypatch.setitem(_build._libs, source, ctypes.CDLL(str(lib)))
     ratios = {}
     for name, a, b in zip(("o", "dq", "dk", "dv"), outputs(), want):
         old_err = ((a.float() - b.float()).abs().max()
                    / b.float().abs().max().clamp_min(1.0)).item()
-        ratios[name] = _row_ratio(a, b)
+        ratios[name] = _row_ratio(a, b, *lim)
         print(f"{fault}: {name} worst row / limit {ratios[name]:.4g}; "
               f"max abs / max(1, max |ref|) {old_err:.4g}")
     assert max(ratios.values()) > 1.0

@@ -163,13 +163,14 @@ def test_unlayered_shares_are_the_other_and_untracked_time():
 def test_kernel_categories_cover_the_ports_kernels():
     cats = {n: profiling.kernel_category(n) for n in (
         "fused_stem_kernel<128>", "flash_fwd_kernel<128>",
-        "ncclDevKernel_AllReduce", "sm90_xmma_gemm_bf16",
-        "void at::native::reduce_kernel<512>",
+        "flash_f32_dq_kernel<128>", "ncclDevKernel_AllReduce",
+        "sm90_xmma_gemm_bf16", "void at::native::reduce_kernel<512>",
         "void at::native::vectorized_elementwise_kernel<4>",
         "Memcpy DtoD")}
     assert list(cats.values()) == ["fused_stem", "flash_attention",
-                                   "collective", "conv_matmul", "reduction",
-                                   "elementwise", "other"]
+                                   "flash_attention", "collective",
+                                   "conv_matmul", "reduction", "elementwise",
+                                   "other"]
     durs = {"a.1": (2.0, 1), "a.2": (3.0, 1), "flash_fwd_kernel": (7.0, 2)}
     assert profiling.by_category(durs, profiling.kernel_category) == [
         ("flash_attention", 7.0), ("other", 5.0)]
