@@ -24,13 +24,16 @@ any failure ends the run with a traceback and a non-zero exit:
    fully masked row, ragged T, tiles half empty or cut by T or by segment
    borders, every head dim), then every other instance: f16 and f32 at
    the LM's shape [4, 2048, 24, 128], bf16, f16 and f32 at [4, 2048, 12,
-   256], and in each dtype small cases at D 256 and at the padded 80 and
-   96 (non-causal with a fully masked row, segments, ragged T, tiles cut
-   by T), f32 within FLASH_F32_ROW_*; the autograd Function's output and
-   gradients against the plain versions in every dtype; and each
+   256] and at [4, 2048, 6, 512] (the wide instances), and in each dtype
+   small cases at D 256, 512 and 768 and at the padded 80, 96 and 320
+   (non-causal with a fully masked row, segments, ragged T, tiles cut by
+   T), f32 within FLASH_F32_ROW_*; the autograd Function's output and
+   gradients against the plain versions in every dtype; a copy of the
+   bf16 wide forward built with a planted fault (a dropped head-dim chunk
+   of S on the late q tiles) that the row check must fail; and each
    instance's time beside its bound (f32 at the three-pass TF32 rate),
    its plain version's and ``scaled_dot_product_attention``'s in the same
-   dtype;
+   dtype, with the backend PyTorch picked for it;
 7. LM main path: the transformer-LM benchmark of record (``bench.py``'s
    d3072/L10/H24, T 2048, batch 4, flash attention, bf16 momentum) for 2
    warmup and 10 timed steps, with the flash launch counts read around it;
@@ -39,11 +42,14 @@ any failure ends the run with a traceback and a non-zero exit:
    the f32 launches (10 of each a step) and the first loss against the
    same forward through the local route at relative 1e-5; (c) its width
    with 12 heads of 256 (bf16, flash) for 2 warm-up and 3 timed steps:
-   tok/s beside phase 7's and the head-dim-256 launches;
+   tok/s beside phase 7's and the head-dim-256 launches; (d) the same
+   with 6 heads of 512 (the wide bf16 instances): tok/s, peak memory and
+   the head-dim-512 launches;
 8. LM reference: a small f32 LM step on the GPU against the CPU and
    through the flash route against the local one, and small packed LMs
-   (bf16 and f16 at head dims 128 and 256, f32 at 256) whose logits and
-   gradients go through the flash route against the local one;
+   (bf16 and f16 at head dims 128 and 256, f32 at 256, f16 and f32 at
+   512) whose logits and gradients go through the flash route against the
+   local one;
 9. the ``hvd.*`` API on the card (the NCCL group of size 1): every
    collective on CUDA tensors in f32, bf16, f16, int32 and int64 (a
    0-dim and an empty tensor too) against its size-1 result, the async
@@ -270,7 +276,7 @@ any failure ends the run with a traceback and a non-zero exit:
 The flash rows' launches add the paths of phases 7, 11 (a), 11 (b), 12
 (b), 13 (a), 14 (b, c), 15, 17 (b) and, for the forward kernel, 12 (a);
 the rows of the other instances (f16 and f32 at head dim 128, bf16, f16
-and f32 at 256) count phases 7 (b), 7 (c) and 8;
+and f32 at 256 and at 512) count phases 7 (b), 7 (c), 7 (d) and 8;
 the fused stem's add phase 16's 73 or more (36 under the timeline, 36
 to 72 under the tuner, 1 bucketed step), phase 17's 39 and phase 18's
 104 forward passes ((c) 3 x 13, (d) 3 x 13, (e) 2 x 13), phase 20
@@ -320,6 +326,10 @@ LM_F32_LOSS_RTOL = 1e-5
 # Gemma-7B's attention is 16 heads of 256 at d_model 3072).
 LM_WIDE = dict(LM, n_heads=12)
 LM_WIDE_STEPS = (2, 3)
+# Phase 7 (d): the same width with 6 heads of 512 (bf16, flash), as many
+# steps.  No configuration of record has heads this wide: it runs the
+# wide instances (head dims above 256) at full width.
+LM_WIDE512 = dict(LM, n_heads=6)
 # First and last timed LM loss with the earlier wmma forward and dK/dV
 # kernels (same seeds), printed beside this run's for the record: the
 # summation order differs, so they are not expected bit for bit.
@@ -364,7 +374,16 @@ FLASH_F32_ROW_ATOL = 2 ** -16
 # of the path that runs it: (dtype, heads, head dim) at B 4, T 2048.
 FLASH_INSTANCES = ((torch.float16, 24, 128), (torch.float32, 24, 128),
                    (torch.bfloat16, 12, 256), (torch.float16, 12, 256),
-                   (torch.float32, 12, 256))
+                   (torch.float32, 12, 256), (torch.bfloat16, 6, 512),
+                   (torch.float16, 6, 512), (torch.float32, 6, 512))
+# Phase 6's planted fault in a copy of flash_attention.cu: the bf16 wide
+# forward drops the last head-dim chunk of S on the q tiles from 1024 on
+# (text in the source, its faulty replacement); held at [2, 2048, 2,
+# 512], the row check must fail it.
+PLANTED_WIDE_FAULT = (
+    "      mma_chunk<FWD_BR, WF_BC, E>(sc, sQ, wg * 64, sQ + WF_Q, c);\n",
+    "      if (c + 1 < nc || q0 < 1024)\n"
+    "        mma_chunk<FWD_BR, WF_BC, E>(sc, sQ, wg * 64, sQ + WF_Q, c);\n")
 # The flash route in a small bf16 LM against the local route: logits row
 # by row (one row per token), ||a_r - b_r|| / ||b_r||, and loss_fn's
 # gradients leaf by leaf, ||a - b|| / ||b||.  The local route rounds its
@@ -372,12 +391,13 @@ FLASH_INSTANCES = ((torch.float16, 24, 128), (torch.float32, 24, 128),
 LM_LOGIT_TOL = 2 ** -5
 LM_GRAD_TOL = 2 ** -4
 # Phase 8's small packed LMs, flash against local on the card: (dtype,
-# d_model) at 2 heads (head dims 128 and 256).  f32 is held to
+# d_model) at 2 heads (head dims 128, 256 and 512).  f32 is held to
 # LM_F32_FLASH_TOL: both routes compute in f32 (TF32 off) and differ only
 # in the order of their sums.
 SMALL_FLASH_LMS = ((torch.bfloat16, 256), (torch.bfloat16, 512),
                    (torch.float16, 256), (torch.float16, 512),
-                   (torch.float32, 512))
+                   (torch.float32, 512), (torch.float16, 1024),
+                   (torch.float32, 1024))
 LM_F32_FLASH_TOL = 1e-4
 # Phase 11 (a): ring-flash, ring and Ulysses attention at 4 virtual ranks
 # (threads of this process on the one card) at the LM of record's width:
@@ -1287,7 +1307,100 @@ def phase_flash_check() -> list:
                          65 + i, "D=256 segments T=192", dtype)
         _flash_grad_case(fa, 2, 128, 2, 96, None, 68 + i, "padded D=96",
                          dtype)
+    # The wide instances (head dims above 256, padded to a multiple of
+    # 256) in each dtype: a fully masked row, a padded D 320 with ragged
+    # T, segment borders inside tiles with a custom scale, three column
+    # blocks (D 768) with tiles cut by T, and the Function's gradients
+    # packed and at a padded D 384; the planted fault builds meanwhile.
+    fault = _planted_wide_fault_start()
+    for i, dtype in enumerate((torch.bfloat16, torch.float16,
+                               torch.float32)):
+        _, (q, k, v, do) = _flash_case(fa, 2, 192, 2, 512, False, None,
+                                       qseg, kseg, 71 + i,
+                                       "D=512 fully masked rows", dtype)
+        o, m, l = fa._fwd_parts(q, k, v, qseg, kseg, False, 512 ** -0.5)
+        check(bool((o[:, 168:] == 0).all()) and
+              bool((l[:, 0, 168:] == 0).all()),
+              f"D=512 {dtype}: fully masked rows must give o = 0, l = 0")
+        _flash_case(fa, 1, 40, 2, 320, True, None, None, None, 74 + i,
+                    "padded D=320 ragged T=40", dtype)
+        seg = _segments(2, 512, [100, 200, 150, 62])
+        _flash_case(fa, 2, 512, 2, 512, True, 0.05, seg, seg, 77 + i,
+                    "D=512 segments T=512", dtype)
+        _flash_case(fa, 2, 320, 2, 768, True, None, None, None, 80 + i,
+                    "D=768 causal T=320", dtype)
+        _flash_grad_case(fa, 1, 192, 2, 512, _segments(1, 192, [100, 92]),
+                         83 + i, "D=512 segments T=192", dtype)
+        _flash_grad_case(fa, 2, 128, 2, 384, None, 86 + i, "padded D=384",
+                         dtype)
+    _planted_wide_fault_check(fa, fault)
     return rows
+
+
+def _planted_wide_fault_start():
+    """nvcc started on a copy of flash_attention.cu with
+    PLANTED_WIDE_FAULT: ``(process, library, directory)``."""
+    import os
+    import tempfile
+
+    from horovod_tpu_torch.ops import _build
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fault_")
+    with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
+        src = f.read()
+    old, new = PLANTED_WIDE_FAULT
+    check(src.count(old) == 1, "the planted fault's text is not in "
+          "flash_attention.cu once")
+    cu = os.path.join(tmp, "flash_attention.cu")
+    lib = os.path.join(tmp, "libfault.so")
+    with open(cu, "w") as f:
+        f.write(src.replace(old, new))
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o",
+         lib, cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, lib, tmp
+
+
+def _planted_wide_fault_check(fa, started) -> None:
+    """The bf16 wide forward with PLANTED_WIDE_FAULT against the plain
+    version at [2, 2048, 2, 512] causal: the row check passes the kernel
+    and must fail the faulty copy."""
+    import ctypes
+    import shutil
+
+    from horovod_tpu_torch.ops import _build
+
+    proc, lib, tmp = started
+    try:
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"nvcc failed on the planted fault: "
+              f"{out[-2000:]}")
+        gen = torch.Generator(device="cuda").manual_seed(90)
+        q, k, v = (_randn((4, 2048, 512), gen) for _ in range(3))
+        sc = 512 ** -0.5
+        ro, _, _ = fa._fwd_parts_plain(q, k, v, None, None, True, sc)
+        good, _, _ = fa._fwd_parts(q, k, v, None, None, True, sc)
+        kept = _build._libs["flash_attention"]
+        _build._libs["flash_attention"] = ctypes.CDLL(lib)
+        try:
+            bad, _, _ = fa._fwd_parts(q, k, v, None, None, True, sc)
+            torch.cuda.synchronize()
+        finally:
+            _build._libs["flash_attention"] = kept
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok, faulty = _row_ratio(good, ro), _row_ratio(bad, ro)
+    check(ok <= 1.0 < faulty, f"planted wide fault: the kernel's o reads "
+          f"{ok:.3g} x its row limit, the faulty copy's {faulty:.3g} x "
+          f"(must be <= 1 and > 1)")
+    print(f"flash planted fault (bf16 wide forward drops the last head-dim "
+          f"chunk of S from q row 1024 on) [B*H=4, T=2048, D=512]: o worst "
+          f"row / limit {ok:.3g} for the kernel, {faulty:.3g} for the "
+          f"faulty copy: caught", flush=True)
 
 
 def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
@@ -1295,8 +1408,9 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
     ``dtype`` (causal, the main path's layout, read in place): each
     kernel's ms beside its plain version's, its bound (f32 at the
     three-pass TF32 rate, bf16 and f16 at the tensor cores') and SDPA's in
-    the same dtype; ``errs`` are the main-shape case's errors.  The f32
-    rows name the tensor-core kernels (tf32x3)."""
+    the same dtype, with the backend PyTorch picked for it; ``errs`` are
+    the main-shape case's errors.  The f32 rows name the tensor-core
+    kernels (tf32x3) up to D 256 and the CUDA-core ones (ffma) above."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -1337,6 +1451,7 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
     sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
         doh))
+    backend = _sdpa_backend(qh, kh, vh)
     del out, leaves
     size = torch.finfo(dtype).bits // 8
     n = b * t * h * d * size                 # bytes of one operand
@@ -1355,7 +1470,7 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
         bound_ms, bound_by = _bound(*work[key], TF32X3_OPS_PER_S if f32
                                     else BF16_OPS_PER_S)
         if f32:
-            name += "_tf32x3"
+            name += "_tf32x3" if d <= 256 else "_ffma"
         rows.append({
             "name": name + suffix, "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/flash_attention" +
@@ -1366,6 +1481,7 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
             "bound_by": bound_by,
             # dq and dkv share SDPA's one backward time.
             "library_ms": sdpa_fwd if key == "fwd" else sdpa_bwd,
+            "library_backend": backend,
             "flops": work[key][0], "bytes": work[key][1],
             # (kernel, instance, head dim): which counter its launches
             # are read from; dropped before the line is printed.
@@ -1378,10 +1494,26 @@ def _flash_rows(fa, b, t, h, d, dtype, errs, suffix) -> list:
               f"{bound_ms / ms[key] * 100:.1f} % of bound), plain "
               f"{plain_ms[key]:.4f} ms", flush=True)
     print(f"scaled_dot_product_attention at [{b}, {h}, {t}, {d}] "
-          f"{_short(dtype)} causal: forward {sdpa_fwd:.4f} ms, backward "
-          f"{sdpa_bwd:.4f} ms, forward+backward {sdpa_fwd_bwd:.4f} ms",
-          flush=True)
+          f"{_short(dtype)} causal ({backend}): forward {sdpa_fwd:.4f} ms, "
+          f"backward {sdpa_bwd:.4f} ms, forward+backward "
+          f"{sdpa_fwd_bwd:.4f} ms", flush=True)
     return rows
+
+
+def _sdpa_backend(q, k, v) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for causal
+    ``[B, H, T, D]`` operands: the ``aten::_scaled_dot_product_<backend>``
+    op one call records on the host (its flash backend stops at head dim
+    256)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    prefix = "aten::_scaled_dot_product_"
+    names = sorted({e.key[len(prefix):] for e in prof.key_averages()
+                    if e.key.startswith(prefix)})
+    return ", ".join(names) or "math"
 
 
 def flash_f32_readings() -> None:
@@ -1597,6 +1729,47 @@ def phase_lm_wide(smi: str, lm7: dict) -> dict:
           f"{res['step_losses'][-1]:.6f}; bf16 D=256 flash launches "
           f"{counts[('bf16', 256)]}; peak memory "
           f"{res['max_memory_allocated']}; {smi}", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_wide512(smi: str, lm7: dict) -> dict:
+    """Phase 7 (d): the LM of record's width with 6 heads of 512 (bf16,
+    flash) through ``run_lm_benchmark``: tok/s and peak memory beside
+    phase 7's, and the wide instances' launches (head dim 512, bf16), of
+    each exactly one a layer and step and of no other instance."""
+    from horovod_tpu_torch.benchmark import run_lm_benchmark
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    for c in fa.instance_launches.values():
+        c.reset()
+    warm, timed = LM_WIDE_STEPS
+    res = run_lm_benchmark(
+        **LM_WIDE512, attention="flash", remat="none",
+        momentum_dtype="bfloat16", num_warmup_batches=warm,
+        num_batches_per_iter=1, num_iters=timed)
+    counts = _instance_counts(fa)
+    want = LM_WIDE512["n_layers"] * (warm + timed)
+    check(counts == {("bf16", 512): {"fwd": want, "bwd_dq": want,
+                                     "bwd_dkv": want}},
+          f"H6 LM: flash launches {counts}, expected {want} of each bf16 "
+          f"kernel at head dim 512 and no other")
+    check(all(x == x and abs(x) != float("inf") for x in res["step_losses"]),
+          f"H6 LM losses not finite: {res['step_losses']}")
+    summary = {k: res[k] for k in (
+        "d_model", "n_layers", "n_heads", "seq_len", "batch_size",
+        "tok_sec_per_chip", "ms_per_step", "mfu", "max_memory_allocated",
+        "step_losses")}
+    summary["nvidia_smi"] = smi
+    print(f"LM d3072/H6 (head dim 512, phase 7 (d)): "
+          f"{res['tok_sec_per_chip']:.1f} tok/s ({res['ms_per_step']:.1f} "
+          f"ms/step) beside phase 7's H24 {lm7['tok_sec_per_chip']:.1f} "
+          f"tok/s ({lm7['ms_per_step']:.1f} ms/step); losses "
+          f"{res['step_losses'][0]:.6f} -> {res['step_losses'][-1]:.6f}; "
+          f"bf16 D=512 flash launches {counts[('bf16', 512)]}; peak memory "
+          f"{res['max_memory_allocated']}; {smi}; " + json.dumps(summary),
+          flush=True)
     torch.cuda.empty_cache()
     return counts
 
@@ -5981,6 +6154,8 @@ def main() -> int:
     _lap("phase 7 (b)")
     _add_counts(instance_counts, phase_lm_wide(smi, lm_summary))
     _lap("phase 7 (c)")
+    _add_counts(instance_counts, phase_lm_wide512(smi, lm_summary))
+    _lap("phase 7 (d)")
     _add_counts(instance_counts, phase_lm_reference())
     _lap("phase 8")
     phase_hvd_api(smi, main_summary)
@@ -6035,8 +6210,8 @@ def main() -> int:
               f"17 (b), 21 (a) {count}")
         row["launches"] = sum(count)
     flash_rows[0]["launches"] += decode[0]
-    # The other instances' rows: their launches on phases 7 (b), 7 (c)
-    # and 8, the paths that run them.
+    # The other instances' rows: their launches on phases 7 (b), 7 (c),
+    # 7 (d) and 8, the paths that run them.
     for row in flash_rows[3:]:
         kind, inst, d = row["instance"]
         row["launches"] = instance_counts.get((inst, d), {}).get(kind, 0)

@@ -362,3 +362,24 @@ def compression() -> str:
     """``HOROVOD_COMPRESSION``: the gradient wire codec's name, stripped
     (``""`` when unset)."""
     return (os.environ.get("HOROVOD_COMPRESSION") or "").strip()
+
+
+def describe() -> str:
+    """The registry as a fixed-width table in the reference's format
+    (``horovod_tpu/config.py:452``; also the output of ``python -m
+    horovod_tpu_torch.config``): name, type, scope, default and doc, one
+    row a variable in name order.  The scope is ``py`` on every row: the
+    port reads each knob in Python (the reference's ``native`` rows are
+    those its C++ runtime reads too)."""
+    rows = [(e.name, e.type, "py",
+             "" if e.default is None else repr(e.default), e.doc)
+            for e in sorted(REGISTRY.values())]
+    w0 = max(len(r[0]) for r in rows)
+    w3 = max(len(r[3]) for r in rows)
+    return "\n".join(
+        f"{name:<{w0}}  {type_:<5} {scope:<6} {dflt:<{w3}}  {doc}"
+        for name, type_, scope, dflt, doc in rows)
+
+
+if __name__ == "__main__":
+    print(describe())

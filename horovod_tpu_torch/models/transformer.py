@@ -404,6 +404,14 @@ class TransformerLM(nn.Module):
                        segment_ids=segment_ids)
 
 
+def init_abstract(cfg: TransformerConfig) -> Dict:
+    """The parameter tree of :class:`TransformerLM` on the ``meta`` device
+    (reference ``:439``, ``jax.eval_shape`` of ``init_params``): every
+    leaf's shape and dtype without storage, to derive specs and sizes
+    without materializing the weights."""
+    return TransformerLM(cfg, device="meta").tree()
+
+
 def _step_groups(mesh: Mesh, data_axis, model_axis, seq_axis):
     """The groups of the step: ``(model, seq, gradient mean, agreement)``.
     Without a model or seq axis, ``data_axis`` may be a group (default:
@@ -684,6 +692,12 @@ def stack_layer_params_interleaved(params, n_devices: int,
     order = [(j % virtual) * n_devices + j // virtual
              for j in range(n_chunks)]
     return pp.stack_stage_params([chunk(c) for c in order])
+
+
+def stacked_layer_specs(pipe_axis: str):
+    """The spec of every stacked-layer leaf (reference ``:580``): the stage
+    dim over ``pipe_axis``, in :func:`param_specs`' per-dim form."""
+    return (pipe_axis,)
 
 
 def split_pipeline_params(params, n_stages: int, virtual: int = 1) -> Dict:

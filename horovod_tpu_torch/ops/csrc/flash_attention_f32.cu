@@ -6,6 +6,10 @@
 //   _fwd_kernel     (:108) -> flash_f32_fwd_kernel
 //   _bwd_dq_kernel  (:173) -> flash_f32_dq_kernel
 //   _bwd_dkv_kernel (:226) -> flash_f32_dkv_kernel
+// up to head dim 256, and above it (D a multiple of 256 at run time) the
+// wide instances wide::flash_f32_{fwd,dq,dkv}_wide_kernel: f32 FMA on the
+// CUDA cores, chunked over the head dim (see their section; shared
+// memory 68,608 / 94,720 / 104,960 B whatever D).
 // The reference upcasts its operands to f32 and multiplies them with
 // preferred_element_type=f32, so an f32 call keeps f32 products.
 //
@@ -1320,6 +1324,474 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 256: the wide instances (D a multiple of 256, any size;
+// the wrapper pads the others), every product in f32 FMA on the CUDA
+// cores, so they keep f32 accuracy as the plain versions do.  A block of
+// 256 threads, a 16 x 16 grid (ty, tx), owns 64 rows (q rows in the
+// forward and dQ, keys in dK/dV) and the output columns [c0, c0 + COLS)
+// (blockIdx.z; COLS 256 for O and dQ, 128 for dK and dV), and walks tiles
+// of 32 of the other side.  No tile holds a whole row: the products that
+// reduce over the head dim (S = Q.K^T and dP = dO.V^T, or their
+// transposes) give each thread 4 rows by 2 columns of the 64 x 32 score
+// tile and accumulate over chunks of 64 columns of both operands staged in
+// shared memory (rows of 68 floats, float4 reads free of bank conflicts);
+// the products that reduce over the tile's rows (O += P.V, dQ += dS.K, dV
+// += P^T.dO, dK += dS^T.Q) read the score tile (64 x 36 floats) and the
+// block's columns of the other operand (rows of COLS + 4 floats), each
+// thread accumulating its 4 rows by COLS / 16 columns.  Each row's di
+// sums dO * O over the whole head dim from device memory in the order the
+// dP products sum (one thread a row, d ascending), so dP - di is exactly
+// 0 where a row's one visible key is itself, as in exact arithmetic (the
+// plain dQ forms it in f64; a strided f32 di left noise there at 2.2x the
+// f32 row floor at [24, 2048, 512]).  What bounds them: the CUDA cores'
+// f32 rate (67 TFLOP/s), against which every column block recomputes the
+// scores.
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+constexpr int THREADS = 256;
+constexpr int BR = 64;             // q rows (forward, dQ) or keys (dK/dV)
+constexpr int BC = 32;             // keys (forward, dQ) or q rows (dK/dV)
+constexpr int DC = 64;             // columns of a head-dim chunk
+constexpr int LDC = DC + 4;        // shared row length of a chunk
+constexpr int LDP = BC + 4;        // shared row length of the score tile
+constexpr int COLS = 256;          // O or dQ columns a block
+constexpr int DKV_COLS = 128;      // dK and dV columns a block
+
+// ROWS rows [r0, r0 + ROWS) and NCOLS columns [col0, col0 + NCOLS) of an
+// operand (rows st floats apart from src) into shared rows of ld floats;
+// rows past T read as zeros.
+template <int ROWS, int NCOLS>
+__device__ __forceinline__ void load(float* dst, int ld, const float* src,
+                                     int r0, int T, long long st, int col0) {
+  constexpr int V4 = NCOLS / 4;
+  for (int idx = threadIdx.x; idx < ROWS * V4; idx += THREADS) {
+    const int r = idx / V4, c = (idx % V4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < T)
+      x = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * st +
+                                           col0 + c);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = x;
+  }
+}
+
+// acc[i][j] += a_i . b_j over one chunk: a the rows ty * 4 + i of chunk A,
+// b the rows tx + 16 j of chunk B.
+__device__ __forceinline__ void dot_chunk(float (&acc)[4][2], const float* A,
+                                          const float* B, int ty, int tx) {
+#pragma unroll 4
+  for (int d = 0; d < DC; d += 4) {
+    float4 a[4], b[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * LDC + d);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LDC + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// acc[i][4 n + e] += sum_c P[ty * 4 + i][c] * B[c][64 n + 4 tx + e] over
+// the BC rows of B (rows of N + 4 floats): this thread's columns of an
+// N-column block.
+template <int N>
+__device__ __forceinline__ void accumulate(float (&acc)[4][N / 16],
+                                           const float* P, const float* B,
+                                           int ty, int tx) {
+#pragma unroll 2
+  for (int c = 0; c < BC; c += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (ty * 4 + i) * LDP + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+      for (int n = 0; n < N / 64; ++n) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            B + (c + cc) * (N + 4) + 64 * n + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pv = cc == 0 ? p[i].x : cc == 1 ? p[i].y
+                                            : cc == 2 ? p[i].z : p[i].w;
+          acc[i][4 * n] = fmaf(pv, b.x, acc[i][4 * n]);
+          acc[i][4 * n + 1] = fmaf(pv, b.y, acc[i][4 * n + 1]);
+          acc[i][4 * n + 2] = fmaf(pv, b.z, acc[i][4 * n + 2]);
+          acc[i][4 * n + 3] = fmaf(pv, b.w, acc[i][4 * n + 3]);
+        }
+      }
+    }
+  }
+}
+
+// This thread's rows (ty * 4 + i, below T from row r0) of an N-column
+// accumulator, times `mul`, into columns [c0, c0 + N) of device memory.
+template <int N>
+__device__ __forceinline__ void store(float* dst, const float (&acc)[4][N / 16],
+                                      int r0, int T, long long st, int c0,
+                                      int ty, int tx, float mul) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= T) continue;
+#pragma unroll
+    for (int n = 0; n < N / 64; ++n)
+      *reinterpret_cast<float4*>(dst + (long long)r * st + c0 + 64 * n +
+                                 4 * tx) =
+          make_float4(acc[i][4 * n] * mul, acc[i][4 * n + 1] * mul,
+                      acc[i][4 * n + 2] * mul, acc[i][4 * n + 3] * mul);
+  }
+}
+
+// A sum and a NaN-propagating max over the 16 threads of a row (tx).
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1)
+    x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// di of the row at `at` over the whole head dim, one FMA a column in
+// ascending order (dot_chunk's).
+__device__ __forceinline__ float row_di(const float* dout, const float* o,
+                                        long long at, int D) {
+  float part = 0.f;
+  for (int d = 0; d < D; ++d) part = fmaf(dout[at + d], o[at + d], part);
+  return part;
+}
+
+constexpr int fwd_smem_bytes() {
+  return ((BR + BC) * LDC + BC * (COLS + 4) + BR * LDP) * 4;
+}
+
+constexpr int dq_smem_bytes() {
+  return ((2 * BR + 2 * BC) * LDC + BC * (COLS + 4) + BR * LDP) * 4;
+}
+
+constexpr int dkv_smem_bytes() {
+  return ((2 * BR + 2 * BC) * LDC + 2 * BC * (DKV_COLS + 4) +
+          2 * BR * LDP + 4 * BC) * 4;
+}
+
+
+// Forward: one block per (64-row q tile, batch*head, 256 columns of O).
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_f32_fwd_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ o,
+                              float* __restrict__ m_out,
+                              float* __restrict__ l_out,
+                              const int* __restrict__ qseg,
+                              const int* __restrict__ kseg, Geometry g,
+                              int D, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* const sQ = reinterpret_cast<float*>(smem4);  // a chunk of Q
+  float* const sK = sQ + BR * LDC;                    // a chunk of K
+  float* const sV = sK + BC * LDC;                    // V's columns
+  float* const sP = sV + BC * (COLS + 4);
+  const int T = g.T, y = blockIdx.x, c0 = blockIdx.z * COLS;
+  // The last q tiles do the most work under causal masking: they start
+  // first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const long long off = base_offset(g, y);
+  const int* qs = qseg ? qseg + (long long)(y / g.seg_heads) * T : nullptr;
+  const int* ks = kseg ? kseg + (long long)(y / g.seg_heads) * T : nullptr;
+  int row[4], my_seg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row[i] = q0 + ty * 4 + i;
+    my_seg[i] = (qs && row[i] < T) ? qs[row[i]] : 0;
+  }
+  float acc[4][COLS / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS / 16; ++n) acc[i][n] = 0.f;
+  float m_i[4], l_part[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_i[i] = -INFINITY, l_part[i] = 0.f;
+
+  const int kend = causal ? min(T, q0 + BR) : T;
+  for (int k0 = 0; k0 < kend; k0 += BC) {
+    float s[4][2] = {};
+    for (int dc = 0; dc < D; dc += DC) {
+      __syncthreads();  // the previous chunk (and tile) is no longer read
+      load<BR, DC>(sQ, LDC, q + off, q0, T, g.st, dc);
+      load<BC, DC>(sK, LDC, k + off, k0, T, g.st, dc);
+      __syncthreads();
+      dot_chunk(s, sQ, sK, ty, tx);
+    }
+    load<BC, COLS>(sV, COLS + 4, v + off, k0, T, g.st, c0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kc = k0 + tx + 16 * j;
+        const bool ok = kc < T && (!causal || kc <= row[i]) &&
+                        (!ks || ks[kc] == my_seg[i]);
+        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        mx = max_nan(mx, s[i][j]);
+      }
+      mx = row_max(mx);
+      const float m_new = max_nan(m_i[i], mx);
+      const float safe_m = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr =
+          (m_i[i] == -INFINITY) ? 0.f : expf(m_i[i] - safe_m);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - safe_m);
+        sum += p;
+        sP[(ty * 4 + i) * LDP + tx + 16 * j] = p;
+      }
+      l_part[i] = l_part[i] * corr + sum;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < COLS / 16; ++n) acc[i][n] *= corr;
+    }
+    __syncthreads();
+    accumulate<COLS>(acc, sP, sV, ty, tx);
+  }
+
+  // Epilogue: l == 0 divides by 1 (a fully masked row: o = 0, m = -inf,
+  // l = 0); every column block computes the same m and l, the first one
+  // writes them.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l = row_sum(l_part[i]);
+    const float denom = (l == 0.f) ? 1.f : l;
+    if (row[i] >= T) continue;
+#pragma unroll
+    for (int n = 0; n < COLS / 64; ++n)
+      *reinterpret_cast<float4*>(o + off + (long long)row[i] * g.st + c0 +
+                                 64 * n + 4 * tx) =
+          make_float4(acc[i][4 * n] / denom, acc[i][4 * n + 1] / denom,
+                      acc[i][4 * n + 2] / denom, acc[i][4 * n + 3] / denom);
+    if (blockIdx.z == 0 && tx == 0) {
+      m_out[(long long)y * T + row[i]] = m_i[i];
+      l_out[(long long)y * T + row[i]] = l;
+    }
+  }
+}
+
+// dQ: one block per (64-row q tile, batch*head, 256 columns of dQ); walks
+// key tiles of 32.
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_f32_dq_wide_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ o,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ m_in,
+                             const float* __restrict__ l_in,
+                             const int* __restrict__ qseg,
+                             const int* __restrict__ kseg,
+                             float* __restrict__ dq, Geometry g, int D,
+                             int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* const sQ = reinterpret_cast<float*>(smem4);  // chunks of Q, dO
+  float* const sdO = sQ + BR * LDC;
+  float* const sK = sdO + BR * LDC;                   // chunks of K, V
+  float* const sV = sK + BC * LDC;
+  float* const sKc = sV + BC * LDC;                   // K's columns
+  float* const sS = sKc + BC * (COLS + 4);
+  const int T = g.T, y = blockIdx.x, c0 = blockIdx.z * COLS;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const long long off = base_offset(g, y);
+  const int* qs = qseg ? qseg + (long long)(y / g.seg_heads) * T : nullptr;
+  const int* ks = kseg ? kseg + (long long)(y / g.seg_heads) * T : nullptr;
+
+  // di = rowsum(dO * O) from the stored o, one thread a row, summed in
+  // the order dot_chunk sums dP (d ascending, one FMA each): where a row's
+  // one visible key is itself (o = v there) dP - di is then exactly 0, as
+  // in exact arithmetic (the score tile holds them until the loop).
+  if (threadIdx.x < BR) {
+    const int r = q0 + threadIdx.x;
+    sS[threadIdx.x] =
+        r < T ? row_di(dout, o, off + (long long)r * g.st, D) : 0.f;
+  }
+  __syncthreads();
+  // Each row's statistics: safe_m, denom (trouble spot 1) and di.
+  int row[4], my_seg[4];
+  float safe_m[4], denom[4], di[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row[i] = q0 + ty * 4 + i;
+    float m = -INFINITY, l = 0.f;
+    my_seg[i] = 0;
+    if (row[i] < T) {
+      m = m_in[(long long)y * T + row[i]];
+      l = l_in[(long long)y * T + row[i]];
+      if (qs) my_seg[i] = qs[row[i]];
+    }
+    di[i] = sS[ty * 4 + i];
+    safe_m[i] = (m == -INFINITY) ? 0.f : m;
+    denom[i] = (l == 0.f) ? 1.f : l;
+  }
+
+  float acc[4][COLS / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS / 16; ++n) acc[i][n] = 0.f;
+
+  const int kend = causal ? min(T, q0 + BR) : T;
+  for (int k0 = 0; k0 < kend; k0 += BC) {
+    float s[4][2] = {}, dp[4][2] = {};
+    for (int dc = 0; dc < D; dc += DC) {
+      __syncthreads();
+      load<BR, DC>(sQ, LDC, q + off, q0, T, g.st, dc);
+      load<BR, DC>(sdO, LDC, dout + off, q0, T, g.st, dc);
+      load<BC, DC>(sK, LDC, k + off, k0, T, g.st, dc);
+      load<BC, DC>(sV, LDC, v + off, k0, T, g.st, dc);
+      __syncthreads();
+      dot_chunk(s, sQ, sK, ty, tx);
+      dot_chunk(dp, sdO, sV, ty, tx);
+    }
+    load<BC, COLS>(sKc, COLS + 4, k + off, k0, T, g.st, c0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kc = k0 + tx + 16 * j;
+        const bool ok = kc < T && (!causal || kc <= row[i]) &&
+                        (!ks || ks[kc] == my_seg[i]);
+        const float p = ok ? expf(s[i][j] * scale - safe_m[i]) / denom[i]
+                           : 0.f;
+        sS[(ty * 4 + i) * LDP + tx + 16 * j] = p * (dp[i][j] - di[i]);
+      }
+    __syncthreads();
+    accumulate<COLS>(acc, sS, sKc, ty, tx);
+  }
+  // The scale multiplies dQ after its products (trouble spot 3).
+  store<COLS>(dq + off, acc, q0, T, g.st, c0, ty, tx, scale);
+}
+
+// dK/dV: one block per (64-key tile, batch*head, 128 columns of dK and
+// dV); walks q tiles of 32 on the transposed scores S^T = K . Q^T.
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_f32_dkv_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ o,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ m_in,
+                              const float* __restrict__ l_in,
+                              const int* __restrict__ qseg,
+                              const int* __restrict__ kseg,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              Geometry g, int D, int causal, float scale) {
+  constexpr int N = DKV_COLS;
+  extern __shared__ float4 smem4[];
+  float* const sK = reinterpret_cast<float*>(smem4);  // chunks of K, V
+  float* const sV = sK + BR * LDC;
+  float* const sQ = sV + BR * LDC;                    // chunks of Q, dO
+  float* const sdO = sQ + BC * LDC;
+  float* const sQc = sdO + BC * LDC;                  // Q's columns
+  float* const sdOc = sQc + BC * (N + 4);             // dO's columns
+  float* const sP = sdOc + BC * (N + 4);              // P^T, [key][q row]
+  float* const sdS = sP + BR * LDP;                   // dS^T
+  float* const st_m = sdS + BR * LDP;     // per q row of the tile: safe_m,
+  float* const st_l = st_m + BC;          // denom,
+  float* const st_di = st_l + BC;         // di
+  int* const st_seg = reinterpret_cast<int*>(st_di + BC);  // and segment
+  const int T = g.T, y = blockIdx.x, k0 = blockIdx.y * BR;
+  const int c0 = blockIdx.z * N;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const long long off = base_offset(g, y);
+  const int* qs = qseg ? qseg + (long long)(y / g.seg_heads) * T : nullptr;
+  const int* ks = kseg ? kseg + (long long)(y / g.seg_heads) * T : nullptr;
+  int key[4], key_seg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    key[i] = k0 + ty * 4 + i;
+    key_seg[i] = (ks && key[i] < T) ? ks[key[i]] : 0;
+  }
+  float acc_dk[4][N / 16], acc_dv[4][N / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < N / 16; ++n) acc_dk[i][n] = acc_dv[i][n] = 0.f;
+
+  // Causal: the q tiles from the first one holding a row q >= k0.
+  const int q_start = causal ? (k0 / BC) * BC : 0;
+  for (int q0 = q_start; q0 < T; q0 += BC) {
+    float s[4][2] = {}, dp[4][2] = {};
+    for (int dc = 0; dc < D; dc += DC) {
+      __syncthreads();  // the previous chunk (and tile) is no longer read
+      load<BR, DC>(sK, LDC, k + off, k0, T, g.st, dc);
+      load<BR, DC>(sV, LDC, v + off, k0, T, g.st, dc);
+      load<BC, DC>(sQ, LDC, q + off, q0, T, g.st, dc);
+      load<BC, DC>(sdO, LDC, dout + off, q0, T, g.st, dc);
+      __syncthreads();
+      dot_chunk(s, sK, sQ, ty, tx);
+      dot_chunk(dp, sV, sdO, ty, tx);
+    }
+    load<BC, N>(sQc, N + 4, q + off, q0, T, g.st, c0);
+    load<BC, N>(sdOc, N + 4, dout + off, q0, T, g.st, c0);
+    if (threadIdx.x < BC) {
+      // The tile's statistics, one thread a row; di from the stored o,
+      // summed in the order dot_chunk sums dP^T (see the dQ kernel).
+      const int rr = threadIdx.x, qr = q0 + rr;
+      float m = -INFINITY, l = 0.f, di = 0.f;
+      int seg = 0;
+      if (qr < T) {
+        m = m_in[(long long)y * T + qr];
+        l = l_in[(long long)y * T + qr];
+        if (qs) seg = qs[qr];
+        di = row_di(dout, o, off + (long long)qr * g.st, D);
+      }
+      st_m[rr] = (m == -INFINITY) ? 0.f : m;
+      st_l[rr] = (l == 0.f) ? 1.f : l;
+      st_di[rr] = di;
+      st_seg[rr] = seg;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int qc = tx + 16 * j, qr = q0 + qc;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = qr < T && key[i] < T && (!causal || qr >= key[i]) &&
+                        (!qs || st_seg[qc] == key_seg[i]);
+        const float p =
+            ok ? expf(s[i][j] * scale - st_m[qc]) / st_l[qc] : 0.f;
+        sP[(ty * 4 + i) * LDP + qc] = p;
+        sdS[(ty * 4 + i) * LDP + qc] = p * (dp[i][j] - st_di[qc]);
+      }
+    }
+    __syncthreads();
+    accumulate<N>(acc_dv, sP, sdOc, ty, tx);
+    accumulate<N>(acc_dk, sdS, sQc, ty, tx);
+  }
+  // The scale multiplies dK after its products (trouble spot 3).
+  store<N>(dk + off, acc_dk, k0, T, g.st, c0, ty, tx, scale);
+  store<N>(dv + off, acc_dv, k0, T, g.st, c0, ty, tx, 1.f);
+}
+
+}  // namespace wide
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel,
@@ -1437,20 +1909,82 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// The wide launches: grids of (batch*head, row tiles, column blocks).
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* o, void* m, void* l, const void* qseg,
+                            const void* kseg, int BH, const Geometry& g,
+                            int D, int causal, float scale,
+                            cudaStream_t stream) {
+  constexpr int smem = wide::fwd_smem_bytes();
+  cudaError_t err = prepare(wide::flash_f32_fwd_wide_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(BH, (g.T + wide::BR - 1) / wide::BR, D / wide::COLS);
+  wide::flash_f32_fwd_wide_kernel<<<grid, wide::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(m), static_cast<float*>(l),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg), g, D,
+      causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const void* m,
+                           const void* l, const void* qseg, const void* kseg,
+                           void* dq, int BH, const Geometry& g, int D,
+                           int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = wide::dq_smem_bytes();
+  cudaError_t err = prepare(wide::flash_f32_dq_wide_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(BH, (g.T + wide::BR - 1) / wide::BR, D / wide::COLS);
+  wide::flash_f32_dq_wide_kernel<<<grid, wide::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<const int*>(qseg),
+      static_cast<const int*>(kseg), static_cast<float*>(dq), g, D, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* m,
+                            const void* l, const void* qseg,
+                            const void* kseg, void* dk, void* dv, int BH,
+                            const Geometry& g, int D, int causal,
+                            float scale, cudaStream_t stream) {
+  constexpr int smem = wide::dkv_smem_bytes();
+  cudaError_t err = prepare(wide::flash_f32_dkv_wide_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(BH, (g.T + wide::BR - 1) / wide::BR, D / wide::DKV_COLS);
+  wide::flash_f32_dkv_wide_kernel<<<grid, wide::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<const int*>(qseg),
+      static_cast<const int*>(kseg), static_cast<float*>(dk),
+      static_cast<float*>(dv), g, D, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The C interface, loaded with ctypes, with the signatures of
 // flash_attention.cu's: every tensor f32 ([BH, T] m and l), segment ids
-// int32 ([BH / seg_heads, T], or null).  D is 16, 32, 64, 128 or 256.
+// int32 ([BH / seg_heads, T], or null).  D is 16, 32, 64, 128 or 256, or
+// a multiple of 256 above it (the wide instances).
 
-#define HVD_SWITCH_D(CALL)                      \
-  switch (D) {                                  \
-    case 16: return (int)CALL(16);              \
-    case 32: return (int)CALL(32);              \
-    case 64: return (int)CALL(64);              \
-    case 128: return (int)CALL(128);            \
-    case 256: return (int)CALL(256);            \
-    default: return (int)cudaErrorInvalidValue; \
+#define HVD_SWITCH_D(CALL, WIDE_CALL)                               \
+  switch (D) {                                                      \
+    case 16: return (int)CALL(16);                                  \
+    case 32: return (int)CALL(32);                                  \
+    case 64: return (int)CALL(64);                                  \
+    case 128: return (int)CALL(128);                                \
+    case 256: return (int)CALL(256);                                \
+    default:                                                        \
+      if (D > 256 && D % wide::COLS == 0) return (int)WIDE_CALL;    \
+      return (int)cudaErrorInvalidValue;                            \
   }
 
 extern "C" int hvd_flash_fwd_f32(const void* q, const void* k, const void* v,
@@ -1463,7 +1997,8 @@ extern "C" int hvd_flash_fwd_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CALL(DD) \
   launch_fwd<DD>(q, k, v, o, m, l, qseg, kseg, BH, g, causal, scale, s)
-  HVD_SWITCH_D(CALL)
+  HVD_SWITCH_D(CALL, launch_fwd_wide(q, k, v, o, m, l, qseg, kseg, BH, g, D,
+                                     causal, scale, s))
 #undef CALL
 }
 
@@ -1480,7 +2015,8 @@ extern "C" int hvd_flash_bwd_dq_f32(const void* q, const void* k,
 #define CALL(DD)                                                       \
   launch_dq<DD>(q, k, v, o, dout, m, l, qseg, kseg, dq, BH, g, causal, \
                 scale, s)
-  HVD_SWITCH_D(CALL)
+  HVD_SWITCH_D(CALL, launch_dq_wide(q, k, v, o, dout, m, l, qseg, kseg, dq,
+                                    BH, g, D, causal, scale, s))
 #undef CALL
 }
 
@@ -1498,6 +2034,7 @@ extern "C" int hvd_flash_bwd_dkv_f32(const void* q, const void* k,
 #define CALL(DD)                                                          \
   launch_dkv<DD>(q, k, v, o, dout, m, l, qseg, kseg, dk, dv, BH, g, causal, \
                  scale, s)
-  HVD_SWITCH_D(CALL)
+  HVD_SWITCH_D(CALL, launch_dkv_wide(q, k, v, o, dout, m, l, qseg, kseg, dk,
+                                     dv, BH, g, D, causal, scale, s))
 #undef CALL
 }

@@ -28,23 +28,25 @@ Contract, as the reference's:
 * Fully masked rows give ``o = 0`` and zero gradients (``l == 0`` counts
   as a denominator of 1).
 
-The kernels take every float dtype the reference's kernels take, at any
-head dim up to 256 (``_kernel_plan``): bf16 and f16 run the Hopper
-kernels, f32 those of ``csrc/flash_attention_f32.cu`` (products to about
-f32 accuracy, as the reference multiplies its f32-upcast operands: all
-three in three TF32 passes on the tensor cores).  Head dims 16, 32, 64,
-128 and 256 have instances of their own; any other ``D <= 256`` is
-padded with zero columns to the next one (zero columns of q and k leave
-the scores unchanged, those of v give zero columns of o), with the
+The kernels take every float dtype and head dim the reference's kernels
+take (``_kernel_plan``): bf16 and f16 run the Hopper kernels, f32 those
+of ``csrc/flash_attention_f32.cu`` (products to about f32 accuracy, as
+the reference multiplies its f32-upcast operands: three TF32 passes on
+the tensor cores up to D 256, f32 FMA above).  Head dims 16, 32, 64, 128
+and 256 have instances of their own; any other ``D <= 256`` is padded
+with zero columns to the next one, and any ``D > 256`` to the next
+multiple of 256, which the wide instances take (zero columns of q and k
+leave the scores unchanged, those of v give zero columns of o), with the
 caller's scale, and the outputs are sliced back.
 ``o``, ``dq``, ``dk`` and ``dv`` come back in the operands' dtype, ``m``
-and ``l`` in f32.  f64 and ``D > 256`` on the card raise; nothing on a
-CUDA tensor falls back to the plain versions.
+and ``l`` in f32.  f64 on the card raises; nothing on a CUDA tensor
+falls back to the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -62,17 +64,39 @@ NEG_INF = float("-inf")
 # Head dims the kernels are built for (multiples of the 16-deep tensor-core
 # product); any other head dim up to the last is padded to the next one.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+# Above the last, the wide instances take any multiple of WIDE_STEP (the
+# column block of their outputs): a head dim is padded to the next one.
+WIDE_STEP = 256
 # The instance of each dtype the kernels take: bf16 and f16 run the Hopper
 # kernels of csrc/flash_attention.cu, f32 those of
-# csrc/flash_attention_f32.cu (three TF32 passes).
+# csrc/flash_attention_f32.cu (three TF32 passes; f32 FMA above D 256).
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16",
                  torch.float32: "f32"}
+
+
+class _InstanceCounters(dict):
+    """Launches by ``(kernel, instance, kernel head dim)``: those of
+    ``KERNEL_HEAD_DIMS`` from the start, a wide head dim's at its first
+    launch (any multiple of ``WIDE_STEP`` is one)."""
+
+    def __init__(self):
+        super().__init__()
+        self._lock = threading.Lock()
+        for kind in _TOTALS:
+            for inst in KERNEL_DTYPES.values():
+                for d in KERNEL_HEAD_DIMS:
+                    self.__missing__((kind, inst, d))
+
+    def __missing__(self, key):
+        kind, inst, d = key
+        with self._lock:
+            return self.setdefault(key, _build.CallCounter(
+                f"flash_attention.{kind}.{inst}.d{d}"))
+
+
 # Launches by (kernel, instance, kernel head dim), beside the totals above:
 # which instance a path ran.
-instance_launches = {
-    (kind, inst, d): _build.CallCounter(f"flash_attention.{kind}.{inst}.d{d}")
-    for kind in _TOTALS for inst in KERNEL_DTYPES.values()
-    for d in KERNEL_HEAD_DIMS}
+instance_launches = _InstanceCounters()
 # Key block of the plain versions: bounds their score block to
 # [B*H, T, 128] f32.
 _PLAIN_BLOCK_K = 128
@@ -300,8 +324,11 @@ class _Geometry:
 def _kernel_plan(dtype: torch.dtype, d: int):
     """``(instance, d_kernel)``: the kernels a launch on ``dtype`` operands
     of head dim ``d`` takes (``"bf16"``, ``"f16"`` or ``"f32"``) and the
-    head dim its operands are padded to.  Raises ``TypeError`` for a dtype
-    the kernels do not take and ``ValueError`` for ``d > 256``."""
+    head dim its operands are padded to: the smallest of
+    ``KERNEL_HEAD_DIMS`` that holds ``d``, above them the next multiple of
+    ``WIDE_STEP`` (the wide instances; there is no ceiling).  Raises
+    ``TypeError`` for a dtype the kernels do not take and ``ValueError``
+    for ``d < 1``."""
     inst = KERNEL_DTYPES.get(dtype)
     if inst is None:
         if dtype == torch.float64:
@@ -312,9 +339,11 @@ def _kernel_plan(dtype: torch.dtype, d: int):
                 "f32 there), so cast to float32")
         raise TypeError(f"the flash attention kernels take bfloat16, "
                         f"float16 or float32; got {dtype}")
-    if not 1 <= d <= KERNEL_HEAD_DIMS[-1]:
+    if d < 1:
         raise ValueError(f"head_dim {d}: the flash attention kernels take "
-                         f"head dims up to {KERNEL_HEAD_DIMS[-1]}")
+                         f"head dims of 1 and more")
+    if d > KERNEL_HEAD_DIMS[-1]:
+        return inst, -(-d // WIDE_STEP) * WIDE_STEP
     return inst, next(x for x in KERNEL_HEAD_DIMS if x >= d)
 
 

@@ -21,6 +21,9 @@ frozen, receives the average, so the replicas stay equal where the
 reference's runtime would wait for a tensor that this rank never
 submits.
 
+``distributed_gradients`` (reference ``:109``) is the same average as
+an optax-style transform over a tree of gradients.
+
 ``make_training_step`` (reference ``:256-490``) runs the replicated
 update, the ZeRO-1 sharded update (``shard_optimizer=True``) or, for a
 stateful wire codec, the compressed replicated update.  The per-leaf
@@ -53,7 +56,9 @@ from horovod_tpu_torch.ops.collective import Average
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.fusion import (_bucket_leaves, fused_psum,
                                           fusion_threshold_bytes)
+from horovod_tpu_torch.optim import Transform
 from horovod_tpu_torch.topology import data_axis
+from horovod_tpu_torch.tree import tree_leaves, tree_map
 from horovod_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -362,6 +367,38 @@ def DistributedGradientTape(grad_fn: Callable, *,
         return _allreduce_grads(out, compression, op, process_set)
 
     return wrapped
+
+
+def distributed_gradients(compression=Compression.none,
+                          op=Average) -> Transform:
+    """The gradient transform at the core of ``DistributedOptimizer``
+    (reference ``data.py:109``), in the port's optax form
+    (:class:`~horovod_tpu_torch.optim.Transform`): ``init(params)`` keeps
+    no state (``()``, optax's ``EmptyState``) and ``update(grads, state,
+    params=None)`` returns ``(grads, state)`` with every leaf of the tree
+    of gradients (dicts, lists and tuples of tensors) reduced with ``op``
+    over every rank.  The leaves go out in the reference's tree order
+    (dicts by sorted key), each an ``allreduce_async`` named
+    ``DistributedGrad.<i>`` cast by ``compression``, all enqueued before
+    any is waited for, as the reference's eager plane does."""
+    compression = _compression(compression)
+
+    def init(params):
+        del params
+        return ()
+
+    def update(grads, state, params=None):
+        del params
+        wire = [compression.compress(g) for g in tree_leaves(grads)]
+        handles = [collective.allreduce_async(w, op=op,
+                                              name=f"DistributedGrad.{i}")
+                   for i, (w, _) in enumerate(wire)]
+        reduced = iter([compression.decompress(collective.synchronize(h),
+                                               ctx)
+                        for h, (_, ctx) in zip(handles, wire)])
+        return tree_map(lambda _: next(reduced), grads), state
+
+    return Transform(init, update)
 
 
 def make_training_step(loss_fn: Callable, model: torch.nn.Module,

@@ -610,8 +610,8 @@ def ring_flash_attention(q, k, v, axis_name=None, causal: bool = True,
 
     The same semantics as :func:`ring_attention`.  On CUDA tensors every
     step launches the flash kernels of ``fa._kernel_plan`` (bf16, f16 or
-    f32 at any head dim up to 256, padded to a kernel head dim; f64 and
-    wider heads raise before any exchange, as ``flash_attention`` does);
+    f32 at any head dim, padded to a kernel head dim; f64 raises before
+    any exchange, as ``flash_attention`` does);
     on CPU tensors their plain versions run.  Under ``causal`` the steps whose arriving block is
     fully masked launch nothing: per rank ``idx``, ``1 + idx`` forward
     launches and as many dQ and dK/dV launches (``size`` each without

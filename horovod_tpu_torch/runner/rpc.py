@@ -456,6 +456,14 @@ class KeepaliveMonitor:
             return {t: top - step for t, (step, _) in self._steps.items()}
 
 
+def find_free_port(bind: str = "") -> int:
+    """A TCP port free on ``bind`` (every interface by default) when
+    asked: the kernel's pick for port 0 (reference ``rpc.py:468``)."""
+    with socket.socket() as s:
+        s.bind((bind, 0))
+        return s.getsockname()[1]
+
+
 def job_key_bytes(env_value: Optional[str]) -> bytes:
     """``HOROVOD_SECRET_KEY`` as raw bytes (urlsafe base64, else the raw
     string's bytes)."""

@@ -219,15 +219,53 @@ def test_flash_instances_match_plain_versions(cuda_device, dtype, bh, t, d,
         assert _row_ratio(a, b, *lim) <= 1.0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("bh,t,d,causal,segs", [
+    (4, 320, 512, True, None),
+    (4, 192, 512, False, ([64, 64, 40, 24], [64, 64, 64])),
+    (4, 512, 512, True, ([100, 200, 150, 62], [100, 200, 150, 62])),
+    (2, 40, 320, True, None),
+    (2, 320, 768, False, None),
+])
+@pytest.mark.cuda
+def test_flash_wide_instances_match_plain_versions(cuda_device, dtype, bh,
+                                                   t, d, causal, segs):
+    """The wide instances (head dims above 256; 320 padded to 512, 768
+    three column blocks) in every dtype, causal and not, segment ids with
+    a fully masked row, a T that leaves a tile partly empty: o, m, l, dq,
+    dk and dv row by row against the plain versions (f32 at F32_ROW_*)."""
+    q, k, v, do = _flash_inputs(bh, t, d, seed=t + d, dtype=dtype)
+    qs = ks = None
+    if segs is not None:
+        qs, ks = _seg(bh // 2, segs[0]), _seg(bh // 2, segs[1])
+    sc = d ** -0.5
+    o, m, l = fa._fwd_parts(q, k, v, qs, ks, causal, sc)
+    ro, rm, rl = fa._fwd_parts_plain(q, k, v, qs, ks, causal, sc)
+    got = (o,) + fa._bwd_parts(q, k, v, ro, do, rm, rl, qs, ks, causal, sc)
+    want = (ro,) + fa._bwd_parts_plain(q, k, v, ro, do, rm, rl, qs, ks,
+                                       causal, sc)
+    torch.cuda.synchronize()
+    lim = (F32_ROW_RTOL, F32_ROW_ATOL) if dtype == torch.float32 else ()
+    assert _rel_to_one(m, rm) <= ML_TOL and _rel_to_one(l, rl) <= ML_TOL
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert _row_ratio(a, b, *lim) <= 1.0
+    if segs is not None and segs[0] != segs[1]:
+        assert not o[:, 168:].any() and not l[:, 0, 168:].any()
+        assert not got[1][:, 168:].any()
+
+
 @pytest.mark.cuda
 def test_flash_kernels_reject_float64(cuda_device):
-    """f64 and head dims above 256 raise before any launch."""
+    """f64 and an empty head dim raise before any launch (head dims above
+    256 run the wide instances)."""
     x = torch.zeros((1, 64, 2, 64), device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="float64"):
         fa.flash_attention(x, x, x)
-    y = torch.zeros((1, 64, 2, 272), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 272"):
-        fa.flash_attention(y, y, y)
+    y = torch.zeros((1, 64, 2, 0), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        fa.flash_attention(y, y, y, scale=1.0)
 
 
 @pytest.mark.cuda
@@ -244,35 +282,43 @@ def test_flash_kernels_propagate_nan(cuda_device):
 
 # Faults planted in a copy of a kernel source, each wrong only on the
 # late tiles (queries or keys from 1024 on), where the causal gradients
-# are small: (source, operand dtype, text in the source, its faulty
-# replacement).  The faults sit in the tile-count helpers that each
-# kernel's producer and consumers share, so the faulty kernels still
-# finish.
+# are small: (source, operand dtype, head dim, text in the source, its
+# faulty replacement).  The faults sit in the tile-count helpers that each
+# kernel's producer and consumers share, or skip products without
+# touching the pipeline, so the faulty kernels still finish.
 PLANTED_FAULTS = {
     # The forward drops its diagonal key tile.
     "fwd_drops_diagonal_k_tile": (
-        "flash_attention", torch.bfloat16,
+        "flash_attention", torch.bfloat16, 128,
         "const int kend = causal ? min(T, q0 + FWD_BR) : T;",
         "const int kend = causal ? min(T, q0 + FWD_BR) - (q0 >= 1024) * "
         "BC : T;"),
     # dK/dV starts one q tile late: it skips the diagonal tile.
     "dkv_starts_one_q_tile_late": (
-        "flash_attention", torch.bfloat16,
+        "flash_attention", torch.bfloat16, 128,
         "return causal ? k0 / DKV_BQ : 0;",
         "return causal ? k0 / DKV_BQ + (k0 >= 1024) : 0;"),
     # dQ drops its last key tiles, the diagonal ones of both warpgroups.
     "dq_drops_last_k_tile": (
-        "flash_attention", torch.bfloat16,
+        "flash_attention", torch.bfloat16, 128,
         "const int kend = causal ? min(T, q0 + DQ_BR) : T;",
         "const int kend = causal ? min(T, q0 + DQ_BR) - (q0 >= 1024) * "
         "DQ_BR : T;"),
     # The f32 dQ (three TF32 passes) drops its diagonal key tiles, held at
     # the f32 row limits.
     "f32_dq_drops_diagonal_k_tiles": (
-        "flash_attention_f32", torch.float32,
+        "flash_attention_f32", torch.float32, 128,
         "return ((causal ? min(T, q0 + BR) : T) + BK - 1) / BK;",
         "return ((causal ? min(T, q0 + BR) - (q0 >= 1024) * BR : T) + BK - "
         "1) / BK;"),
+    # The wide forward (head dim 512) drops the last head-dim chunk of S
+    # on the late q tiles.
+    "wide_fwd_drops_last_d_chunk": (
+        "flash_attention", torch.bfloat16, 512,
+        "      mma_chunk<FWD_BR, WF_BC, E>(sc, sQ, wg * 64, sQ + WF_Q, c);\n",
+        "      if (c + 1 < nc || q0 < 1024)\n"
+        "        mma_chunk<FWD_BR, WF_BC, E>(sc, sQ, wg * 64, sQ + WF_Q, c);"
+        "\n"),
 }
 
 
@@ -284,10 +330,10 @@ def test_flash_row_check_catches_planted_faults(cuda_device, tmp_path,
     a fault on the late tiles, in the fault's dtype with its row limits.
     Prints, for the record, the check it replaced: max abs over max(1, max
     |ref|), with its 3e-2 limit."""
-    source, dtype, old, new = PLANTED_FAULTS[fault]
+    source, dtype, d, old, new = PLANTED_FAULTS[fault]
     lim = (F32_ROW_RTOL, F32_ROW_ATOL) if dtype == torch.float32 else ()
-    q, k, v, do = _flash_inputs(8, 2048, 128, seed=21, dtype=dtype)
-    sc = 128 ** -0.5
+    q, k, v, do = _flash_inputs(8, 2048, d, seed=21, dtype=dtype)
+    sc = d ** -0.5
     ro, rm, rl = fa._fwd_parts_plain(q, k, v, None, None, True, sc)
     want = (ro,) + fa._bwd_parts_plain(q, k, v, ro, do, rm, rl, None, None,
                                        True, sc)

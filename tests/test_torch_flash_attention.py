@@ -272,15 +272,22 @@ def test_shape_and_dtype_errors(bad, match):
 
 def test_kernel_wrapper_checks_run_before_any_launch():
     """What the CUDA kernels refuse, checked before any launch (the
-    wrapper's checks run on any device): f64 and head dims above 256.
-    f32 and a head dim between the kernels' (48) get a plan instead: f32's
-    kernels, the operands padded with zero columns to 64."""
+    wrapper's checks run on any device): f64 and an empty head dim.  f32
+    and a head dim between the kernels' (48) get a plan instead: f32's
+    kernels, the operands padded with zero columns to 64; so does a head
+    dim above 256 (272), padded to the wide instances' 512."""
     x = torch.zeros((1, 64, 2, 16), dtype=torch.float64)
     with pytest.raises(TypeError, match="float64.*x64"):
         tfa._kernel_operands(x, x, x)
-    y = torch.zeros((1, 64, 2, 272), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 272.*up to 256"):
-        tfa._kernel_operands(y, y, y)
+    y = torch.randn((1, 64, 2, 272), generator=torch.Generator().manual_seed(
+        1)).to(torch.bfloat16)
+    assert tfa._kernel_plan(y.dtype, 272) == ("bf16", 512)
+    out = tfa._kernel_operands(y, y, y)
+    assert all(o.shape == (1, 64, 2, 512) and o.is_contiguous() for o in out)
+    assert torch.equal(out[0][..., :272], y) and not out[0][..., 272:].any()
+    e = torch.zeros((1, 64, 2, 0), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        tfa._kernel_operands(e, e, e)
     w = torch.randn((1, 64, 2, 48), generator=torch.Generator().manual_seed(0))
     assert tfa._kernel_plan(w.dtype, 48) == ("f32", 64)
     out = tfa._kernel_operands(w, w, w)
@@ -309,11 +316,12 @@ def test_unsupported_device_raises():
 
 
 # ---------------------------------------------------------------------------
-# The kernels' whole input domain: f32 and f16 operands, head dims up to
-# 256 (16, 32, 64, 128 and 256 run their own instances; others pad).
+# The kernels' whole input domain: f32 and f16 operands, every head dim
+# (16, 32, 64, 128 and 256 run their own instances, others up to 256 pad
+# to the next one; above 256 the wide instances take a multiple of 256).
 # ---------------------------------------------------------------------------
 
-WIDE_DIMS = (16, 80, 96, 256)
+WIDE_DIMS = (16, 80, 96, 256, 320, 512)
 _NP_DT = {"float32": np.float32, "float16": np.float16}
 _JNP_DT = {"float32": jnp.float32, "float16": jnp.float16}
 _TORCH_DT = {"float32": torch.float32, "float16": torch.float16}
@@ -380,9 +388,9 @@ def _assert_wide(got, want, dtype, what):
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_f32_and_f16_match_jax_at_every_head_dim(dtype, d):
-    """The CPU route in f32 and f16 at D 16, 80, 96 and 256, packed and
-    causal: o and the gradients against the JAX kernel, in the operands'
-    dtype."""
+    """The CPU route in f32 and f16 at D 16, 80, 96, 256, 320 and 512,
+    packed and causal: o and the gradients against the JAX kernel, in the
+    operands' dtype."""
     _assert_wide(_port_wide(dtype, d), _jax_wide(dtype, d), dtype,
                  f"{dtype} D={d}")
 
@@ -412,13 +420,85 @@ def test_padded_route_matches_jax(monkeypatch, dtype, d):
                                         (torch.float32, "f32")])
 def test_kernel_plan_covers_every_head_dim(dtype, inst):
     """Every head dim from 1 to 256 takes the dtype's kernels at the
-    smallest kernel head dim that holds it; 257 and up raise."""
+    smallest kernel head dim that holds it; every one above takes the
+    wide instances at the next multiple of 256, with no ceiling (checked
+    to 4096); a head dim below 1 raises."""
     for d in range(1, 257):
         want = min(x for x in tfa.KERNEL_HEAD_DIMS if x >= d)
         assert tfa._kernel_plan(dtype, d) == (inst, want), d
-    for d in (257, 272, 512):
+    for d in range(257, 4097):
+        want = (d + tfa.WIDE_STEP - 1) // tfa.WIDE_STEP * tfa.WIDE_STEP
+        assert tfa._kernel_plan(dtype, d) == (inst, want), d
+    assert tfa.WIDE_STEP == 256 and tfa._kernel_plan(dtype, 1024) == (
+        inst, 1024)
+    for d in (0, -1):
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             tfa._kernel_plan(dtype, d)
+
+
+# The wide head dims part by part: (o, m, l) of the folded forward and
+# (dq, dk, dv) from the reference's own (o, m, l), causal and packed, at D
+# 320 (padded to 512) and 512.
+WIDEST_DIMS = (320, 512)
+
+
+def _wide_parts_inputs(dtype, d):
+    """Folded q, k, v, dO ([B*H, T, D], numpy), [B, 1, T] segment ids (a
+    border inside the second 32-row block) and H."""
+    rs = np.random.default_rng(d + 7)
+    q, k, v, do = (rs.standard_normal((2, 64, d)).astype(_NP_DT[dtype])
+                   for _ in range(4))
+    return q, k, v, do, _segments(1, [40, 24])[:, None], 2
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wide_parts(dtype, d):
+    """The JAX kernels (interpret mode): o, m, l, dq, dk, dv (numpy)."""
+    q, k, v, do, seg, h = _wide_parts_inputs(dtype, d)
+    q, k, v, do, seg = map(jnp.asarray, (q, k, v, do, seg))
+    sc = d ** -0.5
+    o, m, l = jfa._fwd_parts(q, k, v, seg, seg, h, True, sc, 32, 32, True)
+    grads = jfa._bwd_parts(q, k, v, o, do, m, l, seg, seg, h, True, sc, 32,
+                           32, True)
+    return [np.asarray(x) for x in (o, m, l) + tuple(grads)]
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel_wrappers"])
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("d", WIDEST_DIMS)
+def test_wide_parts_match_jax(monkeypatch, route, dtype, d):
+    """The plain versions (the CPU route) and the kernel wrappers (the
+    card's route: the plan pads to 512 and the kernel calls compute with
+    the plain versions here) at a wide head dim: o, m, l, dq, dk and dv
+    against the JAX kernels, with the D 256 tests' tolerances (m and l at
+    the f32 forward's)."""
+    want = _jax_wide_parts(dtype, d)
+    inst = {"float32": "f32", "float16": "f16"}[dtype]
+    if route == "kernel_wrappers":
+        seen = flash_kernels_as_plain(monkeypatch)
+        before = {k: c.count for k, c in tfa.instance_launches.items()}
+    q, k, v, do, seg = (torch.from_numpy(x)
+                        for x in _wide_parts_inputs(dtype, d)[:5])
+    sc = d ** -0.5
+    o, m, l = tfa._fwd_parts(q, k, v, seg, seg, True, sc)
+    jo, jm, jl = (torch.from_numpy(x.copy()) for x in want[:3])
+    got = (o, m, l) + tfa._bwd_parts(q, k, v, jo, do, jm, jl, seg, seg, True,
+                                     sc)
+    for name, a, b in zip(("o", "m", "l", "dq", "dk", "dv"), got, want):
+        assert a.dtype == (torch.float32 if name in "ml"
+                           else _TORCH_DT[dtype]), name
+        tol = FWD_TOL if name in "ml" else _tol(dtype, grad=name[0] == "d")
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32), rtol=tol,
+                                   atol=tol, err_msg=f"{route} D={d} {name}")
+    if route == "kernel_wrappers":
+        assert seen == [(kind, inst, (2, 64, 512))
+                        for kind in ("fwd", "bwd_dq", "bwd_dkv")]
+        moved = {key: c.count - before.get(key, 0) for key, c in
+                 tfa.instance_launches.items()
+                 if c.count != before.get(key, 0)}
+        assert moved == {(kind, inst, 512): 1
+                         for kind in ("fwd", "bwd_dq", "bwd_dkv")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int32,
@@ -428,8 +508,9 @@ def test_kernel_plan_refuses_other_dtypes(dtype):
         tfa._kernel_plan(dtype, 64)
 
 
-# The slice as a whole: a small LM whose heads are 256 wide (d 512, 2
-# heads, 1 layer, T 32), through the flash route in f32 and f16.
+# The slice as a whole: small LMs whose heads are 256 and 512 wide (d 512
+# and 1024, 2 heads, 1 layer, T 32), through the flash route in f32 and
+# f16.
 WIDE_LM = dict(vocab_size=64, d_model=512, n_heads=2, n_layers=1, d_ff=128,
                max_seq=32)
 # f16: the activations round to f16 at every layer, on each side after its
@@ -439,9 +520,9 @@ WIDE_LM = dict(vocab_size=64, d_model=512, n_heads=2, n_layers=1, d_ff=128,
 WIDE_LM_TOL = {"float32": 1e-4, "float16": 4e-3}
 
 
-def _wide_lm_params(seed=0):
+def _wide_lm_params(seed=0, d=WIDE_LM["d_model"]):
     rng = np.random.default_rng(seed)
-    d, f = WIDE_LM["d_model"], WIDE_LM["d_ff"]
+    f = WIDE_LM["d_ff"]
 
     def dense(shape, scale=None):
         return (rng.standard_normal(shape) * (scale or shape[0] ** -0.5)
@@ -462,19 +543,19 @@ def _wide_lm_params(seed=0):
     }
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float16"])
-def test_lm_with_256_wide_heads_matches_jax(dtype):
+def _check_wide_lm(dtype, d_model):
     """The port's LM (weights carried from the flax tree by
-    ``models/convert.py``) against the JAX package's, both with
-    ``attention="flash"``: logits and the gradients of the loss."""
-    params = _wide_lm_params()
-    t = WIDE_LM["max_seq"]
+    ``models/convert.py``) against the JAX package's at ``d_model``, both
+    with ``attention="flash"``: logits and the gradients of the loss."""
+    lm = dict(WIDE_LM, d_model=d_model)
+    params = _wide_lm_params(d=d_model)
+    t = lm["max_seq"]
     toks = np.random.default_rng(1).integers(0, 64, (2, t + 1)).astype(
         np.int32)
     tokens, labels = toks[:, :-1], toks[:, 1:]
-    jcfg = jtfm.TransformerConfig(dtype=_JNP_DT[dtype], **WIDE_LM)
-    tcfg = tfm.TransformerConfig(dtype=_TORCH_DT[dtype], **WIDE_LM)
-    assert tcfg.d_model // tcfg.n_heads == 256
+    jcfg = jtfm.TransformerConfig(dtype=_JNP_DT[dtype], **lm)
+    tcfg = tfm.TransformerConfig(dtype=_TORCH_DT[dtype], **lm)
+    assert tcfg.d_model // tcfg.n_heads == d_model // 2
 
     def jloss(p):
         logits = jtfm.forward(p, jnp.asarray(tokens), jcfg,
@@ -500,3 +581,14 @@ def test_lm_with_256_wide_heads_matches_jax(dtype):
     for (name, _), g in zip(leaves.items(), grads):
         np.testing.assert_allclose(g.float().numpy(), want[name],
                                    rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_lm_with_256_wide_heads_matches_jax(dtype):
+    _check_wide_lm(dtype, 512)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_lm_with_512_wide_heads_matches_jax(dtype):
+    """Heads of 512 (d 1024): the wide instances' head dim."""
+    _check_wide_lm(dtype, 1024)

@@ -272,12 +272,13 @@ def test_ring_flash_launch_plan(results, monkeypatch, causal, packed):
 
 
 @pytest.mark.parametrize("dtype,d,err", [
-    (torch.float64, 16, TypeError), (torch.bfloat16, 272, ValueError)])
+    (torch.float64, 16, TypeError), (torch.bfloat16, 0, ValueError)])
 def test_ring_flash_refuses_what_the_kernels_refuse(monkeypatch, dtype, d,
                                                     err):
-    """On the card's route f64 inputs and head dims above 256 raise as
+    """On the card's route f64 inputs and an empty head dim raise as
     ``flash_attention`` does, before any block moves; nothing falls back
-    to a plain version."""
+    to a plain version.  (Head dims above 256 plan the wide instances:
+    test_ring_flash_d512_on_the_cards_route_matches_jax.)"""
     monkeypatch.setattr(fa, "_route", lambda x: "cuda")
     q = torch.zeros((1, 16, 2, d), dtype=dtype)
     with pytest.raises(err):
@@ -285,13 +286,14 @@ def test_ring_flash_refuses_what_the_kernels_refuse(monkeypatch, dtype, d,
             q, q, q, ax))
 
 
-def test_ring_flash_f32_on_the_cards_route_matches_jax(monkeypatch):
+def _ring_flash_on_the_cards_route(monkeypatch, d, d_kernel):
     """Ring-flash in f32 at 2 virtual ranks on the card's route, causal and
-    packed, head dim 80: every launch takes the f32 kernels at head dim
-    128 (the plan pads; the kernel calls compute with the plain versions
-    here), 1 + i of each kernel on rank i, and o and the gradients equal
-    JAX ``ring_flash_attention`` on 2 CPU devices (interpret mode)."""
-    n, h, d = 2, 2, 80
+    packed, head dim ``d``: every launch takes the f32 kernels at head dim
+    ``d_kernel`` (the plan pads; the kernel calls compute with the plain
+    versions here), 1 + i of each kernel on rank i, and o and the
+    gradients equal JAX ``ring_flash_attention`` on 2 CPU devices
+    (interpret mode)."""
+    n, h = 2, 2
     tl, scale = T // n, d ** -0.5
     rng = np.random.default_rng(9)
     x = dict(zip("qkvw", (rng.standard_normal((B, T, h, d)).astype(
@@ -317,7 +319,7 @@ def test_ring_flash_f32_on_the_cards_route_matches_jax(monkeypatch):
     outs = sq.VirtualAxis(n).run(rank)
     got = [torch.cat([o[j] for o in outs], 1).numpy() for j in range(4)]
     assert {(kind, inst, shape[-1]) for kind, inst, shape in seen} == {
-        (kind, "f32", 128) for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+        (kind, "f32", d_kernel) for kind in ("fwd", "bwd_dq", "bwd_dkv")}
     launches = [kind for kind, _, _ in seen]
     assert (launches.count("fwd"), launches.count("bwd_dq"),
             launches.count("bwd_dkv")) == (2 * 3, 3, 3)
@@ -325,6 +327,15 @@ def test_ring_flash_f32_on_the_cards_route_matches_jax(monkeypatch):
     for name, a, b in zip(("dq", "dk", "dv"), got[1:], want_g):
         np.testing.assert_allclose(a, b, rtol=GRAD_TOL, atol=GRAD_TOL,
                                    err_msg=name)
+
+
+def test_ring_flash_f32_on_the_cards_route_matches_jax(monkeypatch):
+    _ring_flash_on_the_cards_route(monkeypatch, 80, 128)
+
+
+def test_ring_flash_d512_on_the_cards_route_matches_jax(monkeypatch):
+    """Head dim 512: the wide instances, unpadded."""
+    _ring_flash_on_the_cards_route(monkeypatch, 512, 512)
 
 
 def test_ulysses_heads_must_divide_the_axis():
